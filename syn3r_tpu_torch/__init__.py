@@ -1,0 +1,13 @@
+"""syn3r_tpu_torch: the PyTorch/CUDA port of syn3r_tpu for one NVIDIA H100.
+
+The JAX package ``syn3r_tpu`` stays the reference; this package mirrors its
+module paths and holds each ported module to it. It imports torch and numpy
+only, never jax or syn3r_tpu. The TPU kernels on the ported path have
+hand-written Hopper counterparts under ``csrc/`` (built by
+``kernels/build.py`` at first use), each with a plain torch version beside
+its wrapper that CPU tensors take.
+
+Ported so far: the guided SVD completion unit (``diffusion.pipeline.
+load_svd_completion``), with the GEGLU feed-forward and flash-attention
+kernels.
+"""

@@ -1,0 +1,297 @@
+"""Building blocks of the SVD model stack in torch.
+
+Counterpart of ``syn3r_tpu/models/layers.py``. Submodule and parameter
+names are diffusers' state-dict names, so a diffusers checkpoint loads
+as it is and the flax trees (which mirror the same names) bridge
+mechanically (``models/convert.py``).
+
+Conventions, as in the JAX package: spatial tensors are channel-last
+(B, H, W, C), sequences (B, S, C). Convolutions hand torch a zero-copy
+NCHW view of that memory (channels_last) and return channel-last again.
+The compute dtype is the dtype of the activations: every Linear and
+convolution casts its weights to it (a no-op when they are stored in it),
+and the norms take float32 statistics and float32 affine parameters and
+cast their output back, as the flax modules with ``dtype=`` do.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import attention
+from ..ops.geglu_ffn import geglu_ffn
+
+
+def timestep_embedding(timesteps: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sinusoidal embeddings (diffusers ``get_timestep_embedding`` with
+    SVD's settings: cos first, no frequency shift, period 10000), f32."""
+    half = dim // 2
+    exponent = -math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=timesteps.device) / half
+    emb = torch.exp(exponent)[None, :] * timesteps.float()[:, None]
+    return torch.cat([torch.cos(emb), torch.sin(emb)], dim=-1)
+
+
+class Linear(nn.Linear):
+    def forward(self, x):
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), b)
+
+
+class Conv2d(nn.Conv2d):
+    """Conv over channel-last (B, H, W, C) input."""
+
+    def forward(self, x):
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        y = self._conv_forward(x.permute(0, 3, 1, 2),
+                               self.weight.to(x.dtype), b)
+        return y.permute(0, 2, 3, 1)
+
+
+class Conv3d(nn.Conv3d):
+    """Conv over channel-last (B, F, H, W, C) input."""
+
+    def forward(self, x):
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        y = self._conv_forward(x.permute(0, 4, 1, 2, 3),
+                               self.weight.to(x.dtype), b)
+        return y.permute(0, 2, 3, 4, 1)
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm over the last axis with float32 channel-major statistics
+    (``ops.pallas_norm.group_norm_reference``), optionally fused SiLU."""
+
+    def __init__(self, num_channels: int, num_groups: int = 32,
+                 eps: float = 1e-6, silu: bool = False):
+        super().__init__()
+        self.num_groups, self.eps, self.silu = num_groups, eps, silu
+        self.weight = nn.Parameter(torch.ones(num_channels))
+        self.bias = nn.Parameter(torch.zeros(num_channels))
+
+    def forward(self, x):
+        shape, c = x.shape, x.shape[-1]
+        b, g = shape[0], self.num_groups
+        cg = c // g
+        xf = x.reshape(b, -1, c).float()
+        n = xf.shape[1] * cg
+        s1 = xf.sum(dim=1)
+        s2 = (xf * xf).sum(dim=1)
+        mean = s1.reshape(b, g, cg).sum(-1) / n
+        var = s2.reshape(b, g, cg).sum(-1) / n - mean * mean
+        rstd = torch.rsqrt(var + self.eps)
+        mean_c = mean.repeat_interleave(cg, dim=-1)[:, None]
+        rstd_c = rstd.repeat_interleave(cg, dim=-1)[:, None]
+        y = (xf - mean_c) * rstd_c
+        y = y * self.weight.float() + self.bias.float()
+        if self.silu:
+            y = F.silu(y)
+        return y.to(x.dtype).reshape(shape)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis, float32 statistics
+    (``ops.pallas_norm.layer_norm_reference``: var = E[x^2] - mean^2)."""
+
+    def __init__(self, num_channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_channels))
+        self.bias = nn.Parameter(torch.zeros(num_channels))
+
+    def forward(self, x):
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = (xf * xf).mean(dim=-1, keepdim=True) - mean * mean
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
+        y = y * self.weight.float() + self.bias.float()
+        return y.to(x.dtype)
+
+
+class TimestepEmbedding(nn.Module):
+    """linear_1 -> SiLU -> linear_2."""
+
+    def __init__(self, in_channels: int, time_embed_dim: int,
+                 out_dim: int | None = None):
+        super().__init__()
+        self.linear_1 = Linear(in_channels, time_embed_dim)
+        self.linear_2 = Linear(time_embed_dim, out_dim or time_embed_dim)
+
+    def forward(self, x):
+        return self.linear_2(F.silu(self.linear_1(x)))
+
+
+class Attention(nn.Module):
+    """Multi-head attention with diffusers ``Attention`` semantics: qkv
+    without bias unless ``qkv_bias``, ``to_out.0`` with bias, optional
+    GroupNorm before the projections and residual (VAE mid block)."""
+
+    def __init__(self, query_dim: int, heads: int, dim_head: int,
+                 context_dim: int | None = None, qkv_bias: bool = False,
+                 norm_num_groups: int | None = None,
+                 residual_connection: bool = False, eps: float = 1e-5):
+        super().__init__()
+        inner = heads * dim_head
+        ctx = context_dim or query_dim
+        self.heads, self.dim_head = heads, dim_head
+        self.residual_connection = residual_connection
+        self.group_norm = (GroupNorm(query_dim, norm_num_groups, eps)
+                           if norm_num_groups is not None else None)
+        self.to_q = Linear(query_dim, inner, bias=qkv_bias)
+        self.to_k = Linear(ctx, inner, bias=qkv_bias)
+        self.to_v = Linear(ctx, inner, bias=qkv_bias)
+        self.to_out = nn.ModuleList([Linear(inner, query_dim)])
+
+    def forward(self, x, context=None):
+        spatial = x.dim() == 4
+        if spatial:
+            b, h, w, c = x.shape
+            x = x.reshape(b, h * w, c)
+        residual = x
+        if self.group_norm is not None:
+            x = self.group_norm(x)
+        if context is not None and context.shape[1] == 1:
+            # One context token: softmax over one key is exactly 1, so the
+            # output is to_out(to_v(context)) broadcast over the queries
+            # (to_q / to_k stay in the state dict, unused).
+            out = self.to_out[0](self.to_v(context)).expand(
+                x.shape[0], x.shape[1], -1)
+        else:
+            ctx = x if context is None else context
+            bsz, s = x.shape[0], x.shape[1]
+
+            def split(t):
+                return t.view(t.shape[0], t.shape[1], self.heads,
+                              self.dim_head).transpose(1, 2)
+
+            q, k, v = split(self.to_q(x)), split(self.to_k(ctx)), \
+                split(self.to_v(ctx))
+            out = attention(q, k, v, 1.0 / math.sqrt(self.dim_head))
+            out = out.transpose(1, 2).reshape(bsz, s, -1)
+            out = self.to_out[0](out)
+        if self.residual_connection:
+            out = out + residual
+        if spatial:
+            out = out.reshape(b, h, w, -1)
+        return out
+
+
+class GEGLU(nn.Module):
+    def __init__(self, dim_in: int, inner: int):
+        super().__init__()
+        self.proj = Linear(dim_in, inner * 2)
+
+
+class FeedForward(nn.Module):
+    """GEGLU feed-forward (diffusers ``FeedForward``): ``net.0.proj`` and
+    ``net.2``, run through ``ops.geglu_ffn.geglu_ffn`` (the CUDA kernel on
+    the card). ``net.1`` is diffusers' dropout slot and holds nothing."""
+
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        inner = dim * mult
+        self.net = nn.ModuleList([GEGLU(dim, inner), nn.Identity(),
+                                  Linear(inner, dim)])
+
+    def forward(self, x):
+        c = x.shape[-1]
+        p1, p2 = self.net[0].proj, self.net[2]
+        y = geglu_ffn(x.reshape(-1, c), p1.weight, p1.bias, p2.weight,
+                      p2.bias)
+        return y.reshape(x.shape[:-1] + (p2.out_features,))
+
+
+class ResnetBlock2D(nn.Module):
+    """GN+SiLU -> conv3x3 -> (+temb) -> GN+SiLU -> conv3x3, + shortcut."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 temb_channels: int | None = None, eps: float = 1e-6):
+        super().__init__()
+        self.norm1 = GroupNorm(in_channels, 32, eps, silu=True)
+        self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1)
+        self.time_emb_proj = (Linear(temb_channels, out_channels)
+                              if temb_channels else None)
+        self.norm2 = GroupNorm(out_channels, 32, eps, silu=True)
+        self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv_shortcut = (Conv2d(in_channels, out_channels, 1)
+                              if in_channels != out_channels else None)
+
+    def forward(self, x, temb=None):
+        h = self.conv1(self.norm1(x))
+        if temb is not None:
+            h = h + self.time_emb_proj(F.silu(temb))[:, None, None, :]
+        h = self.conv2(self.norm2(h))
+        if self.conv_shortcut is not None:
+            x = self.conv_shortcut(x)
+        return x + h
+
+
+class TemporalResnetBlock(nn.Module):
+    """Resnet over the frame axis with (3, 1, 1) convolutions.
+    x: (B, F, H, W, C); temb: (B, F, D) or None."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 temb_channels: int | None = None, eps: float = 1e-6):
+        super().__init__()
+        self.norm1 = GroupNorm(in_channels, 32, eps, silu=True)
+        self.conv1 = Conv3d(in_channels, out_channels, (3, 1, 1),
+                            padding=(1, 0, 0))
+        self.time_emb_proj = (Linear(temb_channels, out_channels)
+                              if temb_channels else None)
+        self.norm2 = GroupNorm(out_channels, 32, eps, silu=True)
+        self.conv2 = Conv3d(out_channels, out_channels, (3, 1, 1),
+                            padding=(1, 0, 0))
+        self.conv_shortcut = (Conv3d(in_channels, out_channels, 1)
+                              if in_channels != out_channels else None)
+
+    def forward(self, x, temb=None):
+        h = self.conv1(self.norm1(x))
+        if temb is not None:
+            h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None, :]
+        h = self.conv2(self.norm2(h))
+        if self.conv_shortcut is not None:
+            x = self.conv_shortcut(x)
+        return x + h
+
+
+class AlphaBlender(nn.Module):
+    """Learned spatial/temporal mix. With SVD's all-zero
+    image_only_indicator both strategies reduce to alpha =
+    sigmoid(mix_factor); the VAE switches the two sides."""
+
+    def __init__(self, switch_spatial_to_temporal_mix: bool = False):
+        super().__init__()
+        self.switch = switch_spatial_to_temporal_mix
+        self.mix_factor = nn.Parameter(torch.tensor([0.5]))
+
+    def forward(self, x_spatial, x_temporal):
+        alpha = torch.sigmoid(self.mix_factor[0]).to(x_spatial.dtype)
+        if self.switch:
+            alpha = 1.0 - alpha
+        return alpha * x_spatial + (1.0 - alpha) * x_temporal
+
+
+class Downsample2D(nn.Module):
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = Conv2d(channels, channels, 3, stride=2, padding=1)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class Upsample2D(nn.Module):
+    """Nearest 2x upsample then conv3x3."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = Conv2d(channels, channels, 3, padding=1)
+
+    def forward(self, x):
+        x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+        return self.conv(x)
+
