@@ -17,6 +17,19 @@ Phases, one result line each; any failure raises and the exit code is not 0:
               variant, fused batch-3 forward, num_inference_steps=2 (the one
               cut from 100). Launch counts are zeroed just before and read
               just after; each kernel must have launched.
+  6. kernels  the tile-composite forward and backward kernels against their
+              plain versions at the GS main path's shapes (T 96 tiles,
+              px 2048, cap 1024, K 128), on G/C/O from projecting and binning
+              the full-size scene; then the kernel route's parameter
+              gradients against autograd through the plain composite.
+  7. gs_small one GS train step on the card through the kernels against the
+              same step on the CPU through the plain versions.
+  8. gs       the GS trainer at full size: 504x378, 65,536 Gaussians in
+              bench.py's seed-0 layout, tile_cap 1024, three views, 300
+              iterations with densify/prune at 100 and 200 and an opacity
+              reset at 200, fitting renders of a perturbed copy of the
+              scene. Launches counted over the run must equal the steps
+              (backward) and the steps plus renders (forward).
 The line before the last is the JSON kernel table, after it the
 nvidia-smi line, and the last line is {"ok": true, "device": {...}}.
 Details also go to chiprun_out/chip_smoke.json.
@@ -35,11 +48,17 @@ import torch.nn.functional as F
 from syn3r_tpu_torch.device import resolve_device
 from syn3r_tpu_torch.diffusion.pipeline import (init_random_weights_,
                                                 load_svd_completion)
+from syn3r_tpu_torch.gs import losses as gs_losses
+from syn3r_tpu_torch.gs.trainer import GSTrainer, TrainConfig, make_viewset
 from syn3r_tpu_torch.kernels import build
+from syn3r_tpu_torch.models import gaussians as GM
 from syn3r_tpu_torch.models.svd_unet import UNetSpatioTemporalConditionModel
 from syn3r_tpu_torch.ops import attention as A
+from syn3r_tpu_torch.ops import composite as TC
+from syn3r_tpu_torch.ops import rasterize as RZ
 from syn3r_tpu_torch.ops.geglu_ffn import geglu_ffn, geglu_ffn_reference
 from syn3r_tpu_torch.pipeline.completion import search_hypers_v2
+from syn3r_tpu_torch.utils.camera import camera_from_fov, look_at_w2c
 
 # Published dense peaks of one H100 SXM (data sheet), for bound_ms.
 PEAK_BF16_FLOPS = 989e12
@@ -61,6 +80,28 @@ ATTN_SHAPES = [(75 * 5, 9216, 5), (75 * 10, 2304, 5), (75 * 20, 576, 5)]
 TOL = {"geglu_ffn": (5e-2, 1e-2), "flash_attention": (2e-2, 1e-2)}
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "chiprun_out")
+# trainer checkpoints of the GS phases (not brought back)
+BUILD_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "chip_smoke")
+# float32 outside the tensor cores (data sheet), for the composite bounds
+PEAK_F32_FLOPS = 67e12
+# GS main path (bench.py's GS configuration, the CLI's --tile_cap 1024)
+GS_W, GS_H, GS_N, GS_CAP, GS_ITERS = 504, 378, 65_536, 1024, 300
+# Composite operations per (entry, pixel) pair, counted from the formulas
+# (an exp, log1p or divide counts one): reaching alpha (6 multiplies,
+# 5 adds, clamp, exp, multiply, clamp) for every entry with opacity >= 1/255;
+# forward, where alpha passes 1/255: log1p, add, exp, multiply, 5
+# multiply-adds (10), add = 15; backward there: T_in, w, gC (9), suffix (3),
+# dalpha (4), dpower, the 12 products and their 12 sums over pixels, log1p
+# and add = 45.
+OPS_LIVE, OPS_FWD_HIT, OPS_BWD_HIT = 15, 15, 45
+# Composite kernel vs plain version, float32 on both sides, the same
+# formulas in another summation order (and exp/log1p from another library):
+# elementwise |got - want| <= atol + rtol |want| (allclose), as
+# tests/test_pallas_rasterize.py holds the TPU kernels: forward (out and
+# ltc; depth and logT rows reach ~1e1) atol 1e-4, rtol 1e-4; gradients
+# atol 1e-6 + 1e-3 max|g|, rtol 2e-3.
+COMPOSITE_TOL = {"fwd": (1e-4, 1e-4), "bwd": (1e-3, 2e-3)}
 
 
 def say(phase, **kv):
@@ -99,8 +140,8 @@ def check(name, got, want):
     return max_abs, rel_rms
 
 
-def bound_ms(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+def bound_ms(flops, nbytes, peak=PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -268,6 +309,272 @@ def run_unit(dev):
                 frame_range=[lo, hi], load_s=load_s)
 
 
+def check_close(name, got, want, atol, rtol):
+    """Elementwise |got - want| <= atol + rtol |want|; returns (max_abs,
+    rel_rms)."""
+    max_abs, rel_rms = errors(got, want)
+    bad = int(((got - want).abs() > atol + rtol * want.abs()).sum())
+    if bad or not np.isfinite(max_abs):
+        raise AssertionError(f"{name}: {bad} elements beyond atol {atol} "
+                             f"rtol {rtol}; max_abs {max_abs} rel_rms "
+                             f"{rel_rms}")
+    return max_abs, rel_rms
+
+
+def check_grads(name, got, want):
+    """The gradient tolerance of COMPOSITE_TOL, scaled by max |want|."""
+    atol, rtol = COMPOSITE_TOL["bwd"]
+    return check_close(name, got, want,
+                       1e-6 + atol * want.abs().max().item(), rtol)
+
+
+def gs_scene(dev, n=GS_N, width=GS_W, height=GS_H):
+    """bench.py's GS scene: n Gaussians from numpy seed 0 in a slab in
+    front of one camera."""
+    rng = np.random.default_rng(0)
+    xyz = np.concatenate([rng.uniform(-1.5, 1.5, (n, 2)),
+                          rng.uniform(1.5, 4.0, (n, 1))], 1).astype(np.float32)
+    rgb = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    state = GM.from_points(torch.from_numpy(xyz).to(dev),
+                           torch.from_numpy(rgb).to(dev), capacity=n)
+    cam = camera_from_fov(0.9, 0.7, width, height,
+                          look_at_w2c([0.0, 0.0, 0.0], [0.0, 0.0, 2.5]),
+                          device=dev)
+    return state, cam, rng
+
+
+def composite_pairs(tl):
+    """(entry, pixel) pairs whose entry has opacity >= 1/255, and those
+    whose alpha passes 1/255: the work these inputs need."""
+    live = hit = 0
+    px = tl.P.shape[1]
+    for c in range(tl.G.shape[2] // tl.K):
+        sl = slice(c * tl.K, (c + 1) * tl.K)
+        o = tl.O[:, :, sl]
+        live += int((o >= TC.ALPHA_MIN).sum()) * px
+        praw = torch.einsum("tfk,fp->tkp", tl.G[:, :, sl], tl.P)
+        alpha = (o.transpose(1, 2) * torch.exp(praw.clamp(max=0.0))
+                 ).clamp(max=TC.ALPHA_MAX)
+        hit += int((alpha >= TC.ALPHA_MIN).sum())
+    return live, hit
+
+
+def param_grads(state, cam, target, composite, cap):
+    """d loss / d every parameter field through rasterize_tiled."""
+    params = {f: getattr(state, f).clone().requires_grad_(True)
+              for f in GM.PARAM_FIELDS}
+    sg = RZ.project_gaussians(state.replace(**params), cam)
+    out = RZ.rasterize_tiled(sg, cam.height, cam.width, cap=cap,
+                             composite=composite)
+    loss = (gs_losses.photometric_loss(out.rgb, target)
+            + 0.1 * out.alpha.mean() + 0.05 * out.depth.mean())
+    return dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+
+
+def check_composite(dev):
+    """Both composite kernels against their plain versions on the
+    full-size scene's tile lists, then the kernel route's gradients against
+    autograd through the plain composite."""
+    state, cam, _ = gs_scene(dev)
+    with torch.no_grad():
+        sg = RZ.project_gaussians(state, cam)
+        tl = RZ.bin_tiles(sg, cam.height, cam.width, cap=GS_CAP, chunk=256)
+    T, _, cap = tl.G.shape
+    px, K = tl.P.shape[1], tl.K
+    if (T, px, cap, K) != (96, 2048, 1024, 128):
+        raise AssertionError(f"composite shape {(T, px, cap, K)}")
+    args = (tl.P, tl.G, tl.C, tl.O)
+    out, ltc = TC.composite_fwd(*args, K)
+    out_ref, ltc_ref = TC.composite_fwd_reference(*args, K)
+    torch.cuda.synchronize()
+    e_out = check_close("composite_fwd out", out, out_ref,
+                        *COMPOSITE_TOL["fwd"])
+    e_ltc = check_close("composite_fwd ltc", ltc, ltc_ref,
+                        *COMPOSITE_TOL["fwd"])
+    g = torch.Generator(device=dev).manual_seed(5)
+    dout = torch.randn((T, 6, px), generator=g, device=dev)
+    got = TC.composite_bwd(*args, ltc_ref, dout, K)
+    want = TC.composite_bwd_reference(*args, ltc_ref, dout, K)
+    torch.cuda.synchronize()
+    e_bwd = [check_grads(f"composite_bwd {n}", a, b)
+             for n, a, b in zip(("dG", "dC", "dO"), got, want)]
+
+    live, hit = composite_pairs(tl)
+    fwd_bytes = 4 * (6 * px + T * 12 * cap + T * 6 * px + T * (cap // K) * px)
+    bwd_bytes = 4 * (6 * px + T * 24 * cap + T * (cap // K) * px
+                     + T * 6 * px)
+    rows = {}
+    for name, fn, plain, ops, nbytes, errs in (
+            ("composite_fwd", lambda: TC.composite_fwd(*args, K),
+             lambda: TC.composite_fwd_reference(*args, K),
+             OPS_LIVE * live + OPS_FWD_HIT * hit, fwd_bytes, [e_out, e_ltc]),
+            ("composite_bwd", lambda: TC.composite_bwd(*args, ltc_ref, dout, K),
+             lambda: TC.composite_bwd_reference(*args, ltc_ref, dout, K),
+             OPS_LIVE * live + OPS_BWD_HIT * hit, bwd_bytes, e_bwd)):
+        bms, by = bound_ms(ops, nbytes, PEAK_F32_FLOPS)
+        ms = cuda_ms(fn, 20)
+        rows[name] = dict(
+            tiles=T, px=px, cap=cap, K=K, live_pairs=live, hit_pairs=hit,
+            max_abs_err=max(e[0] for e in errs),
+            rel_rms_err=max(e[1] for e in errs), ms=ms,
+            plain_ms=cuda_ms(plain, 3), library_ms=None, bound_ms=bms,
+            bound_by=by, gflops=ops / ms / 1e6)
+        say("kernels", name=name, **rows[name])
+
+    # the kernel route's gradients against autograd through the plain
+    # composite, every parameter field, on the same scene
+    target = torch.rand((cam.height, cam.width, 3), generator=g, device=dev)
+    got = param_grads(state, cam, target, "kernel", GS_CAP)
+    want = param_grads(state, cam, target, "plain", GS_CAP)
+    torch.cuda.synchronize()
+    for f in GM.PARAM_FIELDS:
+        max_abs, rel_rms = check_grads(f"grad {f}", got[f], want[f])
+        rows.setdefault("grads", {})[f] = dict(max_abs=max_abs,
+                                               rel_rms=rel_rms)
+    say("kernels", what="kernel-route grads vs autograd through plain",
+        **{f: "%.2e/%.2e" % (v["max_abs"], v["rel_rms"])
+           for f, v in rows["grads"].items()})
+    return rows
+
+
+def small_gs_state(dev, n=500, cap=512):
+    """A small anisotropic scene (every gradient well away from 0, so one
+    Adam step has no sign to lose) in front of a 128x64 camera."""
+    rng = np.random.default_rng(3)
+    xyz = np.concatenate([rng.uniform(-1.0, 1.0, (n, 2)),
+                          rng.uniform(1.5, 3.5, (n, 1))], 1).astype(np.float32)
+    st = GM.from_points(torch.from_numpy(xyz),
+                        torch.from_numpy(rng.uniform(0, 1, (n, 3))
+                                         .astype(np.float32)), capacity=cap)
+    st = st.replace(
+        log_scales=st.log_scales + torch.from_numpy(
+            rng.uniform(0.2, 0.8, (cap, 3)).astype(np.float32)),
+        quats=torch.from_numpy(rng.normal(0, 1, (cap, 4)).astype(np.float32)),
+        sh_rest=torch.from_numpy(rng.normal(0, 0.05, (cap, 45))
+                                 .astype(np.float32)),
+        opacity_logits=torch.where(st.active[:, None], 1.0, -100.0))
+    cam = camera_from_fov(0.9, 0.7, 128, 64,
+                          look_at_w2c([0.1, 0.0, 0.0], [0.0, 0.0, 2.5]))
+    target = torch.from_numpy(rng.uniform(0, 1, (64, 128, 3))
+                              .astype(np.float32))
+    return st, cam, target
+
+
+def check_gs_small(dev):
+    """One train step on the card through the kernels against the same
+    step on the CPU through the plain versions: loss, the step's parameter
+    gradients (Adam's first moment, 0.1 x grad: the updated parameters
+    themselves move by about lr x sign(grad), which roundoff can flip where
+    a gradient is ~0) and the densify statistics."""
+    st, cam, target = small_gs_state("cpu")
+    cfg = TrainConfig(tile_cap=256, chunk=128, densify_from_iter=10 ** 9)
+    views = make_viewset([cam], target[None])
+    TC.composite_tiles.launches.update(fwd=0, bwd=0)
+    out = {}
+    for d in ("cpu", dev):
+        tr = GSTrainer(views, cfg, st, model_path=os.path.join(
+            BUILD_OUT, "gs_small"), device=d)
+        cam_d, img_d = tr.train_views.view(0)
+        out[str(d)] = tr._train_step(tr.state, cam_d, img_d)
+    launches = dict(TC.composite_tiles.launches)
+    (ts_c, m_c), (ts_d, m_d) = out["cpu"], out[str(dev)]
+    res = {"loss": check_close("gs_small loss", m_d["loss"].cpu(),
+                               m_c["loss"], 0.0, 1e-5)}
+    for f in GM.PARAM_FIELDS:
+        res[f"grad_{f}"] = check_grads(f"gs_small grad {f}",
+                                       ts_d.adam.mu[f].cpu(),
+                                       ts_c.adam.mu[f])
+    for f in ("grad_accum", "denom", "max_radii"):
+        res[f] = check_grads(f"gs_small stats {f}",
+                             getattr(ts_d.stats, f).cpu(),
+                             getattr(ts_c.stats, f))
+    if launches != {"fwd": 1, "bwd": 1}:
+        raise AssertionError(f"gs_small launches {launches}")
+    say("gs_small", loss_card=float(m_d["loss"]), loss_cpu=float(m_c["loss"]),
+        launches=launches,
+        worst=max(res.items(), key=lambda kv: kv[1][1]))
+    return {k: list(v) for k, v in res.items()}
+
+
+def run_gs(dev, iters=GS_ITERS):
+    """The GS trainer at full size on three views (the LLFF preset's view
+    count): fit renders of a perturbed copy of the scene, with densify/prune
+    at 100 and 200 and an opacity reset at 200. The Gaussians must grow."""
+    state, cam, rng = gs_scene(dev)
+    n = state.capacity
+    gt = state.replace(
+        means=state.means + torch.from_numpy(
+            rng.normal(0, 0.02, (n, 3)).astype(np.float32)).to(dev),
+        sh_dc=GM.rgb_to_sh_dc(torch.from_numpy(
+            rng.uniform(0, 1, (n, 1, 3)).astype(np.float32)).to(dev)),
+        opacity_logits=torch.full_like(state.opacity_logits, 1.0))
+    cams = [camera_from_fov(0.9, 0.7, cam.width, cam.height,
+                            look_at_w2c([x, 0.0, 0.0], [0.0, 0.0, 2.5]),
+                            device=dev) for x in (-0.3, 0.0, 0.3)]
+    with torch.no_grad():
+        targets = torch.stack([RZ.render(gt, c, method="kernel",
+                                         tile_cap=GS_CAP).rgb for c in cams])
+    # densify at 100 (capacity full: nothing written, then it doubles) and
+    # at 200 (clones and splits into the new slots, prune), reset at 200
+    cfg = TrainConfig(iterations=iters, tile_cap=GS_CAP, densify_from_iter=50,
+                      densify_until_iter=250, densification_interval=100,
+                      opacity_reset_interval=200)
+    tr = GSTrainer(make_viewset(cams, targets), cfg, state,
+                   model_path=os.path.join(BUILD_OUT, "gs"), device=dev)
+
+    def view_loss():
+        return float(sum(gs_losses.photometric_loss(
+            tr.render_view(c)["render"], t) for c, t in zip(cams, targets))
+            / len(cams))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    active0, cap0 = tr.gaussians.num_active, tr.gaussians.capacity
+    TC.composite_tiles.launches.update(fwd=0, bwd=0)
+    loss0 = view_loss()
+    t0 = time.perf_counter()
+    last = tr.training(log_every=50)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    loss1 = view_loss()
+    launches = dict(TC.composite_tiles.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    active1, cap1 = tr.gaussians.num_active, tr.gaussians.capacity
+
+    want = {"fwd": iters + 2 * len(cams), "bwd": iters}
+    if launches != want:
+        raise AssertionError(f"gs launches {launches}, expected {want}")
+    if not active1 > active0:
+        raise AssertionError(f"gs densify wrote nothing: {active0} active "
+                             f"before, {active1} after")
+    if not (np.isfinite(last) and np.isfinite(loss1) and loss1 < loss0):
+        raise AssertionError(f"gs loss did not fall: {loss0} -> {loss1} "
+                             f"(last step {last})")
+
+    # per-step and per-render times, outside the counted run
+    cam0, img0 = tr.train_views.view(0)
+    step_ms, render_ms = [], []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        tr.state, _ = tr._train_step(tr.state, cam0, img0)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    for _ in range(10):
+        t0 = time.perf_counter()
+        tr.render_view(cam0)
+        torch.cuda.synchronize()
+        render_ms.append(1e3 * (time.perf_counter() - t0))
+    res = dict(iterations=iters, views=len(cams), train_s=train_s,
+               loss_before=loss0, loss_after=loss1, last_step_loss=last,
+               launches=launches, active_before=active0,
+               capacity_before=cap0, active_after=active1,
+               capacity_after=cap1, peak_mem_gb=peak_gb,
+               step_ms_median=float(np.median(step_ms)),
+               render_ms_median=float(np.median(render_ms)))
+    say("gs", **res)
+    return res
+
+
 def kernel_entry(name, source, replaces, rows, launches):
     """Sums over one batch-3 UNet forward's calls of this kernel."""
     def tot(key):
@@ -310,6 +617,9 @@ def main():
     attn_rows = check_attention(gen, dev)
     small = check_small_unet(dev)
     unit = run_unit(dev)
+    comp = check_composite(dev)
+    gs_small = check_gs_small(dev)
+    gs = run_gs(dev)
 
     kernels = [
         kernel_entry("geglu_ffn", "syn3r_tpu_torch/csrc/geglu_ffn.cu",
@@ -320,11 +630,22 @@ def main():
                      "syn3r_tpu/models/layers.py:185", attn_rows,
                      unit["launches"]["flash_attention"]),
     ]
+    for name, line in (("composite_fwd", 67), ("composite_bwd", 140)):
+        r = comp[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"syn3r_tpu_torch/csrc/{name}.cu",
+            "replaces": f"syn3r_tpu/ops/pallas_rasterize.py:{line}",
+            "launches": gs["launches"][name[-3:]],
+            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms")},
+            "per": "one call at T 96, px 2048, cap 1024, K 128"})
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": smi, "torch": torch.__version__,
                    "geglu_ffn": ffn_rows, "flash_attention": attn_rows,
-                   "small_unet": small, "unit": unit, "kernels": kernels},
+                   "small_unet": small, "unit": unit, "composite": comp,
+                   "gs_small": gs_small, "gs": gs, "kernels": kernels},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)

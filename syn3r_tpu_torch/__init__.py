@@ -9,5 +9,6 @@ its wrapper that CPU tensors take.
 
 Ported so far: the guided SVD completion unit (``diffusion.pipeline.
 load_svd_completion``), with the GEGLU feed-forward and flash-attention
-kernels.
+kernels; and the 3DGS train step (``gs.trainer.GSTrainer``), with the tile
+composite's forward and backward kernels.
 """

@@ -1,0 +1,558 @@
+"""The 3DGS test-time trainer.
+
+Counterpart of ``syn3r_tpu/gs/trainer.py``: one train step renders the
+picked view, takes the confidence-weighted L1 + DSSIM loss (plus the
+Pearson depth term on SVD pseudo views), its gradients, a per-field Adam
+step and the densify statistics. Densify/prune runs at fixed capacity
+(``gs/densify.py``) and capacity doubles when occupancy passes 85%. The
+view picks use the JAX package's numpy stream, so both trainers pick the
+same views from the same seed; a plain Python loop replaces its
+``lax.scan`` segments. Checkpoints are npz files with the JAX package's
+names and keys, so each package loads the other's.
+
+``TrainConfig.rasterizer``: ``"kernel"`` (the tile composite kernels, the
+default), ``"tiled"`` (the same tiles, plain torch composite) or
+``"dense"``. ``GSTrainer(..., device="cuda")`` resolves through
+``device.resolve_device``: the CPU runs only when the caller asks for it.
+
+Not ported, each raising ``NotImplementedError``: the LPIPS loss (needs VGG
+weights, which LLFF never passes) and the monocular-depth pseudo step
+(``sample_pseudo_interval`` is 1e20 in every shipped config).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import glob
+import math
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..models import gaussians as G
+from ..ops import rasterize as rz
+from ..utils.camera import Camera, make_camera, stack_cameras
+from . import losses
+from .densify import DensifyStats, densify_and_prune, reset_opacity
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """The JAX package's ``TrainConfig`` fields and defaults, except
+    ``rasterizer`` (see the module docstring)."""
+    iterations: int = 10_000
+    position_lr_init: float = 1.6e-4
+    position_lr_final: float = 1.6e-6
+    position_lr_max_steps: int = 30_000
+    feature_lr: float = 2.5e-3
+    opacity_lr: float = 0.05
+    scaling_lr: float = 5e-3
+    rotation_lr: float = 1e-3
+    lambda_dssim: float = 0.2
+    lpips_weight: float = 1.0
+    svd_depth_warmup: int = 0
+    depth_loss_weight: float = 0.05
+    densify_from_iter: int = 500
+    densify_until_iter: int = 10_000
+    densification_interval: int = 100
+    opacity_reset_interval: int = 3_000
+    densify_grad_threshold: float = 2e-4
+    percent_dense: float = 0.01
+    min_opacity: float = 0.005
+    max_world_scale: Optional[float] = 0.1
+    max_screen_size: Optional[float] = 20.0
+    capacity_growth_occupancy: float = 0.85
+    max_capacity: int = 2 ** 21
+    use_proximity_densify: bool = False
+    proximity_threshold: float = 0.01
+    sample_pseudo_interval: int = 10 ** 20
+    start_sample_pseudo: int = 2_000
+    mono_depth_weight: float = 0.05
+    mono_pseudo_per_pair: int = 10
+    sample_svd_pseudo_interval: int = 2
+    start_sample_svd_iter: int = 2_000
+    pseudo_cam_sampling_rate: float = 0.0
+    rasterizer: str = "kernel"
+    tile_cap: int = 1024
+    sh_degree: int = 3
+    chunk: int = 256
+    group: int = 8        # the JAX scan's remat group; no effect here
+    bg_color: tuple = (0.0, 0.0, 0.0)
+    seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamState:
+    mu: dict
+    nu: dict
+    count: int
+
+    @staticmethod
+    def init(params: dict) -> "AdamState":
+        return AdamState(mu={k: torch.zeros_like(v) for k, v in params.items()},
+                         nu={k: torch.zeros_like(v) for k, v in params.items()},
+                         count=0)
+
+
+def position_lr(cfg: TrainConfig, extent: float, step: int) -> float:
+    """3DGS log-linear decay of the position learning rate, times the
+    scene extent."""
+    t = min(max(step / cfg.position_lr_max_steps, 0.0), 1.0)
+    return extent * math.exp((1 - t) * math.log(cfg.position_lr_init)
+                             + t * math.log(cfg.position_lr_final))
+
+
+def adam_update(params: dict, grads: dict, st: AdamState, lrs: dict,
+                b1: float = 0.9, b2: float = 0.999, eps: float = 1e-15
+                ) -> tuple[dict, AdamState]:
+    count = st.count + 1
+    c1 = 1.0 - b1 ** count
+    c2 = 1.0 - b2 ** count
+    new_p, new_mu, new_nu = {}, {}, {}
+    for k in params:
+        mu = b1 * st.mu[k] + (1 - b1) * grads[k]
+        nu = b2 * st.nu[k] + (1 - b2) * grads[k] ** 2
+        new_p[k] = params[k] - lrs[k] * (mu / c1) / (torch.sqrt(nu / c2)
+                                                      + eps)
+        new_mu[k], new_nu[k] = mu, nu
+    return new_p, AdamState(mu=new_mu, nu=new_nu, count=count)
+
+
+@dataclasses.dataclass(frozen=True)
+class ViewSet:
+    """Stacked cameras and their target images (V, H, W, 3) in [0, 1]."""
+    cameras: Camera
+    images: torch.Tensor
+
+    def __len__(self):
+        return self.images.shape[0]
+
+    def view(self, i: int) -> tuple[Camera, torch.Tensor]:
+        return self.cameras.at(i), self.images[i]
+
+    def to(self, device) -> "ViewSet":
+        return ViewSet(cameras=self.cameras.to(device),
+                       images=self.images.to(device))
+
+
+def make_viewset(cams: list[Camera], images) -> ViewSet:
+    return ViewSet(cameras=stack_cameras(cams),
+                   images=torch.as_tensor(images, dtype=torch.float32))
+
+
+def scene_extent(cams: Camera) -> float:
+    """1.1 x the largest distance of a camera from the mean camera centre."""
+    pos = cams.position.detach().cpu().numpy()
+    return float(1.1 * np.linalg.norm(pos - pos.mean(0, keepdims=True),
+                                      axis=-1).max())
+
+
+def order_cameras_tsp(cams: Camera) -> list[int]:
+    """Greedy nearest-neighbour ordering by camera position."""
+    pos = cams.position.detach().cpu().numpy()
+    todo = set(range(1, len(pos)))
+    order = [0]
+    while todo:
+        cur = pos[order[-1]]
+        nxt = min(todo, key=lambda j: np.linalg.norm(pos[j] - cur))
+        order.append(nxt)
+        todo.remove(nxt)
+    return order
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainState:
+    gaussians: G.GaussianState
+    adam: AdamState
+    stats: DensifyStats
+    step: int
+
+
+class GSTrainer:
+    """Per-scene Gaussian-splatting optimizer: ``training`` / ``finetune`` /
+    ``render_view`` / ``update_cameras`` / ``reset_optimizers`` /
+    ``reset_gs`` / ``reset_gaussians_from_pcd`` / checkpoints."""
+
+    def __init__(self, train_views: ViewSet, config: TrainConfig,
+                 init_state: G.GaussianState,
+                 model_path: str = "syn3r_model",
+                 test_views: Optional[ViewSet] = None,
+                 device: str | torch.device = "cuda"):
+        if config.rasterizer not in ("kernel", "tiled", "dense"):
+            raise ValueError(f"unknown rasterizer {config.rasterizer!r}")
+        self.device = resolve_device(device)
+        self.cfg = config
+        self.train_views = train_views.to(self.device)
+        self.test_views = (test_views.to(self.device)
+                           if test_views is not None else None)
+        self.pseudo_views: Optional[ViewSet] = None
+        self.pseudo_depths: Optional[torch.Tensor] = None
+        self.use_lpips_loss = False
+        self.model_path = model_path
+        os.makedirs(model_path, exist_ok=True)
+        self.extent = max(scene_extent(self.train_views.cameras), 1e-6)
+        self.state = self._fresh_state(init_state.to(self.device), step=0)
+        self._rng = np.random.default_rng(config.seed)
+        self._gen = torch.Generator(device=self.device).manual_seed(
+            config.seed)
+
+    def _fresh_state(self, g: G.GaussianState, step: int) -> TrainState:
+        return TrainState(gaussians=g, adam=AdamState.init(G.get_params(g)),
+                          stats=DensifyStats.zeros(g.capacity, self.device),
+                          step=step)
+
+    @property
+    def _bg(self) -> torch.Tensor:
+        return torch.tensor(self.cfg.bg_color, dtype=torch.float32,
+                            device=self.device)
+
+    def _render(self, g: G.GaussianState, camera: Camera,
+                center_offset=None):
+        cfg = self.cfg
+        sg = rz.project_gaussians(g, camera, sh_degree=cfg.sh_degree,
+                                  center_offset=center_offset)
+        if cfg.rasterizer == "dense":
+            return sg, rz.rasterize(sg, camera.height, camera.width,
+                                    bg=self._bg, chunk=cfg.chunk)
+        return sg, rz.rasterize_tiled(
+            sg, camera.height, camera.width, cap=cfg.tile_cap, bg=self._bg,
+            chunk=min(cfg.chunk, cfg.tile_cap),
+            composite="kernel" if cfg.rasterizer == "kernel" else "plain")
+
+    # -- one step -------------------------------------------------------------
+
+    def _train_step(self, ts: TrainState, camera: Camera,
+                    image: torch.Tensor, depth_target=None,
+                    use_depth: bool = False) -> tuple[TrainState, dict]:
+        """One optimization step: returns (new state, {"loss": tensor})."""
+        cfg = self.cfg
+        g = ts.gaussians
+        params = {k: v.detach().requires_grad_(True)
+                  for k, v in G.get_params(g).items()}
+        offset = torch.zeros((g.capacity, 2), device=self.device,
+                             requires_grad=True)
+        sg, out = self._render(G.with_params(g, params), camera, offset)
+        loss = losses.photometric_loss(out.rgb, image,
+                                       lambda_dssim=cfg.lambda_dssim,
+                                       confidence=camera.confidence)
+        if use_depth:
+            pred_depth = torch.where(out.alpha > 1e-6, out.depth
+                                     / torch.clamp(out.alpha, min=1e-6), 0.0)
+            loss = loss + cfg.depth_loss_weight * losses.pearson_depth_loss(
+                pred_depth, depth_target, valid=depth_target > 0)
+        names = list(params)
+        grads = torch.autograd.grad(loss, [params[k] for k in names]
+                                    + [offset])
+        g_off = grads[-1]
+        grads = dict(zip(names, grads[:-1]))
+
+        lrs = {"means": position_lr(cfg, self.extent, ts.step),
+               "quats": cfg.rotation_lr, "log_scales": cfg.scaling_lr,
+               "opacity_logits": cfg.opacity_lr, "sh_dc": cfg.feature_lr,
+               "sh_rest": cfg.feature_lr / 20.0}
+        with torch.no_grad():
+            new_params, new_adam = adam_update(
+                {k: v.detach() for k, v in params.items()}, grads, ts.adam,
+                lrs)
+            # densify statistics: the screen-centre gradient in the CUDA
+            # rasterizer's NDC scale (pixel grad x W/2, H/2)
+            scale = torch.tensor([camera.width * 0.5, camera.height * 0.5],
+                                 device=self.device)
+            c, r = sg.center.detach(), sg.radius
+            visible = (sg.valid & (r > 0) & (c[:, 0] > -r)
+                       & (c[:, 0] < camera.width + r) & (c[:, 1] > -r)
+                       & (c[:, 1] < camera.height + r))
+            new_stats = ts.stats.update(g_off * scale, r, visible)
+        new_ts = TrainState(gaussians=G.with_params(g, new_params),
+                            adam=new_adam, stats=new_stats, step=ts.step + 1)
+        return new_ts, {"loss": loss.detach()}
+
+    def _densify_step(self, ts: TrainState) -> TrainState:
+        cfg = self.cfg
+        new_g, changed = densify_and_prune(
+            ts.gaussians, ts.stats, self._gen,
+            grad_threshold=cfg.densify_grad_threshold,
+            percent_dense=cfg.percent_dense, extent=self.extent,
+            min_opacity=cfg.min_opacity,
+            max_world_scale=cfg.max_world_scale,
+            max_screen_size=cfg.max_screen_size,
+            big_point_gate=ts.step > cfg.opacity_reset_interval,
+            use_proximity=cfg.use_proximity_densify,
+            proximity_threshold=cfg.proximity_threshold)
+
+        def zero_changed(x):
+            return torch.where(changed.reshape((-1,) + (1,) * (x.ndim - 1)),
+                               0.0, x)
+        adam = AdamState(mu={k: zero_changed(v) for k, v in ts.adam.mu.items()},
+                         nu={k: zero_changed(v) for k, v in ts.adam.nu.items()},
+                         count=ts.adam.count)
+        return TrainState(gaussians=new_g, adam=adam,
+                          stats=DensifyStats.zeros(new_g.capacity,
+                                                   self.device),
+                          step=ts.step)
+
+    def _reset_opacity_step(self, ts: TrainState) -> TrainState:
+        mu = dict(ts.adam.mu, opacity_logits=torch.zeros_like(
+            ts.adam.mu["opacity_logits"]))
+        nu = dict(ts.adam.nu, opacity_logits=torch.zeros_like(
+            ts.adam.nu["opacity_logits"]))
+        return dataclasses.replace(
+            ts, gaussians=reset_opacity(ts.gaussians),
+            adam=AdamState(mu=mu, nu=nu, count=ts.adam.count))
+
+    def _maybe_grow(self):
+        g = self.state.gaussians
+        if g.num_active / g.capacity <= self.cfg.capacity_growth_occupancy:
+            return
+        if g.capacity * 2 > self.cfg.max_capacity:
+            return                       # at the ceiling: densify into freed
+        new_cap = g.capacity * 2
+
+        def pad(x):
+            return torch.cat([x, x.new_zeros((new_cap - g.capacity,)
+                                             + x.shape[1:])])
+        adam = self.state.adam
+        self.state = TrainState(
+            gaussians=G.GaussianState(
+                **{f: pad(getattr(g, f)) for f in G.PARAM_FIELDS},
+                active=pad(g.active)),
+            adam=AdamState(mu={k: pad(v) for k, v in adam.mu.items()},
+                           nu={k: pad(v) for k, v in adam.nu.items()},
+                           count=adam.count),
+            stats=DensifyStats.zeros(new_cap, self.device),
+            step=self.state.step)
+
+    # -- the loop ---------------------------------------------------------------
+
+    @property
+    def gaussians(self) -> G.GaussianState:
+        return self.state.gaussians
+
+    def _pick_view_index(self, it: int) -> tuple[int, bool]:
+        """(index into its set, is_pseudo), in the JAX package's RNG draw
+        order."""
+        cfg = self.cfg
+        eligible = (self.pseudo_views is not None
+                    and len(self.pseudo_views) > 0
+                    and it >= cfg.start_sample_svd_iter
+                    and cfg.sample_svd_pseudo_interval > 0
+                    and it % cfg.sample_svd_pseudo_interval == 0)
+        if eligible:
+            p = (1.0 if cfg.pseudo_cam_sampling_rate <= 0
+                 else min(1.0, cfg.pseudo_cam_sampling_rate))
+            if self._rng.random() < p:
+                return int(self._rng.integers(len(self.pseudo_views))), True
+        return int(self._rng.integers(len(self.train_views))), False
+
+    def _run_loop(self, start_iter: int, end_iter: int,
+                  densify: bool = True, log_every: int = 0) -> float:
+        cfg = self.cfg
+        use_depth = bool(cfg.svd_depth_warmup > 0
+                         and self.pseudo_depths is not None
+                         and self.pseudo_views is not None
+                         and len(self.pseudo_views) > 0)
+        last_loss, loss = float("nan"), None
+        for it in range(start_iter, end_iter):
+            i, is_pseudo = self._pick_view_index(it)
+            views = self.pseudo_views if is_pseudo else self.train_views
+            cam, img = views.view(i)
+            ud = is_pseudo and use_depth
+            depth_t = self.pseudo_depths[i] if ud else None
+            self.state, metrics = self._train_step(self.state, cam, img,
+                                                   depth_t, use_depth=ud)
+            loss = metrics["loss"]
+            if densify and cfg.densify_from_iter <= it < cfg.densify_until_iter:
+                if (it + 1) % cfg.densification_interval == 0:
+                    self.state = self._densify_step(self.state)
+                    self._maybe_grow()
+                if (it + 1) % cfg.opacity_reset_interval == 0:
+                    self.state = self._reset_opacity_step(self.state)
+            if log_every and (it + 1) % log_every == 0:
+                last_loss = float(loss)
+                print(f"[gs] iter {it + 1} loss {last_loss:.4f} "
+                      f"active {self.gaussians.num_active}")
+        return last_loss
+
+    def set_lpips(self, params: dict):
+        raise NotImplementedError(
+            "the LPIPS loss is not ported: it needs converted VGG weights, "
+            "and the LLFF preset never passes them")
+
+    def set_mono_depth_fn(self, fn):
+        raise NotImplementedError(
+            "the monocular-depth pseudo step is not ported: "
+            "sample_pseudo_interval is 1e20 (off) in every shipped config")
+
+    def training(self, start_iter: int = 0, epoch_indicator: int = 0,
+                 log_every: int = 0) -> float:
+        """The initial fit; saves ``chkpnt{iterations}``."""
+        loss = self._run_loop(start_iter, self.cfg.iterations, densify=True,
+                              log_every=log_every)
+        self.save_checkpoint(self.cfg.iterations,
+                             epoch=epoch_indicator if epoch_indicator
+                             else None)
+        return loss
+
+    def finetune(self, start_iter: int = 0, epoch: int = 0,
+                 disable_densification: bool = False,
+                 pseudo_cam_sampling_rate: float = None,
+                 log_every: int = 0) -> float:
+        """Refinement on input + pseudo views; ``pseudo_cam_sampling_rate``
+        overrides the config for this phase."""
+        prev = self.cfg.pseudo_cam_sampling_rate
+        if pseudo_cam_sampling_rate is not None:
+            self.cfg.pseudo_cam_sampling_rate = pseudo_cam_sampling_rate
+        try:
+            loss = self._run_loop(start_iter, self.cfg.iterations,
+                                  densify=not disable_densification,
+                                  log_every=log_every)
+        finally:
+            self.cfg.pseudo_cam_sampling_rate = prev
+        self.save_checkpoint(self.cfg.iterations, epoch=epoch)
+        return loss
+
+    # -- rendering ----------------------------------------------------------------
+
+    @torch.no_grad()
+    def render_view(self, camera: Camera) -> dict:
+        """Colour, alpha-normalized depth (0 in holes), accumulated depth
+        and alpha at ``camera``."""
+        _, out = self._render(self.state.gaussians, camera.to(self.device))
+        alpha = out.alpha
+        depth = torch.where(alpha > 1e-6,
+                            out.depth / torch.clamp(alpha, min=1e-6), 0.0)
+        return {"render": out.rgb, "depth": depth, "depth_acc": out.depth,
+                "alpha": alpha}
+
+    @torch.no_grad()
+    def render_views_batch(self, cameras: Camera):
+        """Render a stacked batch of cameras one after another: returns
+        (rgb (P, H, W, 3), depth (P, H, W))."""
+        outs = [self.render_view(cameras.at(i)) for i in range(len(cameras))]
+        return (torch.stack([o["render"] for o in outs]),
+                torch.stack([o["depth"] for o in outs]))
+
+    # -- scene surface ----------------------------------------------------------
+
+    def update_cameras(self, views, poses, K, cam_confidences=None,
+                       append: bool = True, depths=None):
+        """Install pseudo views (V, H, W, 3) with w2c ``poses`` (V, 4, 4) and
+        intrinsics ``K`` as confidence-weighted targets; ``depths`` (V, H, W)
+        are the targets of the svd_depth_warmup term."""
+        views = np.asarray(views, np.float32)
+        v, h, w = views.shape[:3]
+        if cam_confidences is None:
+            cam_confidences = [1.0] * v
+        elif np.isscalar(cam_confidences):
+            cam_confidences = [float(cam_confidences)] * v
+        cams = [make_camera(K, poses[i], w, h, float(cam_confidences[i]),
+                            self.device) for i in range(v)]
+        new = ViewSet(cameras=stack_cameras(cams),
+                      images=torch.as_tensor(views, device=self.device))
+        new_depths = (torch.as_tensor(np.asarray(depths, np.float32),
+                                      device=self.device)
+                      if depths is not None else None)
+        if append and self.pseudo_views is not None:
+            a, b = self.pseudo_views.cameras, new.cameras
+            new = ViewSet(cameras=dataclasses.replace(
+                a, K=torch.cat([a.K, b.K]), w2c=torch.cat([a.w2c, b.w2c]),
+                confidence=torch.cat([a.confidence, b.confidence])),
+                images=torch.cat([self.pseudo_views.images, new.images]))
+            if new_depths is not None and self.pseudo_depths is not None:
+                new_depths = torch.cat([self.pseudo_depths, new_depths])
+            else:
+                new_depths = None   # a mixed set cannot index depths
+        self.pseudo_views = new
+        self.pseudo_depths = new_depths
+
+    def reset_optimizers(self):
+        """Fresh Adam, statistics and step counter."""
+        self.state = self._fresh_state(self.state.gaussians, step=0)
+
+    def reset_gs(self):
+        """Restart the step counter for the finetune phase."""
+        self.state = dataclasses.replace(self.state, step=0)
+
+    def reset_gaussians_from_pcd(self, xyz, rgb,
+                                 append_to_old_gaussians: bool = False):
+        """Re-initialize from a point cloud, optionally appended to the live
+        Gaussians (actives compacted to the front before any truncation)."""
+        new = G.from_points(torch.as_tensor(np.asarray(xyz, np.float32),
+                                            device=self.device),
+                            torch.as_tensor(np.asarray(rgb, np.float32),
+                                            device=self.device),
+                            sh_degree=self.cfg.sh_degree)
+        if append_to_old_gaussians:
+            old = self.state.gaussians
+            cap = G.next_capacity(old.num_active + new.num_active)
+            active_cat = torch.cat([old.active, new.active])
+            order = torch.argsort((~active_cat).to(torch.int8), stable=True)
+            merged = {}
+            for f in G.PARAM_FIELDS + ("active",):
+                cat = torch.cat([getattr(old, f), getattr(new, f)])[order]
+                merged[f] = (cat[:cap] if cat.shape[0] >= cap else torch.cat(
+                    [cat, cat.new_zeros((cap - cat.shape[0],)
+                                        + cat.shape[1:])]))
+            new = G.GaussianState(**merged)
+        self.state = self._fresh_state(new, step=0)
+
+    def find_nearest_cam(self, query: Camera, cams: Camera,
+                         multi_view_max_angle: float = None,
+                         multi_view_min_dis: float = None,
+                         multi_view_max_dis: float = None) -> int:
+        """Index of the camera nearest to ``query``, restricted to the
+        angle/distance window when any candidate lies in it."""
+        pos = cams.position.detach().cpu().numpy()
+        q = query.position.detach().cpu().numpy()
+        dist = np.linalg.norm(pos - q, axis=-1)
+        ok = np.ones(len(pos), dtype=bool)
+        if multi_view_min_dis is not None:
+            ok &= dist >= multi_view_min_dis
+        if multi_view_max_dis is not None:
+            ok &= dist <= multi_view_max_dis
+        if multi_view_max_angle is not None:
+            dirs = cams.w2c.detach().cpu().numpy()[:, 2, :3]
+            qdir = query.w2c.detach().cpu().numpy()[2, :3]
+            cosang = (dirs @ qdir) / (np.linalg.norm(dirs, axis=-1)
+                                      * np.linalg.norm(qdir) + 1e-12)
+            ang = np.degrees(np.arccos(np.clip(cosang, -1.0, 1.0)))
+            ok &= ang <= multi_view_max_angle
+        if ok.any():
+            dist = np.where(ok, dist, np.inf)
+        return int(dist.argmin())
+
+    # -- checkpoints (the JAX package's names and keys) ------------------------
+
+    def _ckpt_name(self, iteration: int, epoch=None) -> str:
+        if epoch is None:
+            return f"chkpnt{iteration}.npz"
+        return f"refine_{epoch}_chkpnt{iteration}.npz"
+
+    def save_checkpoint(self, iteration: int, epoch=None) -> str:
+        g = self.state.gaussians
+        arrays = {f: getattr(g, f).detach().cpu().numpy()
+                  for f in G.PARAM_FIELDS + ("active",)}
+        arrays["step"] = np.asarray(self.state.step, np.int32)
+        path = os.path.join(self.model_path, self._ckpt_name(iteration, epoch))
+        np.savez(path, **arrays)
+        np.savez(os.path.join(self.model_path, "chkpnt_latest.npz"), **arrays)
+        return path
+
+    def load_checkpoint(self, checkpoint: str):
+        g = G.gaussians_from_numpy(checkpoint, self.device)
+        with np.load(checkpoint) as data:
+            step = int(data["step"])
+        self.state = self._fresh_state(g, step=step)
+
+    def latest_checkpoint(self) -> Optional[str]:
+        """Newest refine_*_chkpnt*.npz, else chkpnt_latest.npz."""
+        refined = sorted(glob.glob(os.path.join(self.model_path,
+                                                "refine_*_chkpnt*.npz")),
+                         key=os.path.getmtime)
+        if refined:
+            return refined[-1]
+        latest = os.path.join(self.model_path, "chkpnt_latest.npz")
+        return latest if os.path.exists(latest) else None

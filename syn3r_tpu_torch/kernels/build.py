@@ -32,6 +32,12 @@ SIGNATURES = {
     "flash_attention": ("syn3r_flash_attention",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL,
                          _LL, _LL, _LL, _F, _P]),
+    # P, G, C, O, out, ltc; T, px, cap, K; stream
+    "composite_fwd": ("syn3r_composite_fwd",
+                      [_P] * 6 + [_I] * 4 + [_P]),
+    # P, G, C, O, ltc, dout, part, dG, dC, dO; T, px, cap, K; stream
+    "composite_bwd": ("syn3r_composite_bwd",
+                      [_P] * 10 + [_I] * 4 + [_P]),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

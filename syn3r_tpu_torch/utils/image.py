@@ -1,8 +1,8 @@
-"""Image resize and range helpers of the completion unit.
+"""Image resize, range and metric helpers.
 
 Counterpart of ``syn3r_tpu/utils/image.py`` (``gaussian_blur``,
-``resize_bicubic``, ``resize_antialiased``, ``to_neg1_1``, ``to_01``).
-Images are channel-last (H, W, C) float tensors.
+``resize_bicubic``, ``resize_antialiased``, ``psnr``, ``ssim``,
+``to_neg1_1``, ``to_01``). Images are channel-last (H, W, C) float tensors.
 
 ``resize_antialiased`` is a Gaussian pre-blur followed by a Keys (a=-0.75)
 bicubic resize with align_corners=True, matching the reference's
@@ -11,6 +11,8 @@ different filter and is not a substitute.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -85,6 +87,39 @@ def resize_antialiased(img: torch.Tensor, out_h: int,
     ky += (ky % 2 == 0)
     kx += (kx % 2 == 0)
     return resize_bicubic(gaussian_blur(img, (ky, kx), (sy, sx)), out_h, out_w)
+
+
+def psnr(pred: torch.Tensor, target: torch.Tensor,
+         max_val: float = 1.0) -> torch.Tensor:
+    mse = torch.mean((pred - target) ** 2)
+    return 20.0 * math.log10(max_val) \
+        - 10.0 * torch.log10(torch.clamp(mse, min=1e-12))
+
+
+def ssim(pred: torch.Tensor, target: torch.Tensor, max_val: float = 1.0,
+         window_size: int = 11, sigma: float = 1.5) -> torch.Tensor:
+    """Gaussian-window SSIM (11x11, sigma 1.5, C1 = (0.01 L)^2,
+    C2 = (0.03 L)^2), mean over pixels and channels. pred/target: (H, W, C).
+    The window runs separably with ZERO padding, as the JAX package's
+    ``ssim`` pads (not the reflection of ``gaussian_blur``)."""
+    c1 = (0.01 * max_val) ** 2
+    c2 = (0.03 * max_val) ** 2
+    c = pred.shape[-1]
+    r = window_size // 2
+    g = _gaussian_kernel1d(window_size, sigma, pred.device).to(pred.dtype)
+    wy = g.view(1, 1, window_size, 1).expand(5 * c, 1, window_size, 1)
+    wx = g.view(1, 1, 1, window_size).expand(5 * c, 1, 1, window_size)
+    x = torch.cat([pred, target, pred * pred, target * target,
+                   pred * target], dim=-1).permute(2, 0, 1)[None]
+    x = F.conv2d(F.pad(x, (0, 0, r, r)), wy, groups=5 * c)
+    x = F.conv2d(F.pad(x, (r, r, 0, 0)), wx, groups=5 * c)
+    mu_p, mu_t, mu_pp, mu_tt, mu_pt = x[0].split(c)
+    var_p = mu_pp - mu_p ** 2
+    var_t = mu_tt - mu_t ** 2
+    cov = mu_pt - mu_p * mu_t
+    s = ((2 * mu_p * mu_t + c1) * (2 * cov + c2)) / (
+        (mu_p ** 2 + mu_t ** 2 + c1) * (var_p + var_t + c2))
+    return s.mean()
 
 
 def to_neg1_1(img01: torch.Tensor) -> torch.Tensor:
