@@ -11,12 +11,29 @@ Phases, one result line each; any failure raises and the exit code is not 0:
               plain and library (one PyTorch call) times.
   4. small    a small bf16 UNet (widths 64/128, d = 64, 1024 tokens) on the
               card, through the kernels, against the same UNet in float32 on
-              the CPU (the plain path).
+              the CPU (the plain path); one GroupNorm and LayerNorm launch
+              per norm module of its tree.
   5. unit     the completion unit at SVD-XT / CLIP ViT-H / VAE full widths
               with random weights from a seed: 25 frames at 576x1024, post
               variant, fused batch-3 forward, num_inference_steps=2 (the one
               cut from 100). Launch counts are zeroed just before and read
-              just after; each kernel must have launched.
+              just after and must be exact: GEGLU and flash per forward, the
+              norms one per call of a norm module, 105 GroupNorms and 112
+              LayerNorms per UNet forward (the module tree). Forward
+              pre-hooks record every norm call's shape (the census).
+  5b. kernels the GroupNorm (stats and apply) and LayerNorm kernels against
+              their plain versions at every shape of the census (UNet and
+              CLIP in bf16, the VAE encode in float32, its decode in bf16),
+              with F.group_norm / F.layer_norm as the library yardstick.
+  5c. scene   the per-scene loop through the training entry point
+              (cli/train.build_runner, then run) with the README's LLFF
+              flags (--n_views 3 --refine_cycle_num 2): an in-memory
+              scene (the gs phase's three views and points), the unit's
+              completion. Cuts: --num_inference_steps 2 (from 100),
+              --iterations 300 (from 10,000), --start_sample_svd_frame 100
+              (from 2000, so the refine fits sample pseudo views). 6
+              completion units, 6 caches, 72 pseudo views, a checkpoint;
+              every kernel launched, the completion kernels 6 x the unit's.
   6. kernels  the tile-composite forward and backward kernels against their
               plain versions at the GS main path's shapes (T 96 tiles,
               px 2048, cap 1024, K 128), on G/C/O from projecting and binning
@@ -30,6 +47,7 @@ Phases, one result line each; any failure raises and the exit code is not 0:
               reset at 200, fitting renders of a perturbed copy of the
               scene. Launches counted over the run must equal the steps
               (backward) and the steps plus renders (forward).
+The JSON kernel table takes its launches from the scene phase.
 The line before the last is the JSON kernel table, after it the
 nvidia-smi line, and the last line is {"ok": true, "device": {...}}.
 Details also go to chiprun_out/chip_smoke.json.
@@ -37,6 +55,7 @@ Details also go to chiprun_out/chip_smoke.json.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -45,16 +64,20 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from syn3r_tpu_torch.cli import train as cli_train
 from syn3r_tpu_torch.device import resolve_device
 from syn3r_tpu_torch.diffusion.pipeline import (init_random_weights_,
                                                 load_svd_completion)
 from syn3r_tpu_torch.gs import losses as gs_losses
+from syn3r_tpu_torch.gs.scene import SceneData
 from syn3r_tpu_torch.gs.trainer import GSTrainer, TrainConfig, make_viewset
 from syn3r_tpu_torch.kernels import build
 from syn3r_tpu_torch.models import gaussians as GM
+from syn3r_tpu_torch.models import layers as L
 from syn3r_tpu_torch.models.svd_unet import UNetSpatioTemporalConditionModel
 from syn3r_tpu_torch.ops import attention as A
 from syn3r_tpu_torch.ops import composite as TC
+from syn3r_tpu_torch.ops import norm as N
 from syn3r_tpu_torch.ops import rasterize as RZ
 from syn3r_tpu_torch.ops.geglu_ffn import geglu_ffn, geglu_ffn_reference
 from syn3r_tpu_torch.pipeline.completion import search_hypers_v2
@@ -87,6 +110,17 @@ BUILD_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 PEAK_F32_FLOPS = 67e12
 # GS main path (bench.py's GS configuration, the CLI's --tile_cap 1024)
 GS_W, GS_H, GS_N, GS_CAP, GS_ITERS = 504, 378, 65_536, 1024, 300
+# the scene phase: the README's LLFF command with the cuts of the docstring
+SCENE_FLAGS = ["--n_views", "3", "--refine_cycle_num", "2",
+               "--num_inference_steps", str(STEPS),
+               "--iterations", str(GS_ITERS),
+               "--start_sample_svd_frame", "100"]
+SCENE_PAIRS, SCENE_CYCLES = 3, 2
+# The cached frames pass the antialiased Keys cubic (a = -0.5) resize back
+# to the GS resolution, which is not clamped (as in JAX): its negative
+# lobes hold 1/12 of the weight per axis, so a [0, 1] image may reach
+# [-0.18, 1.18] over both axes.
+CUBIC_RANGE = (-0.2, 1.2)
 # Composite operations per (entry, pixel) pair, counted from the formulas
 # (an exp, log1p or divide counts one): reaching alpha (6 multiplies,
 # 5 adds, clamp, exp, multiply, clamp) for every entry with opacity >= 1/255;
@@ -102,11 +136,51 @@ OPS_LIVE, OPS_FWD_HIT, OPS_BWD_HIT = 15, 15, 45
 # ltc; depth and logT rows reach ~1e1) atol 1e-4, rtol 1e-4; gradients
 # atol 1e-6 + 1e-3 max|g|, rtol 2e-3.
 COMPOSITE_TOL = {"fwd": (1e-4, 1e-4), "bwd": (1e-3, 2e-3)}
+# Norm kernels vs plain versions, elementwise (allclose) on the same
+# inputs. Both compute in float32 in another order (the GroupNorm kernel as
+# x a + b, the plain version as (x - mean) rstd w + b; sums in another
+# order), so a bf16 output may round to its neighbour: rtol 2^-7 (one bf16
+# ulp at a binade's lower edge), atol 1e-5. Float32 outputs: atol and rtol
+# 1e-4. The float32 per-(B, C) affine of the stats kernels: atol 1e-5,
+# rtol 1e-4.
+NORM_TOL = {torch.bfloat16: (1e-5, 2.0 ** -7), torch.float32: (1e-4, 1e-4)}
+AFFINE_TOL = (1e-5, 1e-4)
+# elementwise operations per element, for the norm bounds (memory bounds
+# them all): stats add + fma; apply fma (+ exp, add, divide for SiLU);
+# LayerNorm add, fma, subtract, 2 multiplies, add
+NORM_OPS = {"stats": 3, "apply": 2, "apply_silu": 5, "layer_norm": 6}
 
 
 def say(phase, **kv):
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
           flush=True)
+
+
+def launch_counts():
+    """Every kernel wrapper's launch count."""
+    return {"geglu_ffn": geglu_ffn.launches,
+            "flash_attention": A.flash_attention.launches,
+            "composite_fwd": TC.composite_tiles.launches["fwd"],
+            "composite_bwd": TC.composite_tiles.launches["bwd"],
+            "gn_stats": N.group_norm.launches["stats"],
+            "gn_apply": N.group_norm.launches["apply"],
+            "layer_norm": N.layer_norm.launches}
+
+
+def zero_counts():
+    geglu_ffn.launches = 0
+    A.flash_attention.launches = 0
+    TC.composite_tiles.launches.update(fwd=0, bwd=0)
+    N.group_norm.launches.update(stats=0, apply=0)
+    N.layer_norm.launches = 0
+
+
+def norm_modules(module):
+    """(GroupNorm, LayerNorm) modules in ``module``'s tree: each runs once
+    a forward, one launch of each of its kernels."""
+    mods = list(module.modules())
+    return (sum(isinstance(m, L.GroupNorm) for m in mods),
+            sum(isinstance(m, L.LayerNorm) for m in mods))
 
 
 def cuda_ms(fn, iters, warmup=1):
@@ -226,20 +300,25 @@ def check_small_unet(dev):
     sample = torch.randn((3, 5, 32, 32, 8), generator=g)
     ehs = torch.randn((3, 1, 1024), generator=g)
     tids = torch.tensor([[6.0, 127.0, 0.02]]).repeat(3, 1)
-    n_ffn, n_attn = geglu_ffn.launches, A.flash_attention.launches
     with torch.no_grad():
         want = cpu(sample, torch.tensor(1.3), ehs, tids, (1, 2))
+        zero_counts()
         got = card(sample.to(dev, torch.bfloat16), torch.tensor(1.3),
                    ehs.to(dev, torch.bfloat16), tids.to(dev), (1, 2))
     torch.cuda.synchronize()
+    used = launch_counts()
     max_abs, rel_rms = errors(got.cpu(), want)
-    used = (geglu_ffn.launches - n_ffn, A.flash_attention.launches - n_attn)
     say("small", what="bf16 UNet on card vs f32 on CPU", max_abs=max_abs,
         rel_rms=rel_rms, launches=used)
+    n_gn, n_ln = norm_modules(card)
+    norms = {"gn_stats": n_gn, "gn_apply": n_gn, "layer_norm": n_ln}
     # bf16 activations and weights through ~40 layers against float32
-    if not (rel_rms < 5e-2 and min(used) > 0):
-        raise AssertionError(f"small UNet: rel_rms {rel_rms}, launches {used}")
-    return dict(max_abs=max_abs, rel_rms=rel_rms)
+    if not (rel_rms < 5e-2 and used["geglu_ffn"] > 0
+            and used["flash_attention"] > 0
+            and all(used[k] == v for k, v in norms.items())):
+        raise AssertionError(f"small UNet: rel_rms {rel_rms}, launches "
+                             f"{used}, norms expected {norms}")
+    return dict(max_abs=max_abs, rel_rms=rel_rms, launches=used)
 
 
 def run_unit(dev):
@@ -255,9 +334,14 @@ def run_unit(dev):
     say("unit", what="load", seconds=load_s,
         num_inference_steps=f"{STEPS} (cut from 100)")
 
+    census = NormCensus()
+    census.watch(pipe.m.unet, "unet")
+    census.watch(pipe.m.clip, "clip")
+    census.watch(pipe.m.vae.encoder, "vae_encode")
+    census.watch(pipe.m.vae.decoder, "vae_decode")
     torch.cuda.reset_peak_memory_stats()
-    geglu_ffn.launches = 0
-    A.flash_attention.launches = 0
+    zero_counts()
+    N.contiguous_counted.copies = 0
     stage = {}
     t0 = time.perf_counter()
     clip_s, clip_e, cond, _, _ = pipe.encode_conditioning(
@@ -274,8 +358,9 @@ def run_unit(dev):
     frames = pipe.decode(out)
     torch.cuda.synchronize()
     stage["decode_s"] = time.perf_counter() - t0
-    launches = {"geglu_ffn": geglu_ffn.launches,
-                "flash_attention": A.flash_attention.launches}
+    launches = launch_counts()
+    norm_copies = N.contiguous_counted.copies
+    census.close()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     if tuple(frames.shape) != (FRAMES, HEIGHT, WIDTH, 3):
@@ -285,8 +370,22 @@ def run_unit(dev):
     lo, hi = frames.min().item(), frames.max().item()
     if lo < 0.0 or hi > 1.0:
         raise AssertionError(f"frames outside [0, 1]: {lo} {hi}")
-    # 2 directions per step, one batch-3 forward each
-    want = {"geglu_ffn": 48 * 2 * STEPS, "flash_attention": 15 * 2 * STEPS}
+    # 2 directions per step, one batch-3 forward each; every norm module
+    # once a forward (the UNet's from its tree), one launch of each kernel
+    # a norm call
+    forwards = 2 * STEPS
+    n_gn, n_ln = norm_modules(pipe.m.unet)
+    unet_calls = census.totals("unet")
+    if unet_calls != {"group_norm": n_gn * forwards,
+                      "layer_norm": n_ln * forwards}:
+        raise AssertionError(f"UNet norm calls {unet_calls}, expected "
+                             f"{n_gn} GroupNorms and {n_ln} LayerNorms x "
+                             f"{forwards} forwards")
+    calls = census.totals()
+    want = {"geglu_ffn": 48 * forwards, "flash_attention": 15 * forwards,
+            "composite_fwd": 0, "composite_bwd": 0,
+            "gn_stats": calls["group_norm"], "gn_apply": calls["group_norm"],
+            "layer_norm": calls["layer_norm"]}
     if launches != want:
         raise AssertionError(f"launches {launches}, expected {want}")
 
@@ -304,9 +403,14 @@ def run_unit(dev):
     stage["vae_encode_s"] = time.perf_counter() - t0
     stage["s_per_denoise_step"] = stage["denoise_s"] / STEPS
     say("unit", frames=tuple(frames.shape), min=lo, max=hi,
-        peak_mem_gb=peak_gb, launches=launches, **stage)
-    return dict(stage, peak_mem_gb=peak_gb, launches=launches,
-                frame_range=[lo, hi], load_s=load_s)
+        peak_mem_gb=peak_gb, launches=launches,
+        unet_norms_per_forward=(n_gn, n_ln), norm_input_copies=norm_copies,
+        **stage)
+    res = dict(stage, peak_mem_gb=peak_gb, launches=launches,
+               frame_range=[lo, hi], load_s=load_s,
+               unet_norms_per_forward=[n_gn, n_ln], forwards=forwards,
+               norm_input_copies=norm_copies)
+    return res, pipe, census.calls
 
 
 def check_close(name, got, want, atol, rtol):
@@ -328,19 +432,45 @@ def check_grads(name, got, want):
                        1e-6 + atol * want.abs().max().item(), rtol)
 
 
-def gs_scene(dev, n=GS_N, width=GS_W, height=GS_H):
-    """bench.py's GS scene: n Gaussians from numpy seed 0 in a slab in
-    front of one camera."""
+def gs_points(n=GS_N):
+    """bench.py's GS layout: n points from numpy seed 0 in a slab in front
+    of the cameras, and the generator after the draws."""
     rng = np.random.default_rng(0)
     xyz = np.concatenate([rng.uniform(-1.5, 1.5, (n, 2)),
                           rng.uniform(1.5, 4.0, (n, 1))], 1).astype(np.float32)
     rgb = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    return xyz, rgb, rng
+
+
+def gs_scene(dev, n=GS_N, width=GS_W, height=GS_H):
+    """bench.py's GS scene: n Gaussians in front of one camera."""
+    xyz, rgb, rng = gs_points(n)
     state = GM.from_points(torch.from_numpy(xyz).to(dev),
                            torch.from_numpy(rgb).to(dev), capacity=n)
     cam = camera_from_fov(0.9, 0.7, width, height,
                           look_at_w2c([0.0, 0.0, 0.0], [0.0, 0.0, 2.5]),
                           device=dev)
     return state, cam, rng
+
+
+def gs_views(dev):
+    """The full-size scene, three cameras around it (the LLFF preset's view
+    count) and their targets: renders of a perturbed copy."""
+    state, cam, rng = gs_scene(dev)
+    n = state.capacity
+    gt = state.replace(
+        means=state.means + torch.from_numpy(
+            rng.normal(0, 0.02, (n, 3)).astype(np.float32)).to(dev),
+        sh_dc=GM.rgb_to_sh_dc(torch.from_numpy(
+            rng.uniform(0, 1, (n, 1, 3)).astype(np.float32)).to(dev)),
+        opacity_logits=torch.full_like(state.opacity_logits, 1.0))
+    cams = [camera_from_fov(0.9, 0.7, cam.width, cam.height,
+                            look_at_w2c([x, 0.0, 0.0], [0.0, 0.0, 2.5]),
+                            device=dev) for x in (-0.3, 0.0, 0.3)]
+    with torch.no_grad():
+        targets = torch.stack([RZ.render(gt, c, method="kernel",
+                                         tile_cap=GS_CAP).rgb for c in cams])
+    return state, cams, targets
 
 
 def composite_pairs(tl):
@@ -500,20 +630,7 @@ def run_gs(dev, iters=GS_ITERS):
     """The GS trainer at full size on three views (the LLFF preset's view
     count): fit renders of a perturbed copy of the scene, with densify/prune
     at 100 and 200 and an opacity reset at 200. The Gaussians must grow."""
-    state, cam, rng = gs_scene(dev)
-    n = state.capacity
-    gt = state.replace(
-        means=state.means + torch.from_numpy(
-            rng.normal(0, 0.02, (n, 3)).astype(np.float32)).to(dev),
-        sh_dc=GM.rgb_to_sh_dc(torch.from_numpy(
-            rng.uniform(0, 1, (n, 1, 3)).astype(np.float32)).to(dev)),
-        opacity_logits=torch.full_like(state.opacity_logits, 1.0))
-    cams = [camera_from_fov(0.9, 0.7, cam.width, cam.height,
-                            look_at_w2c([x, 0.0, 0.0], [0.0, 0.0, 2.5]),
-                            device=dev) for x in (-0.3, 0.0, 0.3)]
-    with torch.no_grad():
-        targets = torch.stack([RZ.render(gt, c, method="kernel",
-                                         tile_cap=GS_CAP).rgb for c in cams])
+    state, cams, targets = gs_views(dev)
     # densify at 100 (capacity full: nothing written, then it doubles) and
     # at 200 (clones and splits into the new slots, prune), reset at 200
     cfg = TrainConfig(iterations=iters, tile_cap=GS_CAP, densify_from_iter=50,
@@ -575,6 +692,288 @@ def run_gs(dev, iters=GS_ITERS):
     return res
 
 
+def scene_data(dev):
+    """The scene phase's in-memory scene: the gs phase's three views and
+    targets, bench.py's seed-0 points as the initial cloud."""
+    _, cams, targets = gs_views(dev)
+    xyz, rgb, _ = gs_points()
+    return SceneData(train_cameras=[c.to("cpu") for c in cams],
+                     train_images=targets.cpu().numpy(), test_cameras=[],
+                     test_images=np.zeros((0, 1, 1, 3), np.float32),
+                     points_xyz=xyz, points_rgb=rgb)
+
+
+def run_scene(pipe, unit_launches):
+    """The per-scene loop as a user runs it: cli/train's parser and
+    build_runner on an in-memory scene with the unit's completion, then
+    run (2 cycles x 3 wrap-around pairs)."""
+    out = os.path.join(BUILD_OUT, "scene")
+    shutil.rmtree(out, ignore_errors=True)   # no cache of an earlier run
+    args = cli_train.build_parser().parse_args(
+        ["-s", "(in memory)", "-m", out] + SCENE_FLAGS)
+    units = []
+
+    def completion(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames = pipe(*a)
+        torch.cuda.synchronize()
+        units.append(dict(seconds=time.perf_counter() - t0,
+                          lo=frames.min().item(), hi=frames.max().item(),
+                          finite=bool(torch.isfinite(frames).all())))
+        return frames
+
+    runner = cli_train.build_runner(args, scene_data(args.device),
+                                    completion_fn=completion)
+    tr = runner.trainer
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    runner.run(log_every=0)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    n_units = SCENE_PAIRS * SCENE_CYCLES
+    if len(units) != n_units:
+        raise AssertionError(f"scene: {len(units)} completion units, "
+                             f"expected {n_units}")
+    bad = [u for u in units if not (u["finite"] and u["lo"] >= 0.0
+                                    and u["hi"] <= 1.0)]
+    if bad:
+        raise AssertionError(f"scene: completion frames not finite in "
+                             f"[0, 1]: {bad}")
+    lo, hi = [], []
+    for c in range(SCENE_CYCLES):
+        for p in range(SCENE_PAIRS):
+            path = os.path.join(runner.save_dir, f"interpolated_dense_views_"
+                                f"cyc{c}_view{p}.npz")
+            with np.load(path) as data:
+                frames, poses = data["frames"], data["poses"]
+            if frames.shape != (FRAMES, GS_H, GS_W, 3) or \
+                    poses.shape != (FRAMES, 4, 4):
+                raise AssertionError(f"scene cache {path}: {frames.shape} "
+                                     f"{poses.shape}")
+            if not np.isfinite(frames).all():
+                raise AssertionError(f"scene cache {path} not finite")
+            lo.append(float(frames.min()))
+            hi.append(float(frames.max()))
+    if min(lo) < CUBIC_RANGE[0] or max(hi) > CUBIC_RANGE[1]:
+        raise AssertionError(f"scene caches outside {CUBIC_RANGE}: "
+                             f"{min(lo)} {max(hi)}")
+    n_pseudo = SCENE_PAIRS * (FRAMES - 1)
+    conf = tr.pseudo_views.cameras.confidence
+    if len(tr.pseudo_views) != n_pseudo or not bool((conf == 0.05).all()):
+        raise AssertionError(f"scene: {len(tr.pseudo_views)} pseudo views "
+                             f"(expected {n_pseudo}) at {conf.unique()}")
+    ckpt = os.path.join(out, f"refine_{SCENE_CYCLES - 1}_chkpnt"
+                        f"{GS_ITERS}.npz")
+    if not os.path.exists(ckpt):
+        raise AssertionError(f"scene: no checkpoint {ckpt}")
+    want = {k: n_units * unit_launches[k] for k in
+            ("geglu_ffn", "flash_attention", "gn_stats", "gn_apply",
+             "layer_norm")}
+    steps = GS_ITERS * (1 + SCENE_CYCLES)
+    if any(launches[k] != v for k, v in want.items()) or \
+            launches["composite_bwd"] != steps or \
+            launches["composite_fwd"] <= steps:
+        raise AssertionError(f"scene launches {launches}: expected {want}, "
+                             f"composite_bwd {steps}, composite_fwd more")
+    rgb = tr.render_view(tr.train_views.cameras.at(1))["render"]
+    if not bool(torch.isfinite(rgb).all()):
+        raise AssertionError("scene: final render not finite")
+
+    phases = {k: v["total_s"] for k, v in runner.timer.summary().items()}
+    unit_s = [u["seconds"] for u in units]
+    res = dict(flags=" ".join(SCENE_FLAGS), cuts="num_inference_steps 2 "
+               "(from 100), iterations 300 (from 10000), "
+               "start_sample_svd_frame 100 (from 2000)",
+               total_s=total_s, phases_s=phases, completion_s=sum(unit_s),
+               unit_s=unit_s, densify_other_s=phases["densify"] - sum(unit_s),
+               cache_range=[min(lo), max(hi)], pseudo_views=n_pseudo,
+               peak_mem_gb=peak_gb, launches=launches,
+               active=tr.gaussians.num_active)
+    say("scene", **res)
+    return res
+
+
+class NormCensus:
+    """Counts, by forward pre-hooks, the GroupNorm and LayerNorm calls of
+    the modules given to ``watch`` while it is active: {key: calls} with
+    key (kind, where, shape, dtype, silu, groups, eps), shape (B, S, C) for
+    GroupNorm and (R, C) for LayerNorm, as the kernels see them."""
+
+    def __init__(self):
+        self.calls = {}
+        self._hooks = []
+
+    def watch(self, module, where):
+        for m in module.modules():
+            if isinstance(m, (L.GroupNorm, L.LayerNorm)):
+                self._hooks.append(m.register_forward_pre_hook(
+                    lambda mod, args, where=where: self._count(mod, args[0],
+                                                               where)))
+
+    def _count(self, mod, x, where):
+        c = x.shape[-1]
+        if isinstance(mod, L.GroupNorm):
+            key = ("group_norm", where,
+                   (x.shape[0], x.numel() // (x.shape[0] * c), c),
+                   x.dtype, mod.silu, mod.num_groups, mod.eps)
+        else:
+            key = ("layer_norm", where, (x.numel() // c, c), x.dtype,
+                   False, 0, mod.eps)
+        self.calls[key] = self.calls.get(key, 0) + 1
+
+    def totals(self, where=None):
+        """Calls by kind, of the modules watched as ``where`` or of all."""
+        out = {"group_norm": 0, "layer_norm": 0}
+        for key, n in self.calls.items():
+            if where is None or key[1] == where:
+                out[key[0]] += n
+        return out
+
+    def close(self):
+        for h in self._hooks:
+            h.remove()
+        self._hooks = []
+
+
+def norm_inputs(shape, dtype, gen, dev):
+    c = shape[-1]
+    x = (torch.randn(shape, generator=gen, device=dev) * 1.5 + 0.2).to(dtype)
+    w = torch.randn((c,), generator=gen, device=dev) * 0.3 + 1.0
+    b = torch.randn((c,), generator=gen, device=dev) * 0.2
+    return x, w, b
+
+
+def check_norm_row(key, calls, gen, dev):
+    """One census shape: the norm kernels against their plain versions on
+    random inputs of that shape and dtype, and their times."""
+    kind, where, shape, dtype, silu, groups, eps = key
+    x, w, b = norm_inputs(shape, dtype, gen, dev)
+    numel, isz = x.numel(), x.element_size()
+    big = numel > 50_000_000
+    iters = 5 if big else 20
+    row = dict(kind=kind, where=where, shape=list(shape),
+               dtype=str(dtype).replace("torch.", ""), silu=silu,
+               groups=groups, calls=calls)
+    if kind == "group_norm":
+        a, bb = N.group_norm_stats(x, w, b, groups, eps)
+        a_ref, bb_ref = N.group_norm_affine_reference(x, w, b, groups, eps)
+        e_a = check_close("gn_stats a", a, a_ref, *AFFINE_TOL)
+        e_b = check_close("gn_stats b", bb, bb_ref, *AFFINE_TOL)
+        y = N.group_norm_apply(x, a_ref, bb_ref, silu)
+        y_ref = N.group_norm_apply_reference(x, a_ref, bb_ref, silu)
+        e_y = check_close("gn_apply", y.float(), y_ref.float(),
+                          *NORM_TOL[dtype])
+        del y, y_ref
+        whole = N.group_norm(x, w, b, groups, eps, silu)
+        whole_ref = N.group_norm_reference(x, w, b, groups, eps, silu)
+        e_whole = check_close("group_norm", whole.float(), whole_ref.float(),
+                              *NORM_TOL[dtype])
+        del whole, whole_ref
+        torch.cuda.synchronize()
+
+        def library():
+            # F.group_norm on the NCHW view (channels-last strides)
+            y4 = F.group_norm(x.permute(0, 2, 1)[..., None], groups,
+                              w.to(dtype), b.to(dtype), eps)
+            return F.silu(y4) if silu else y4
+
+        ops_apply = NORM_OPS["apply_silu" if silu else "apply"] * numel
+        st_bound = bound_ms(NORM_OPS["stats"] * numel, numel * isz,
+                            PEAK_F32_FLOPS)
+        ap_bound = bound_ms(ops_apply, 2 * numel * isz, PEAK_F32_FLOPS)
+        row.update(
+            stats=dict(max_abs_err=max(e_a[0], e_b[0]),
+                       rel_rms_err=max(e_a[1], e_b[1]),
+                       ms=cuda_ms(lambda: N.group_norm_stats(
+                           x, w, b, groups, eps), iters),
+                       plain_ms=cuda_ms(lambda: N.group_norm_affine_reference(
+                           x, w, b, groups, eps), 2),
+                       bound_ms=st_bound[0], bound_by=st_bound[1]),
+            apply=dict(max_abs_err=e_y[0], rel_rms_err=e_y[1],
+                       ms=cuda_ms(lambda: N.group_norm_apply(
+                           x, a_ref, bb_ref, silu), iters),
+                       plain_ms=cuda_ms(lambda: N.group_norm_apply_reference(
+                           x, a_ref, bb_ref, silu), 2),
+                       bound_ms=ap_bound[0], bound_by=ap_bound[1]),
+            whole=dict(max_abs_err=e_whole[0], rel_rms_err=e_whole[1],
+                       ms=cuda_ms(lambda: N.group_norm(
+                           x, w, b, groups, eps, silu), iters),
+                       plain_ms=cuda_ms(lambda: N.group_norm_reference(
+                           x, w, b, groups, eps, silu), 2),
+                       library_ms=cuda_ms(library, iters)))
+    else:
+        y = N.layer_norm(x, w, b, eps)
+        y_ref = N.layer_norm_reference(x, w, b, eps)
+        e_y = check_close("layer_norm", y.float(), y_ref.float(),
+                          *NORM_TOL[dtype])
+        del y, y_ref
+        torch.cuda.synchronize()
+        bms, by = bound_ms(NORM_OPS["layer_norm"] * numel, 2 * numel * isz,
+                           PEAK_F32_FLOPS)
+        row.update(layer_norm=dict(
+            max_abs_err=e_y[0], rel_rms_err=e_y[1],
+            ms=cuda_ms(lambda: N.layer_norm(x, w, b, eps), iters),
+            plain_ms=cuda_ms(lambda: N.layer_norm_reference(x, w, b, eps), 2),
+            library_ms=cuda_ms(lambda: F.layer_norm(
+                x, (shape[-1],), w.to(dtype), b.to(dtype), eps), iters),
+            bound_ms=bms, bound_by=by))
+    say("kernels", **row)
+    del x, w, b
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_norms(census, dev):
+    """Every GroupNorm and LayerNorm shape of the census against the plain
+    versions, as check_norm_row does."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    return [check_norm_row(key, calls, gen, dev)
+            for key, calls in sorted(census.items(), key=str)]
+
+
+def norm_entries(rows, per_forward, launches):
+    """Kernel-line entries of gn_stats, gn_apply and layer_norm: times
+    summed over one batch-3 UNet forward's calls (the census rows of the
+    UNet, calls per forward = census calls / per_forward forwards)."""
+    out = []
+    for name, kind, part, line in (
+            ("gn_stats", "group_norm", "stats", 88),
+            ("gn_apply", "group_norm", "apply", 106),
+            ("layer_norm", "layer_norm", "layer_norm", 179)):
+        unet = [r for r in rows if r["kind"] == kind and r["where"] == "unet"]
+        mine = [r for r in rows if r["kind"] == kind]
+
+        def tot(key, rs=unet, part=part):
+            return sum(r[part][key] * r["calls"] / per_forward for r in rs)
+        by = max(unet, key=lambda r: r[part]["bound_ms"] * r["calls"])
+        lib = (tot("library_ms") if kind == "layer_norm" else None)
+        entry = {
+            "name": name, "route": "cuda",
+            "source": f"syn3r_tpu_torch/csrc/{kind}.cu",
+            "replaces": f"syn3r_tpu/ops/pallas_norm.py:{line}",
+            "launches": launches[name],
+            "max_abs_err": max(r[part]["max_abs_err"] for r in mine),
+            "ms": tot("ms"), "plain_ms": tot("plain_ms"),
+            "bound_ms": tot("bound_ms"), "bound_by": by[part]["bound_by"],
+            "library_ms": lib,
+            "per": "one batch-3 UNet forward "
+                   f"({int(sum(r['calls'] for r in unet) / per_forward)} "
+                   "calls)"}
+        if kind == "group_norm":
+            # F.group_norm computes the whole GroupNorm (stats and apply):
+            # a yardstick for the pair of kernels, not for either alone
+            for key in ("ms", "plain_ms", "library_ms"):
+                entry[f"group_norm_{key}"] = tot(key, part="whole")
+        out.append(entry)
+    return out
+
+
 def kernel_entry(name, source, replaces, rows, launches):
     """Sums over one batch-3 UNet forward's calls of this kernel."""
     def tot(key):
@@ -616,19 +1015,26 @@ def main():
     ffn_rows = check_geglu(gen, dev)
     attn_rows = check_attention(gen, dev)
     small = check_small_unet(dev)
-    unit = run_unit(dev)
+    unit, pipe, census = run_unit(dev)
+    norm_rows = check_norms(census, dev)
+    scene = run_scene(pipe, unit["launches"])
+    del pipe                 # the GS phases measure their own peak memory
+    torch.cuda.empty_cache()
     comp = check_composite(dev)
     gs_small = check_gs_small(dev)
     gs = run_gs(dev)
+    by_phase = {"unit": unit["launches"],
+                "gs": {f"composite_{k}": v for k, v in gs["launches"].items()},
+                "scene": scene["launches"]}
 
     kernels = [
         kernel_entry("geglu_ffn", "syn3r_tpu_torch/csrc/geglu_ffn.cu",
                      "syn3r_tpu/ops/pallas_ffn.py:63", ffn_rows,
-                     unit["launches"]["geglu_ffn"]),
+                     scene["launches"]["geglu_ffn"]),
         kernel_entry("flash_attention",
                      "syn3r_tpu_torch/csrc/flash_attention.cu",
                      "syn3r_tpu/models/layers.py:185", attn_rows,
-                     unit["launches"]["flash_attention"]),
+                     scene["launches"]["flash_attention"]),
     ]
     for name, line in (("composite_fwd", 67), ("composite_bwd", 140)):
         r = comp[name]
@@ -636,17 +1042,21 @@ def main():
             "name": name, "route": "cuda",
             "source": f"syn3r_tpu_torch/csrc/{name}.cu",
             "replaces": f"syn3r_tpu/ops/pallas_rasterize.py:{line}",
-            "launches": gs["launches"][name[-3:]],
+            "launches": scene["launches"][name],
             **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                  "bound_by", "library_ms")},
             "per": "one call at T 96, px 2048, cap 1024, K 128"})
+    kernels += norm_entries(norm_rows, unit["forwards"], scene["launches"])
+    for k in kernels:
+        k["launches_by_phase"] = {p: c.get(k["name"], 0)
+                                  for p, c in by_phase.items()}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": smi, "torch": torch.__version__,
                    "geglu_ffn": ffn_rows, "flash_attention": attn_rows,
-                   "small_unet": small, "unit": unit, "composite": comp,
-                   "gs_small": gs_small, "gs": gs, "kernels": kernels},
-                  f, indent=1)
+                   "small_unet": small, "unit": unit, "norms": norm_rows,
+                   "composite": comp, "gs_small": gs_small, "gs": gs,
+                   "scene": scene, "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -34,6 +34,9 @@ from syn3r_tpu_torch.models.svd_unet import \
 CATEGORIES = [
     ("geglu_ffn kernel", ("ffn_gemm_kernel",)),
     ("flash_attention kernel", ("flash_fwd_kernel",)),
+    ("group_norm kernels", ("gn_partial_kernel", "gn_fold_kernel",
+                            "gn_apply_kernel")),
+    ("layer_norm kernel", ("layer_norm_kernel",)),
     ("convolution (cuDNN)", ("conv", "cudnn", "implicit", "xmma_fprop",
                              "nchwToNhwc", "nhwcToNchw", "fprop")),
     ("matmul (cuBLAS: Linear, packed/dense attention)", ("gemm", "cutlass",

@@ -1,0 +1,2 @@
+"""Command-line entry points of the port (``python -m
+syn3r_tpu_torch.cli.train``)."""

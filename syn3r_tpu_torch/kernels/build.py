@@ -25,19 +25,25 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
-# C entry point and argument types of each kernel library.
+# C entry points and their argument types, per kernel library.
 SIGNATURES = {
-    "geglu_ffn": ("syn3r_geglu_ffn",
-                  [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _P]),
-    "flash_attention": ("syn3r_flash_attention",
+    "geglu_ffn": {"syn3r_geglu_ffn":
+                  [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _P]},
+    "flash_attention": {"syn3r_flash_attention":
                         [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL,
-                         _LL, _LL, _LL, _F, _P]),
+                         _LL, _LL, _LL, _F, _P]},
     # P, G, C, O, out, ltc; T, px, cap, K; stream
-    "composite_fwd": ("syn3r_composite_fwd",
-                      [_P] * 6 + [_I] * 4 + [_P]),
+    "composite_fwd": {"syn3r_composite_fwd": [_P] * 6 + [_I] * 4 + [_P]},
     # P, G, C, O, ltc, dout, part, dG, dC, dO; T, px, cap, K; stream
-    "composite_bwd": ("syn3r_composite_bwd",
-                      [_P] * 10 + [_I] * 4 + [_P]),
+    "composite_bwd": {"syn3r_composite_bwd": [_P] * 10 + [_I] * 4 + [_P]},
+    "group_norm": {
+        # x, weight, bias, part, a, b; B, S, C, G; eps; nsplit, threads,
+        # bf16; stream
+        "syn3r_gn_stats": [_P] * 6 + [_I, _LL, _I, _I, _F, _I, _I, _I, _P],
+        # x, a, b, y; B, S, C; silu, bf16; stream
+        "syn3r_gn_apply": [_P] * 4 + [_I, _LL, _I, _I, _I, _P]},
+    # x, weight, bias, y; R, C; eps; bf16; stream
+    "layer_norm": {"syn3r_layer_norm": [_P] * 4 + [_LL, _I, _F, _I, _P]},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -106,14 +112,17 @@ def library(name: str) -> ctypes.CDLL:
         if not path.exists():
             build_all([name])
         lib = ctypes.CDLL(str(path))
-        fn_name, argtypes = SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _loaded[name] = lib
     return lib
 
 
-def entry(name: str):
-    """The C entry point of kernel library ``name``."""
-    return getattr(library(name), SIGNATURES[name][0])
+def entry(name: str, fn_name: str | None = None):
+    """A C entry point of kernel library ``name``: ``fn_name``, or the
+    library's only one."""
+    if fn_name is None:
+        (fn_name,) = SIGNATURES[name]
+    return getattr(library(name), fn_name)

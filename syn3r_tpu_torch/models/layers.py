@@ -24,6 +24,7 @@ from torch import nn
 
 from ..ops.attention import attention
 from ..ops.geglu_ffn import geglu_ffn
+from ..ops.norm import contiguous_counted, group_norm, layer_norm
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int) -> torch.Tensor:
@@ -63,8 +64,9 @@ class Conv3d(nn.Conv3d):
 
 
 class GroupNorm(nn.Module):
-    """GroupNorm over the last axis with float32 channel-major statistics
-    (``ops.pallas_norm.group_norm_reference``), optionally fused SiLU."""
+    """GroupNorm over the last axis with float32 channel-major statistics,
+    optionally fused SiLU: ``ops.norm.group_norm`` on the (B, S, C) view
+    (the CUDA kernels on the card)."""
 
     def __init__(self, num_channels: int, num_groups: int = 32,
                  eps: float = 1e-6, silu: bool = False):
@@ -74,28 +76,16 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
     def forward(self, x):
-        shape, c = x.shape, x.shape[-1]
-        b, g = shape[0], self.num_groups
-        cg = c // g
-        xf = x.reshape(b, -1, c).float()
-        n = xf.shape[1] * cg
-        s1 = xf.sum(dim=1)
-        s2 = (xf * xf).sum(dim=1)
-        mean = s1.reshape(b, g, cg).sum(-1) / n
-        var = s2.reshape(b, g, cg).sum(-1) / n - mean * mean
-        rstd = torch.rsqrt(var + self.eps)
-        mean_c = mean.repeat_interleave(cg, dim=-1)[:, None]
-        rstd_c = rstd.repeat_interleave(cg, dim=-1)[:, None]
-        y = (xf - mean_c) * rstd_c
-        y = y * self.weight.float() + self.bias.float()
-        if self.silu:
-            y = F.silu(y)
-        return y.to(x.dtype).reshape(shape)
+        shape = x.shape
+        x3 = contiguous_counted(x).view(shape[0], -1, shape[-1])
+        return group_norm(x3, self.weight, self.bias, self.num_groups,
+                          self.eps, self.silu).view(shape)
 
 
 class LayerNorm(nn.Module):
     """LayerNorm over the last axis, float32 statistics
-    (``ops.pallas_norm.layer_norm_reference``: var = E[x^2] - mean^2)."""
+    (var = E[x^2] - mean^2): ``ops.norm.layer_norm`` on the (R, C) view
+    (the CUDA kernel on the card)."""
 
     def __init__(self, num_channels: int, eps: float = 1e-5):
         super().__init__()
@@ -104,12 +94,9 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
     def forward(self, x):
-        xf = x.float()
-        mean = xf.mean(dim=-1, keepdim=True)
-        var = (xf * xf).mean(dim=-1, keepdim=True) - mean * mean
-        y = (xf - mean) * torch.rsqrt(var + self.eps)
-        y = y * self.weight.float() + self.bias.float()
-        return y.to(x.dtype)
+        shape = x.shape
+        x2 = contiguous_counted(x).view(-1, shape[-1])
+        return layer_norm(x2, self.weight, self.bias, self.eps).view(shape)
 
 
 class TimestepEmbedding(nn.Module):

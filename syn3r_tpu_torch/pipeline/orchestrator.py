@@ -1,0 +1,343 @@
+"""The refine-cycle loop of one scene.
+
+Counterpart of ``syn3r_tpu/pipeline/orchestrator.py`` (the reference's
+``DiffusionGS``, ``model/diffusionGS.py:38-1699``). ``run``: fit 3DGS on the
+input views (``init_GS``), then per cycle resume from the latest checkpoint
+(cycles after the first), ``densify_views`` and ``refine_GS``:
+
+  - ``densify_views``: for each view pair (N wrap-around pairs for
+    'interpolate_gs_v2', N - 1 for 'interpolate_loop0_gs') interpolate the
+    poses, perturb the interior ones (a numpy rng per (cycle, pair)), build
+    the backward-warp conditioning from the ORIGINAL endpoint photos
+    (nearest-upsized to the diffusion resolution) and GS depths, run the
+    completion with a ``torch.Generator`` seeded ``seed + 1000 cycle +
+    pair`` on the trainer's device, put the endpoint photos back, resize to
+    the GS resolution (antialiased cubic) and cache the pair as
+    ``interpolated_dense_views_cyc{c}_view{p}.npz`` (a cache of another
+    shape is recomputed);
+  - ``refine_GS``: the pairs' frames (each pair's last frame dropped) become
+    pseudo views at ``cam_confidence`` and the trainer finetunes.
+
+The completion is any callable ``(image_start, cond_images, image_end,
+mask, lambda_ts, generator) -> (F, H, W, 3)``: a ``GuidedSVDPipeline`` or,
+without weights, ``_warp_only_completion``.
+
+Not ported, each raising ``NotImplementedError``: ``pair_parallel``
+(multi-GPU), ``save_debug`` (``utils/debug_dump.py``), a ``dust3r_fn`` or
+``flow_fn`` (the point-cloud densification of the vision branch;
+``densify_pcds`` returns None without them, as in JAX) and
+``interp_type="forward_warp"``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..gs.trainer import GSTrainer, order_cameras_tsp
+from ..utils.camera import Camera, make_camera
+from ..utils.image import resize_cubic_antialiased, resize_nearest
+from ..utils.profiling import PhaseTimer
+from . import completion as C
+
+
+@dataclasses.dataclass
+class DiffusionGSConfig:
+    """The JAX package's ``DiffusionGSConfig`` fields and defaults."""
+    diffusion_width: int = 1024
+    diffusion_height: int = 576
+    num_frames: int = 25
+    num_inference_steps: int = 100
+    refine_cycle_num: int = 2
+    cam_confidence: float = 0.05
+    disable_densification: bool = False
+    pseudo_cam_sampling_rate: float = 0.02
+    perturb_interp_poses: bool = True
+    replace_endpoints: bool = True
+    densify_type: str = "interpolate_gs_v2"
+    interp_type: str = "backward_warp"
+    use_lpips_loss: bool = False
+    capture_pseudo_depth: bool = True
+    num_views_for_pcd_densification: int = 1
+    pcd_frame_quality_thresh: float = 0.3
+    fps_keyframe_sampling: bool = False
+    reorg_train_views: bool = True
+    pair_parallel: bool = False
+    pair_sharding: object = None
+    save_debug: bool = False
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.densify_type not in ("interpolate_gs_v2",
+                                     "interpolate_loop0_gs"):
+            raise ValueError(f"unknown densify_type {self.densify_type!r}")
+        if self.interp_type == "forward_warp":
+            raise NotImplementedError(
+                "interp_type='forward_warp' is not ported: no shipped "
+                "config uses it")
+        if self.interp_type != "backward_warp":
+            raise ValueError(f"unknown interp_type {self.interp_type!r}")
+        if self.pair_parallel or self.pair_sharding is not None:
+            raise NotImplementedError(
+                "pair_parallel is not ported (multi-GPU, ROADMAP Queue 1 "
+                "item 8)")
+        if self.save_debug:
+            raise NotImplementedError(
+                "save_debug is not ported (utils/debug_dump.py)")
+
+
+class DiffusionGS:
+    """Test-time NVS loop: alternate 3DGS fitting and guided completion."""
+
+    def __init__(self, trainer: GSTrainer, config: DiffusionGSConfig,
+                 completion_fn: Optional[Callable] = None,
+                 save_dir: Optional[str] = None,
+                 dust3r_fn: Optional[Callable] = None,
+                 flow_fn: Optional[Callable] = None):
+        if dust3r_fn is not None or flow_fn is not None:
+            raise NotImplementedError(
+                "point-cloud densification (dust3r_fn, flow_fn) is not "
+                "ported: it belongs to the vision branch")
+        self.trainer = trainer
+        self.cfg = config
+        self.device = trainer.device
+        self.completion_fn = completion_fn or self._warp_only_completion
+        self.save_dir = save_dir or os.path.join(trainer.model_path,
+                                                 "dense_views")
+        os.makedirs(self.save_dir, exist_ok=True)
+        self.timer = PhaseTimer()
+
+        # GS intrinsics and resolution from camera 0, and the intrinsics
+        # scaled to the diffusion resolution
+        views = trainer.train_views
+        self.K_gs = views.cameras.K[0]
+        self.gs_height, self.gs_width = views.images.shape[1:3]
+        sx = config.diffusion_width / self.gs_width
+        sy = config.diffusion_height / self.gs_height
+        K = self.K_gs.cpu().numpy()
+        self.diffusion_K = torch.tensor(
+            [[K[0, 0] * sx, 0.0, K[0, 2] * sx],
+             [0.0, K[1, 1] * sy, K[1, 2] * sy],
+             [0.0, 0.0, 1.0]], dtype=torch.float32, device=self.device)
+
+    # ------------------------------------------------------------------
+
+    def _warp_only_completion(self, image_start, cond_images, image_end,
+                              mask, lambda_ts, generator):
+        """Diffusion-free completion: the conditioning frames are the
+        pseudo frames."""
+        del mask, lambda_ts, generator
+        return torch.cat([image_start[None], cond_images, image_end[None]])
+
+    def _render_many(self, poses, K, width, height):
+        poses = C.pose_tensor(poses, self.device)
+        p = poses.shape[0]
+        cams = Camera(K=K.expand(p, 3, 3), w2c=poses,
+                      confidence=torch.ones((p,), device=self.device),
+                      width=width, height=height)
+        return self.trainer.render_views_batch(cams)
+
+    def render_diffusion_res(self, pose):
+        """(rgb, depth) of a w2c pose at the diffusion resolution."""
+        cfg = self.cfg
+        cam = make_camera(self.diffusion_K, pose,
+                          cfg.diffusion_width, cfg.diffusion_height,
+                          device=self.device)
+        out = self.trainer.render_view(cam)
+        return out["render"], out["depth"]
+
+    def render_many_diffusion_res(self, poses):
+        """(rgb (P, H, W, 3), depth (P, H, W)) of (P, 4, 4) poses at the
+        diffusion resolution."""
+        return self._render_many(poses, self.diffusion_K,
+                                 self.cfg.diffusion_width,
+                                 self.cfg.diffusion_height)
+
+    def render_gs_res(self, pose):
+        """(rgb, depth) of a pose at the GS training resolution."""
+        cam = make_camera(self.K_gs, pose, self.gs_width,
+                          self.gs_height, device=self.device)
+        out = self.trainer.render_view(cam)
+        return out["render"], out["depth"]
+
+    def render_many_gs_res(self, poses):
+        """A (P, 4, 4) pose batch at the GS training resolution."""
+        return self._render_many(poses, self.K_gs, self.gs_width,
+                                 self.gs_height)
+
+    def _ordered_train_indices(self) -> list[int]:
+        if not self.cfg.reorg_train_views:
+            return list(range(len(self.trainer.train_views)))
+        return order_cameras_tsp(self.trainer.train_views.cameras)
+
+    # ------------------------------------------------------------------
+
+    def init_GS(self, cycle: int = 0, log_every: int = 0):
+        return self.trainer.training(0, epoch_indicator=cycle,
+                                     log_every=log_every)
+
+    def _cache_path(self, cycle: int, pi: int) -> str:
+        return os.path.join(
+            self.save_dir, f"interpolated_dense_views_cyc{cycle}_view{pi}.npz")
+
+    def _pair_conditioning(self, cycle: int, pi: int, i: int, j: int):
+        """Interpolated (and perturbed) poses and the conditioning of the
+        pair (train view i -> train view j)."""
+        cfg = self.cfg
+        cams = self.trainer.train_views.cameras
+        pose_l = cams.w2c[i].cpu().numpy()
+        pose_r = cams.w2c[j].cpu().numpy()
+        poses = C.interpolate_pair_poses(pose_l, pose_r, cfg.num_frames)
+        if cfg.perturb_interp_poses and cfg.num_frames > 2:
+            # a rng per (cycle, pair): a resumed run perturbs as an
+            # uninterrupted one does
+            pair_rng = np.random.default_rng(cfg.seed + 1000 * cycle + pi)
+            interior = C.perturb_and_select_poses(
+                self.render_diffusion_res, self.diffusion_K, poses[1:-1],
+                [pose_l, pose_r], pair_rng,
+                render_many_fn=self.render_many_diffusion_res)
+            poses = np.concatenate([poses[:1], interior, poses[-1:]])
+        poses = C.pose_tensor(poses, self.device)
+        # the endpoints are the input photos, nearest-upsized; only their
+        # depths come from the GS render
+        images = self.trainer.train_views.images
+        img_l = resize_nearest(images[i], cfg.diffusion_height,
+                               cfg.diffusion_width)
+        img_r = resize_nearest(images[j], cfg.diffusion_height,
+                               cfg.diffusion_width)
+        _, depth_l = self.render_diffusion_res(poses[0])
+        _, depth_r = self.render_diffusion_res(poses[-1])
+        cond = C.prepare_pair_conditioning(
+            self.render_diffusion_res, self.diffusion_K, poses, img_l,
+            depth_l, img_r, depth_r, num_steps=cfg.num_inference_steps,
+            warp_mode=cfg.interp_type,
+            render_many_fn=self.render_many_diffusion_res)
+        return poses, cond
+
+    def densify_views(self, cycle: int, log_every: int = 0):
+        """Completed frames (P, F, Hgs, Wgs, 3) and their poses
+        (P, F, 4, 4) of every view pair, each pair cached."""
+        cfg = self.cfg
+        order = self._ordered_train_indices()
+        n = len(order)
+        num_pairs = n if cfg.densify_type == "interpolate_gs_v2" else n - 1
+        expect = (cfg.num_frames, self.gs_height, self.gs_width, 3)
+        results = {}
+
+        # phase 1: cache hits, and the conditioning of the other pairs
+        pending = []
+        for pi in range(num_pairs):
+            cache = self._cache_path(cycle, pi)
+            if os.path.exists(cache):
+                with np.load(cache) as data:
+                    frames, poses = data["frames"], data["poses"]
+                if frames.shape == expect:
+                    results[pi] = (torch.as_tensor(frames, device=self.device),
+                                   C.pose_tensor(poses, self.device))
+                    continue
+                print(f"[densify] ignoring stale cache {cache}: "
+                      f"{frames.shape} != {expect}")
+            poses, cond = self._pair_conditioning(cycle, pi, order[pi],
+                                                  order[(pi + 1) % n])
+            pending.append((pi, cache, cond, poses))
+
+        # phase 2: completion, endpoints back, GS resolution, cache
+        for pi, cache, cond, poses in pending:
+            gen = torch.Generator(device=self.device).manual_seed(
+                cfg.seed + 1000 * cycle + pi)
+            frames = self.completion_fn(cond.image_start, cond.cond_images,
+                                        cond.image_end, cond.masks,
+                                        cond.lambda_ts, gen)
+            frames = frames.to(device=self.device, dtype=torch.float32)
+            if cfg.replace_endpoints:
+                frames = torch.cat([cond.image_start[None], frames[1:-1],
+                                    cond.image_end[None]])
+            frames = torch.stack([
+                resize_cubic_antialiased(f, self.gs_height, self.gs_width)
+                for f in frames])
+            np.savez(cache, frames=frames.cpu().numpy(),
+                     poses=poses.cpu().numpy())
+            results[pi] = (frames, poses)
+            if log_every:
+                print(f"[densify] cycle {cycle} pair {pi} done")
+
+        return (torch.stack([results[pi][0] for pi in range(num_pairs)]),
+                torch.stack([results[pi][1] for pi in range(num_pairs)]))
+
+    def densify_pcds(self, frames, poses, cycle: int):
+        """Point-cloud densification: None here (it needs the vision
+        branch's dust3r_fn, which is not ported)."""
+        del frames, poses, cycle
+        return None
+
+    def _refine_view_stack(self, frames, poses):
+        """(P, F, ...) pair stacks -> the numpy pseudo-view set: each pair's
+        frames[:-1] (its last frame is the next pair's first); the
+        'interpolate_loop0_gs' chain appends the last pair's final frame."""
+        frames = torch.as_tensor(frames).cpu().numpy()
+        poses = torch.as_tensor(poses).cpu().numpy()
+        p, f = frames.shape[:2]
+        flat_f = frames[:, :-1].reshape(p * (f - 1), *frames.shape[2:])
+        flat_p = poses[:, :-1].reshape(p * (f - 1), 4, 4)
+        if self.cfg.densify_type == "interpolate_loop0_gs":
+            flat_f = np.concatenate([flat_f, frames[-1, -1:]])
+            flat_p = np.concatenate([flat_p, poses[-1, -1:]])
+        return flat_f, flat_p
+
+    def refine_GS(self, frames, poses, cycle: int, load_ckpt: bool = False,
+                  log_every: int = 0):
+        """Install the pseudo views and finetune."""
+        cfg = self.cfg
+        tr = self.trainer
+        if load_ckpt:
+            ckpt = tr.latest_checkpoint()
+            if ckpt:
+                tr.load_checkpoint(ckpt)
+        flat_frames, flat_poses = self._refine_view_stack(frames, poses)
+        depths = None
+        if cfg.capture_pseudo_depth and tr.cfg.svd_depth_warmup > 0:
+            depths = self.render_many_gs_res(flat_poses)[1].cpu().numpy()
+        tr.update_cameras(flat_frames, flat_poses, self.K_gs.cpu().numpy(),
+                          cam_confidences=cfg.cam_confidence, append=False,
+                          depths=depths)
+        tr.reset_optimizers()
+        tr.reset_gs()
+        tr.use_lpips_loss = cfg.use_lpips_loss
+        try:
+            return tr.finetune(
+                0, cycle, disable_densification=cfg.disable_densification,
+                pseudo_cam_sampling_rate=cfg.pseudo_cam_sampling_rate,
+                log_every=log_every)
+        finally:
+            tr.use_lpips_loss = False
+
+    def run(self, refine_cycles: Optional[int] = None, log_every: int = 0):
+        """The full test-time loop."""
+        cycles = (refine_cycles if refine_cycles is not None
+                  else self.cfg.refine_cycle_num)
+        with self.timer.phase("init_gs", sync=True):
+            self.init_GS(0, log_every=log_every)
+        for cyc in range(cycles):
+            # resume from the latest checkpoint before any point-cloud
+            # reset (the JAX package's order)
+            if cyc > 0:
+                ckpt = self.trainer.latest_checkpoint()
+                if ckpt:
+                    self.trainer.load_checkpoint(ckpt)
+            with self.timer.phase("densify", sync=True):
+                frames, poses = self.densify_views(cyc, log_every=log_every)
+            with self.timer.phase("densify_pcd", sync=True):
+                pcd = self.densify_pcds(frames, poses, cyc)
+            if pcd is not None:
+                self.trainer.reset_gaussians_from_pcd(
+                    pcd[0], pcd[1], append_to_old_gaussians=(cyc > 0))
+            with self.timer.phase("refine", sync=True):
+                self.refine_GS(frames, poses, cycle=cyc, load_ckpt=False,
+                               log_every=log_every)
+        if log_every:
+            print("[timing]", self.timer.report())
+        return self.trainer

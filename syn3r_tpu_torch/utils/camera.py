@@ -98,6 +98,39 @@ def stack_cameras(cams: list[Camera]) -> Camera:
                   width=cams[0].width, height=cams[0].height)
 
 
+def unproject(depth: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """Depth map (H, W) -> camera-space points (H, W, 3), pixel centres at
+    integer coordinates: x = (u - cx) / fx * z."""
+    h, w = depth.shape
+    u = torch.arange(w, dtype=depth.dtype, device=depth.device)[None, :] \
+        .expand(h, w)
+    v = torch.arange(h, dtype=depth.dtype, device=depth.device)[:, None] \
+        .expand(h, w)
+    x = (u - K[0, 2]) / K[0, 0]
+    y = (v - K[1, 2]) / K[1, 1]
+    return torch.stack([x, y, torch.ones_like(depth)], dim=-1) \
+        * depth[..., None]
+
+
+def transform_points(pts: torch.Tensor, src_w2c: torch.Tensor,
+                     dst_w2c: torch.Tensor) -> torch.Tensor:
+    """Map points (..., 3) from the src camera frame to the dst camera
+    frame, in full float32 (TF32 is off, device.resolve_device)."""
+    rel = dst_w2c @ se3.se3_inverse(src_w2c)
+    return pts @ rel[:3, :3].T + rel[:3, 3]
+
+
+def project(pts: torch.Tensor, K: torch.Tensor,
+            eps: float = 1e-8) -> tuple[torch.Tensor, torch.Tensor]:
+    """Camera-space points (..., 3) -> (pixel uv (..., 2), depth (...))."""
+    z = pts[..., 2]
+    zsafe = torch.where(z.abs() < eps,
+                        torch.where(z < 0, -eps, eps).to(z.dtype), z)
+    u = K[0, 0] * pts[..., 0] / zsafe + K[0, 2]
+    v = K[1, 1] * pts[..., 1] / zsafe + K[1, 2]
+    return torch.stack([u, v], dim=-1), z
+
+
 def look_at_w2c(eye, target, up: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
     """w2c of a camera at ``eye`` looking at ``target`` (OpenCV: +z

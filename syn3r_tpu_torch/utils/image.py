@@ -1,8 +1,10 @@
 """Image resize, range and metric helpers.
 
 Counterpart of ``syn3r_tpu/utils/image.py`` (``gaussian_blur``,
-``resize_bicubic``, ``resize_antialiased``, ``psnr``, ``ssim``,
-``to_neg1_1``, ``to_01``). Images are channel-last (H, W, C) float tensors.
+``resize_bicubic``, ``resize_antialiased``, ``resize_cubic_antialiased``,
+``resize_nearest``, ``psnr``, ``ssim``, ``to_neg1_1``, ``to_01``; not
+``resize_bilinear``, which only the DUSt3R branch uses). Images are
+channel-last (H, W, C) float tensors.
 
 ``resize_antialiased`` is a Gaussian pre-blur followed by a Keys (a=-0.75)
 bicubic resize with align_corners=True, matching the reference's
@@ -87,6 +89,29 @@ def resize_antialiased(img: torch.Tensor, out_h: int,
     ky += (ky % 2 == 0)
     kx += (kx % 2 == 0)
     return resize_bicubic(gaussian_blur(img, (ky, kx), (sy, sx)), out_h, out_w)
+
+
+def _interpolate_hwc(img: torch.Tensor, out_h: int, out_w: int,
+                     **kw) -> torch.Tensor:
+    x = img.permute(2, 0, 1)[None]
+    return F.interpolate(x, size=(out_h, out_w), **kw)[0].permute(1, 2, 0)
+
+
+def resize_cubic_antialiased(img: torch.Tensor, out_h: int,
+                             out_w: int) -> torch.Tensor:
+    """Antialiased Keys-cubic resize of (H, W, C) (PIL's default filter,
+    which the reference uses to bring completed frames back to the GS
+    resolution); ``jax.image.resize(..., "cubic", antialias=True)``
+    computes the same filter."""
+    return _interpolate_hwc(img, out_h, out_w, mode="bicubic",
+                            antialias=True, align_corners=False)
+
+
+def resize_nearest(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Nearest-neighbour resize of (H, W, C) with pixel-centre sampling
+    (``jax.image.resize(..., "nearest")``; ``mode="nearest"`` of
+    F.interpolate floors instead and differs)."""
+    return _interpolate_hwc(img, out_h, out_w, mode="nearest-exact")
 
 
 def psnr(pred: torch.Tensor, target: torch.Tensor,
