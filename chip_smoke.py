@@ -5,10 +5,16 @@
 
 Phases, one result line each; any failure raises and the exit code is not 0:
   1. device   the card's name and power limit (nvidia-smi), torch version.
-  2. build    nvcc builds every kernel of the path from csrc/ (in parallel).
+  2. build    nvcc builds every kernel of the path from csrc/ (in parallel);
+              ptxas registers and spills, and the HGMMA (wgmma) count in
+              the SASS of the GEGLU and flash libraries (cuobjdump).
   3. kernels  each kernel's wrapper against its plain torch version at the
-              main path's shapes, in bf16: max-abs and rel-RMS error, kernel,
-              plain and library (one PyTorch call) times.
+              main path's shapes, in bf16: max-abs and rel-RMS error, plain
+              time, and the kernel and its library call (one PyTorch call)
+              timed in turns (kernel, library, library, kernel) with the SM
+              clock and power draw (nvidia-smi, sampled every 20 ms) of
+              each timing window; GEGLU also at the small UNet's C = 64
+              and 128 (GEMM-2's 128-column tile), untimed.
   4. small    a small bf16 UNet (widths 64/128, d = 64, 1024 tokens) on the
               card, through the kernels, against the same UNet in float32 on
               the CPU (the plain path); one GroupNorm and LayerNorm launch
@@ -79,22 +85,26 @@ from syn3r_tpu_torch.ops import attention as A
 from syn3r_tpu_torch.ops import composite as TC
 from syn3r_tpu_torch.ops import norm as N
 from syn3r_tpu_torch.ops import rasterize as RZ
-from syn3r_tpu_torch.ops.geglu_ffn import geglu_ffn, geglu_ffn_reference
+from syn3r_tpu_torch.ops.geglu_ffn import (geglu_ffn, geglu_ffn_reference,
+                                          geglu_plan)
 from syn3r_tpu_torch.pipeline.completion import search_hypers_v2
 from syn3r_tpu_torch.utils.camera import camera_from_fov, look_at_w2c
+from scripts.kernel_timing import (ATTN_SHAPES, FFN_SHAPES, SmiSampler,
+                                   cuda_ms, window_iters)
 
 # Published dense peaks of one H100 SXM (data sheet), for bound_ms.
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
+# exponentials a second on the special-function units (FlashAttention-3
+# paper, section 3: ~3.9 TFLOP/s of exp on an H100 SXM): the flash rows'
+# exp_ms in chiprun_out/chip_smoke.json, a second bound (not in bound_ms)
+PEAK_MUFU_EXPS = 3.9e12
 STEPS = 2
 FRAMES, HEIGHT, WIDTH = 25, 576, 1024
-# rows = batch 3 x 25 frames x tokens; C = channels: (rows, C, calls per
-# batch-3 UNet forward). 16 transformers x (ff, ff_in, ff) = 48 calls.
-FFN_SHAPES = [(75 * 9216, 320, 15), (75 * 2304, 640, 15),
-              (75 * 576, 1280, 15), (75 * 144, 1280, 3)]
-# (batch*heads, tokens, calls per forward): spatial self-attention at the
-# three levels with >= 512 tokens, 5 transformers each.
-ATTN_SHAPES = [(75 * 5, 9216, 5), (75 * 10, 2304, 5), (75 * 20, 576, 5)]
+# GEGLU widths off the main path, checked only against the plain version:
+# the small UNet's C = 64 and 128 (rows 3 x 5 frames x 1024 and 256
+# tokens), which take GEMM-2's 128-column tile.
+FFN_SMALL_SHAPES = [(15 * 1024, 64), (15 * 256, 128)]
 # Kernel vs plain tolerance in bf16. GEGLU: both round the products to bf16,
 # but their f32 sums run in another order, so a bf16 pre-activation may land
 # one ulp (2^-8 relative) apart and move through the second product.
@@ -183,20 +193,6 @@ def norm_modules(module):
             sum(isinstance(m, L.LayerNorm) for m in mods))
 
 
-def cuda_ms(fn, iters, warmup=1):
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def errors(got, want):
     d = (got.float() - want.float())
     rel_rms = (d.pow(2).mean().sqrt()
@@ -220,35 +216,73 @@ def bound_ms(flops, nbytes, peak=PEAK_BF16_FLOPS):
                                        else "bytes")
 
 
-def check_geglu(gen, dev):
+def timed_turns(kernel, library, smi):
+    """The kernel and its library call in turns (kernel, library, library,
+    kernel), each window at least ~0.25 s; per window ms, SM MHz and W."""
+    iters = window_iters(kernel, library)
+    out = {"ms": [], "library_ms": [], "sm_mhz": [], "power_w": []}
+    for name, fn in (("ms", kernel), ("library_ms", library),
+                     ("library_ms", library), ("ms", kernel)):
+        ms, mhz, watts = smi.timed(fn, iters)
+        out[name].append(ms)
+        out["sm_mhz"].append(mhz)
+        out["power_w"].append(watts)
+    return out
+
+
+def turns_row(turns):
+    """Mean kernel and library times of the turns, and the turns."""
+    return dict(ms=float(np.mean(turns["ms"])),
+                library_ms=float(np.mean(turns["library_ms"])),
+                turns_ms=[turns["ms"][0], turns["library_ms"][0],
+                          turns["library_ms"][1], turns["ms"][1]],
+                sm_mhz=turns["sm_mhz"], power_w=turns["power_w"])
+
+
+def sass_count(name, opcode):
+    """Instructions of ``opcode`` in kernel library ``name``'s SASS
+    (cuobjdump), or None where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", str(build.library_path(name))],
+                         capture_output=True, text=True, check=True).stdout
+    return sum(opcode in line for line in out.splitlines())
+
+
+def geglu_inputs(gen, dev, r, c):
+    """bf16 x (r, c) and Linear-layout weights of width c, from ``gen``."""
+    def rnd(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * std).to(torch.bfloat16)
+    return (rnd(r, c), rnd(8 * c, c, std=c ** -0.5), rnd(8 * c, std=0.1),
+            rnd(c, 4 * c, std=(4 * c) ** -0.5), rnd(c, std=0.1))
+
+
+def check_geglu(gen, dev, smi):
     rows_out = []
     for r, c, calls in FFN_SHAPES:
-        def rnd(*shape, std=1.0):
-            return (torch.randn(shape, generator=gen, device=dev)
-                    * std).to(torch.bfloat16)
-        x = rnd(r, c)
-        w1, b1 = rnd(8 * c, c, std=c ** -0.5), rnd(8 * c, std=0.1)
-        w2, b2 = rnd(c, 4 * c, std=(4 * c) ** -0.5), rnd(c, std=0.1)
+        x, w1, b1, w2, b2 = geglu_inputs(gen, dev, r, c)
         got = geglu_ffn(x, w1, b1, w2, b2)
         want = geglu_ffn_reference(x, w1, b1, w2, b2)
         torch.cuda.synchronize()
         max_abs, rel_rms = check("geglu_ffn", got, want)
         del got, want
-        iters = 3 if r > 100_000 else 10
 
         def library():
             a, g = F.linear(x, w1, b1).chunk(2, dim=-1)
             return F.linear(a * F.gelu(g), w2, b2)
 
-        ms = cuda_ms(lambda: geglu_ffn(x, w1, b1, w2, b2), iters)
-        plain = cuda_ms(lambda: geglu_ffn_reference(x, w1, b1, w2, b2), iters)
-        lib = cuda_ms(library, iters)
+        turns = timed_turns(lambda: geglu_ffn(x, w1, b1, w2, b2), library,
+                            smi)
+        plain = cuda_ms(lambda: geglu_ffn_reference(x, w1, b1, w2, b2), 3)
         flops = 24 * r * c * c
         nbytes = 2 * (2 * r * c + 12 * c * c + 9 * c)
         bms, by = bound_ms(flops, nbytes)
         row = dict(rows=r, c=c, calls_per_forward=calls, max_abs_err=max_abs,
-                   rel_rms_err=rel_rms, ms=ms, plain_ms=plain, library_ms=lib,
-                   bound_ms=bms, bound_by=by, tflops=flops / ms / 1e9)
+                   rel_rms_err=rel_rms, plain_ms=plain, bound_ms=bms,
+                   bound_by=by, **turns_row(turns))
+        row["tflops"] = flops / row["ms"] / 1e9
         say("kernels", name="geglu_ffn", **row)
         rows_out.append(row)
         del x, w1, b1, w2, b2
@@ -256,7 +290,28 @@ def check_geglu(gen, dev):
     return rows_out
 
 
-def check_attention(gen, dev):
+def check_geglu_small(gen, dev):
+    """GEGLU against its plain version at FFN_SMALL_SHAPES (GEMM-2's
+    128-column tile; not timed)."""
+    rows_out = []
+    for r, c in FFN_SMALL_SHAPES:
+        bn2 = geglu_plan(r, c, torch.cuda.get_device_properties(dev)
+                         .multi_processor_count)["bn2"]
+        args = geglu_inputs(gen, dev, r, c)
+        got = geglu_ffn(*args)
+        want = geglu_ffn_reference(*args)
+        torch.cuda.synchronize()
+        max_abs, rel_rms = check("geglu_ffn", got, want)
+        row = dict(rows=r, c=c, bn2=bn2, max_abs_err=max_abs,
+                   rel_rms_err=rel_rms)
+        say("kernels", name="geglu_ffn", what="off the main path", **row)
+        if bn2 != 128:
+            raise AssertionError(f"geglu_ffn at C={c} took bn2={bn2}")
+        rows_out.append(row)
+    return rows_out
+
+
+def check_attention(gen, dev, smi):
     rows_out = []
     for bh, s, calls in ATTN_SHAPES:
         b, h = 75, bh // 75
@@ -268,17 +323,19 @@ def check_attention(gen, dev):
         torch.cuda.synchronize()
         max_abs, rel_rms = check("flash_attention", got, want)
         del got, want
-        ms = cuda_ms(lambda: A.flash_attention(q, k, v, 0.125), 3)
+        turns = timed_turns(
+            lambda: A.flash_attention(q, k, v, 0.125),
+            lambda: F.scaled_dot_product_attention(q, k, v, scale=0.125), smi)
         plain = cuda_ms(lambda: A.attention_chunked(q, k, v, 0.125), 1)
-        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, scale=0.125), 3)
         flops = 4 * bh * s * s * 64
         nbytes = 4 * bh * s * 64 * 2
         bms, by = bound_ms(flops, nbytes)
         row = dict(bh=bh, tokens=s, calls_per_forward=calls,
-                   max_abs_err=max_abs, rel_rms_err=rel_rms, ms=ms,
-                   plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
-                   tflops=flops / ms / 1e9)
+                   max_abs_err=max_abs, rel_rms_err=rel_rms, plain_ms=plain,
+                   bound_ms=bms, bound_by=by, exps=bh * s * s,
+                   exp_ms=1e3 * bh * s * s / PEAK_MUFU_EXPS,
+                   **turns_row(turns))
+        row["tflops"] = flops / row["ms"] / 1e9
         say("kernels", name="flash_attention", **row)
         rows_out.append(row)
         del q, k, v
@@ -1010,10 +1067,21 @@ def main():
             if "registers" in line or "spill" in line:
                 say("build", kernel=name, ptxas=repr(line.strip()))
     say("build", seconds=time.perf_counter() - t0, built=sorted(logs))
+    hgmma = {name: sass_count(name, "HGMMA")
+             for name in ("geglu_ffn", "flash_attention")}
+    say("build", hgmma_in_sass={k: "not available" if v is None else v
+                                for k, v in hgmma.items()})
+    if any(v == 0 for v in hgmma.values()):
+        raise AssertionError(f"no HGMMA in the SASS: {hgmma}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    ffn_rows = check_geglu(gen, dev)
-    attn_rows = check_attention(gen, dev)
+    smi_sampler = SmiSampler()
+    try:
+        ffn_rows = check_geglu(gen, dev, smi_sampler)
+        ffn_small = check_geglu_small(gen, dev)
+        attn_rows = check_attention(gen, dev, smi_sampler)
+    finally:
+        smi_sampler.close()
     small = check_small_unet(dev)
     unit, pipe, census = run_unit(dev)
     norm_rows = check_norms(census, dev)
@@ -1053,7 +1121,9 @@ def main():
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": smi, "torch": torch.__version__,
-                   "geglu_ffn": ffn_rows, "flash_attention": attn_rows,
+                   "hgmma_in_sass": hgmma,
+                   "geglu_ffn": ffn_rows, "geglu_ffn_small": ffn_small,
+                   "flash_attention": attn_rows,
                    "small_unet": small, "unit": unit, "norms": norm_rows,
                    "composite": comp, "gs_small": gs_small, "gs": gs,
                    "scene": scene, "kernels": kernels}, f, indent=1)

@@ -32,8 +32,8 @@ from syn3r_tpu_torch.models.svd_unet import \
 
 # kernel-name fragments -> category, first match wins
 CATEGORIES = [
-    ("geglu_ffn kernel", ("ffn_gemm_kernel",)),
-    ("flash_attention kernel", ("flash_fwd_kernel",)),
+    ("geglu_ffn kernel", ("ffn_wgmma_kernel",)),
+    ("flash_attention kernel", ("flash_wgmma_kernel",)),
     ("group_norm kernels", ("gn_partial_kernel", "gn_fold_kernel",
                             "gn_apply_kernel")),
     ("layer_norm kernel", ("layer_norm_kernel",)),

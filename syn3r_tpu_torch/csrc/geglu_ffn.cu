@@ -10,43 +10,86 @@
 // cores bound it. The TPU kernel kept W1 and W2 resident in VMEM; here W1
 // alone is 26 MB at C = 1280, far beyond a block's 227 KB of shared memory,
 // so both weight matrices stream through shared memory tile by tile and
-// stay hot in the 50 MB L2 (block x walks the output columns fastest, so
-// blocks that run together share one row tile of x).
+// stay hot in the 50 MB L2 (tiles walk the output columns fastest, so the
+// blocks that run together share row tiles of x).
 //
-// Design: two tensor-core GEMMs (bf16 mma.sync m16n8k16, f32 accumulate,
-// 3-stage cp.async pipeline, 128x128x32 block tiles, 8 warps of 64x32).
-//   GEMM-1 computes matching column tiles of a and g in one block (64 of
-//   each) and applies the GEGLU epilogue in registers, so only the 4C-wide
-//   gated product reaches device memory, never the 8C pre-activation.
-//   GEMM-2 multiplies that product by W2 and adds b2.
+// Design: two launches of one warp-specialised, persistent wgmma GEMM.
+//   - One block per SM (the grid is min(tiles, SMs)); each walks the output
+//     tiles t = blockIdx.x, + gridDim.x, ... A tile is 256 rows by TN
+//     output columns.
+//   - Warpgroup 0 is the producer: one thread keeps TMA loads of the x (or
+//     h) tile and the W tile, 64 deep in K, in flight in a ring of 4
+//     stages, each guarded by a full and an empty mbarrier; the loads of
+//     the next tile run under the current tile's epilogue.
+//   - Warpgroups 1 and 2 are consumers and share every tile: each computes
+//     128 of its rows as two m64 wgmma halves, bf16 from the swizzled
+//     shared tiles, f32 accumulators in registers, so four accumulator
+//     chains keep the tensor cores fed. Consumers that took whole tiles in
+//     turns, one's epilogue under the other's wgmmas, were slower: two
+//     chains did not fill the tensor cores (PERF.md).
+//   GEMM-1 (GEGLU) loads the a rows n0.. and the g rows N+n0.. of W1 as two
+//   TMA boxes of 80 rows, stacked into one 160-row B tile, so one m64n160
+//   wgmma yields a (chunks 0-9) and g (chunks 10-19) of the same output
+//   elements in the same thread (4C = 1280, 2560, 5120 are multiples of
+//   80); the epilogue writes the 4C-wide gated
+//   product h, never the 8C pre-activation. GEMM-2 multiplies h by W2 with
+//   an N tile of 160 or 128 columns that divides C (320, 640, 1280: no
+//   column is computed in vain) and adds b2.
 // Numerics follow `_ffn_kernel`: each product is rounded to bf16, the bias
-// is added in bf16, gelu(erf) is evaluated in f32 with the same
-// Abramowitz-Stegun 7.1.26 erf and rounded to bf16, and a * gelu(g) is
-// rounded to bf16 before the second product.
+// is added in bf16 (add.rn.bf16x2), gelu(erf) is evaluated in f32 with the
+// same Abramowitz-Stegun 7.1.26 erf and rounded to bf16, and a * gelu(g)
+// is rounded to bf16 (mul.rn.bf16x2) before the second product. No
+// split-K: deterministic.
 //
 // Weights use torch's Linear layout: W1 (8C, C), W2 (C, 4C), row-major, so
-// both operands of each product are K-contiguous.
+// every operand is K-major and no transpose is needed.
 
-#include "mma_common.cuh"
+#include "hopper_common.cuh"
 
 using namespace syn3r;
 using bf16 = __nv_bfloat16;
 
 namespace {
 
-constexpr int BM = 128;        // rows of x per block
-constexpr int BNT = 128;       // columns of W per block (GEGLU: 64 a + 64 g)
-constexpr int BK = 32;         // reduction slice per pipeline stage
-constexpr int STAGES = 3;
-constexpr int LDS = BK + 8;    // padded row: conflict-free ldmatrix
-constexpr int THREADS = 256;
-constexpr int STAGE_ELEMS = (BM + BNT) * LDS;
-constexpr int SMEM_BYTES = STAGES * STAGE_ELEMS * (int)sizeof(bf16);
+constexpr int BM = 128;       // rows of a consumer (two m64 wgmma halves)
+constexpr int BMT = 2 * BM;   // rows of a block tile, shared by both
+constexpr int BK = 64;        // K per stage: one 128-byte swizzle row
+constexpr int THREADS = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int A_BYTES = BMT * BK * 2;
+constexpr int GEGLU_BN = 160;  // GEMM-1 B tile: 80 a rows + 80 g rows
+
+template <int BN>
+struct Cfg {
+  static constexpr int B_BYTES = BN * BK * 2;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int STAGES = (220 * 1024) / STAGE_BYTES;  // 4
+  static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
+};
+
+template <int BN>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b,
+                                         int scale_d) {
+  if constexpr (BN == 128) {
+    wgmma_m64n128k16_ss(d, a, b, scale_d);
+  } else {
+    static_assert(BN == 160, "N tile of 128 or 160");
+    wgmma_m64n160k16_ss(d, a, b, scale_d);
+  }
+}
+
+// 1 / d for d >= 1: the approximate reciprocal refined by one Newton step,
+// within an ulp of the correctly rounded quotient and without the slow path
+// of IEEE division, whose branch would split the epilogue's basic block.
+__device__ __forceinline__ float recip(float d) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(d));
+  return fmaf(r, fmaf(-d, r, 1.0f), r);
+}
 
 __device__ __forceinline__ float gelu_erf(float x) {
   float z = x * 0.70710678118654752f;
   float az = fabsf(z);
-  float t = 1.0f / (1.0f + 0.3275911f * az);
+  float t = recip(1.0f + 0.3275911f * az);
   float poly = t * (0.254829592f +
                     t * (-0.284496736f +
                          t * (1.421413741f +
@@ -55,188 +98,232 @@ __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.0f + erf);
 }
 
-// out = epilogue(A (M, K) . W^T); W rows are output columns.
-// GEGLU: W is (2N, K); block column tile n0..n0+63 takes W rows n0.. (a) and
-// N+n0.. (g); out (M, N) = bf16(a + b[n]) * bf16(gelu(bf16(g + b[N+n]))).
-// Plain: W is (N, K); out (M, N) = bf16(bf16(acc) + b[n]).
-template <bool GEGLU>
-__global__ void __launch_bounds__(THREADS)
-    ffn_gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
-                    const bf16* __restrict__ bias, bf16* __restrict__ out,
-                    int M, int N, int K) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = warp >> 2;  // 2 warps along rows, 64 rows each
-  const int wn = warp & 3;   // 4 warps along columns
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * (GEGLU ? BNT / 2 : BNT);
-  const int KT = K / BK;
+// out = epilogue(A (M, K) . B^T), B's rows are output columns.
+// GEGLU: B is W1 (2N, K); a tile's output columns n0..n0+79 take B rows
+// n0.. (a) and N+n0.. (g); out (M, N) = bf16(a + b[n]) * bf16(gelu(bf16(g +
+// b[N+n]))). Plain: B is (N, K); out (M, N) = bf16(bf16(acc) + b[n]).
+template <bool GEGLU, int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+    ffn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
+                     const __grid_constant__ CUtensorMap tm_b,
+                     const bf16* __restrict__ bias, bf16* __restrict__ out,
+                     int M, int N, int K) {
+  using Cf = Cfg<BN>;
+  constexpr int STAGES = Cf::STAGES;
+  constexpr int TN = GEGLU ? BN / 2 : BN;  // output columns of a tile
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem + STAGES * Cf::STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+  const int n_tiles = (N + TN - 1) / TN;
+  const int tiles = n_tiles * ((M + BMT - 1) / BMT);
+  const int kt_n = (K + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
 
-  auto load_stage = [&](int stage, int kt) {
-    bf16* sA = smem + stage * STAGE_ELEMS;
-    bf16* sB = sA + BM * LDS;
-    const int k0 = kt * BK;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      int c = tid + i * THREADS;  // 512 chunks of 8 bf16
-      int r = c >> 2, col = (c & 3) * 8;
-      int gr = m0 + r;
-      bool ok = gr < M;
-      cp_async16(sA + r * LDS + col, A + (size_t)(ok ? gr : 0) * K + k0 + col,
-                 ok);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);  // every thread of both consumers
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      int c = tid + i * THREADS;
-      int r = c >> 2, col = (c & 3) * 8;
-      int gn;
-      bool ok;
-      if (GEGLU) {
-        int nn = n0 + (r & 63);
-        ok = nn < N;
-        gn = nn + (r >> 6) * N;
-      } else {
-        gn = n0 + r;
-        ok = gn < N;
-      }
-      cp_async16(sB + r * LDS + col, W + (size_t)(ok ? gn : 0) * K + k0 + col,
-                 ok);
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) load_stage(s, s);
-    cp_async_commit();
+    fence_barrier_init();
   }
+  __syncthreads();
 
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    const int nk = kt + STAGES - 1;
-    if (nk < KT) load_stage(nk % STAGES, nk);
-    cp_async_commit();
-
-    const bf16* sA = smem + (kt % STAGES) * STAGE_ELEMS;
-    const bf16* sB = sA + BM * LDS;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t a[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        int r = wm * 64 + i * 16 + (lane & 15);
-        int c = kk + (lane >> 4) * 8;
-        ldmatrix_x4(a[i][0], a[i][1], a[i][2], a[i][3], sA + r * LDS + c);
+  if (wg == 0) {
+    // ---- producer: one thread issues every TMA load of the block
+    reg_dealloc<40>();
+    if (threadIdx.x == 0) {
+      tma_prefetch_map(&tm_a);
+      tma_prefetch_map(&tm_b);
+      int idx = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = (t / n_tiles) * BMT;
+        const int n0 = (t % n_tiles) * TN;
+        for (int kt = 0; kt < kt_n; ++kt, ++idx) {
+          const int s = idx % STAGES;
+          mbar_wait(&empty[s], ((idx / STAGES) & 1) ^ 1);
+          uint8_t* sa = smem + s * Cf::STAGE_BYTES;
+          uint8_t* sb = sa + A_BYTES;
+          mbar_arrive_expect_tx(&full[s], Cf::STAGE_BYTES);
+          tma_load_2d(sa, &tm_a, &full[s], kt * BK, m0);
+          if constexpr (GEGLU) {
+            tma_load_2d(sb, &tm_b, &full[s], kt * BK, n0);
+            tma_load_2d(sb + Cf::B_BYTES / 2, &tm_b, &full[s], kt * BK,
+                        N + n0);
+          } else {
+            tma_load_2d(sb, &tm_b, &full[s], kt * BK, n0);
+          }
+        }
       }
-      uint32_t b[4][2];
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        // GEGLU: n-tiles 0,1 are a columns, 2,3 the matching g columns, so
-        // each thread holds a and g of the same output element.
-        int nb = GEGLU ? p * 64 + wn * 16 : wn * 32 + p * 16;
-        int r = nb + (lane & 7) + ((lane >> 4) << 3);
-        int c = kk + ((lane >> 3) & 1) * 8;
-        ldmatrix_x4(b[2 * p][0], b[2 * p][1], b[2 * p + 1][0],
-                    b[2 * p + 1][1], sB + r * LDS + c);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16_16816(acc[i][j], a[i], b[j][0], b[j][1]);
     }
-  }
+  } else {
+    // ---- consumers: warpgroup cw takes rows 128 cw .. of every tile
+    reg_alloc<232>();
+    const int cw = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, q = lane % 4;
+    const int mine =
+        blockIdx.x < tiles ? (tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+    const uint32_t smem_base = smem_u32(smem);
+    float acc[2][BN / 2];
 
-  const int g = lane >> 2;
-  const int q = lane & 3;
+    for (int j = 0; j < mine; ++j) {
+      const int t = blockIdx.x + j * gridDim.x;
+      const int m0 = (t / n_tiles) * BMT + BM * cw + warp * 16 + g;
+      const int n0 = (t % n_tiles) * TN + 2 * q;
+      // GEMM-1's bias pairs, loaded before the main loop so that their
+      // latency hides under it (a ragged column reads a valid pair and is
+      // not stored). GEMM-2's main loop is 4x longer and its accumulators
+      // 160 wide: it loads its pairs in the epilogue.
+      __nv_bfloat162 b_a[GEGLU ? TN / 8 : 1], b_g[GEGLU ? TN / 8 : 1];
+      if constexpr (GEGLU) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+        for (int c = 0; c < TN / 8; ++c) {
+          const int col = min(n0 + 8 * c, N - 2);
+          b_a[c] = *reinterpret_cast<const __nv_bfloat162*>(bias + col);
+          b_g[c] = *reinterpret_cast<const __nv_bfloat162*>(bias + N + col);
+        }
+      }
+      for (int kt = 0; kt < kt_n; ++kt) {
+        const int idx = j * kt_n + kt;
+        const int s = idx % STAGES;
+        mbar_wait(&full[s], (idx / STAGES) & 1);
+        const uint32_t sa = smem_base + s * Cf::STAGE_BYTES;
+        // this consumer's 128 rows of the A tile
+        const uint64_t da = desc_kmajor(sa + cw * BM * BK * 2);
+        const uint64_t db = desc_kmajor(sa + A_BYTES);
+        wgmma_fence();
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + wm * 64 + i * 16 + g + half * 8;
-      if (row >= M) continue;
-      bf16* orow = out + (size_t)row * N;
-      if (GEGLU) {
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          const int sc = (kt > 0 || kk > 0) ? 1 : 0;
+          wgmma_ss<BN>(acc[0], da + 2 * kk, db + 2 * kk, sc);
+          // rows 64..127 start 64 * 128 bytes further
+          wgmma_ss<BN>(acc[1], da + 512 + 2 * kk, db + 2 * kk, sc);
+        }
+        wgmma_commit();
+        if (kt > 0) {
+          wgmma_wait<1>();  // the previous stage's wgmmas are done
+          mbar_arrive(&empty[(idx - 1) % STAGES]);
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs<BN / 2>(acc[0]);
+      fence_regs<BN / 2>(acc[1]);
+      mbar_arrive(&empty[(j * kt_n + kt_n - 1) % STAGES]);
+
+      // ---- epilogue: the values of a column chunk carry no branch, so the
+      // compiler interleaves the independent chains; the stores are
+      // predicated on the ragged row and column edges.
+      bool row_ok[2][2];
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int col = n0 + wn * 16 + j * 8 + 2 * q;
-          if (col >= N) continue;
-          float v[2];
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) row_ok[h][e] = m0 + 64 * h + 8 * e < M;
+#pragma unroll
+      for (int c = 0; c < TN / 8; ++c) {
+        const int col = n0 + 8 * c;
+        // bias pairs; the products are rounded to bf16 pairs and the bias
+        // added with add.rn.bf16x2: one rounding, as bf16(bf16(acc) + b)
+        __nv_bfloat162 ba, bg;
+        if constexpr (GEGLU) {
+          ba = b_a[c];
+          bg = b_g[c];
+        } else {
+          ba = *reinterpret_cast<const __nv_bfloat162*>(bias +
+                                                       min(col, N - 2));
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            float ha = round_bf16(round_bf16(acc[i][j][half * 2 + e]) +
-                                  __bfloat162float(bias[col + e]));
-            float hg = round_bf16(round_bf16(acc[i][j + 2][half * 2 + e]) +
-                                  __bfloat162float(bias[N + col + e]));
-            v[e] = ha * round_bf16(gelu_erf(hg));
+            const __nv_bfloat162 a = __hadd2(
+                __floats2bfloat162_rn(acc[h][4 * c + 2 * e],
+                                      acc[h][4 * c + 2 * e + 1]),
+                ba);
+            __nv_bfloat162 res;
+            if constexpr (GEGLU) {
+              constexpr int GC = TN / 8;  // g's chunk is a's + TN / 8
+              const float2 gf = __bfloat1622float2(__hadd2(
+                  __floats2bfloat162_rn(acc[h][4 * (c + GC) + 2 * e],
+                                        acc[h][4 * (c + GC) + 2 * e + 1]),
+                  bg));
+              // bf16(a * bf16(gelu(g))): the exact product, rounded once
+              res = __hmul2(a, __floats2bfloat162_rn(gelu_erf(gf.x),
+                                                     gelu_erf(gf.y)));
+            } else {
+              res = a;
+            }
+            const uint32_t packed = *reinterpret_cast<const uint32_t*>(&res);
+            // N is even, so a pair that starts inside the row ends inside it
+            if (row_ok[h][e] && col < N)
+              *reinterpret_cast<uint32_t*>(
+                  out + (size_t)(m0 + 64 * h + 8 * e) * N + col) = packed;
           }
-          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-              __floats2bfloat162_rn(v[0], v[1]);
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = n0 + wn * 32 + j * 8 + 2 * q;
-          if (col >= N) continue;
-          float v[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            v[e] = round_bf16(acc[i][j][half * 2 + e]) +
-                   __bfloat162float(bias[col + e]);
-          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-              __floats2bfloat162_rn(v[0], v[1]);
-        }
       }
     }
   }
 }
 
-template <bool GEGLU>
-cudaError_t launch_gemm(const bf16* A, const bf16* W, const bf16* bias,
-                        bf16* out, int M, int N, int K, cudaStream_t stream) {
+template <bool GEGLU, int BN>
+cudaError_t launch_gemm(const CUtensorMap& tm_a, const CUtensorMap& tm_b,
+                        const bf16* bias, bf16* out, int M, int N, int K,
+                        int grid, cudaStream_t stream) {
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        ffn_gemm_kernel<GEGLU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        SMEM_BYTES);
+        ffn_wgmma_kernel<GEGLU, BN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<BN>::SMEM);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
-  const int bn = GEGLU ? BNT / 2 : BNT;
-  dim3 grid((N + bn - 1) / bn, (M + BM - 1) / BM);
-  ffn_gemm_kernel<GEGLU><<<grid, THREADS, SMEM_BYTES, stream>>>(A, W, bias,
-                                                                out, M, N, K);
+  ffn_wgmma_kernel<GEGLU, BN><<<grid, THREADS, Cfg<BN>::SMEM, stream>>>(
+      tm_a, tm_b, bias, out, M, N, K);
   return cudaGetLastError();
+}
+
+// A 2-D map over a row-major bf16 (rows, cols) matrix, box (64, box_rows).
+cudaError_t map_2d(CUtensorMap* map, const void* base, uint64_t rows,
+                   uint64_t cols, uint32_t box_rows) {
+  const uint64_t dims[2] = {cols, rows};
+  const uint64_t strides[1] = {cols * 2};
+  const uint32_t box[2] = {(uint32_t)BK, box_rows};
+  return make_map_bf16(map, base, 2, dims, strides, box);
 }
 
 }  // namespace
 
-// x (rows, c), w1 (8c, c), b1 (8c), w2 (c, 4c), b2 (c), all bf16 and
-// contiguous; h (rows, 4c) is scratch for the gated product, y (rows, c)
-// the output. Returns a cudaError_t (0 on success).
+// x (rows, c), w1 (8c, c), b1 (8c), w2 (c, 4c), b2 (c), all bf16,
+// contiguous and 16-byte aligned; h (rows, 4c) is scratch for the gated
+// product, y (rows, c) the output. bn2 is GEMM-2's N tile (128 or 160),
+// grid1 and grid2 the persistent grids of the two GEMMs (see
+// ops/geglu_ffn.py geglu_plan). Returns a cudaError_t (0 on success).
 extern "C" int syn3r_geglu_ffn(const void* x, const void* w1, const void* b1,
                                const void* w2, const void* b2, void* h,
-                               void* y, long long rows, int c, void* stream) {
-  if (c <= 0 || c % BK != 0 || rows <= 0 || (rows + BM - 1) / BM > 65535)
+                               void* y, long long rows, int c, int bn2,
+                               int grid1, int grid2, void* stream) {
+  if (c <= 0 || c % 8 != 0 || rows <= 0 || rows >= (1ll << 31) ||
+      (bn2 != 128 && bn2 != 160) || grid1 <= 0 || grid2 <= 0)
     return (int)cudaErrorInvalidValue;
   const int m = (int)rows;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_gemm<true>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
-      static_cast<const bf16*>(b1), static_cast<bf16*>(h), m, 4 * c, c, s);
+  CUtensorMap tm_x, tm_w1, tm_h, tm_w2;
+  cudaError_t err;
+  if ((err = map_2d(&tm_x, x, rows, c, BMT)) != cudaSuccess ||
+      (err = map_2d(&tm_w1, w1, 8ull * c, c, GEGLU_BN / 2)) != cudaSuccess ||
+      (err = map_2d(&tm_h, h, rows, 4ull * c, BMT)) != cudaSuccess ||
+      (err = map_2d(&tm_w2, w2, c, 4ull * c, bn2)) != cudaSuccess)
+    return (int)err;
+  err = launch_gemm<true, GEGLU_BN>(tm_x, tm_w1, static_cast<const bf16*>(b1),
+                                    static_cast<bf16*>(h), m, 4 * c, c, grid1,
+                                    s);
   if (err != cudaSuccess) return (int)err;
-  err = launch_gemm<false>(
-      static_cast<const bf16*>(h), static_cast<const bf16*>(w2),
-      static_cast<const bf16*>(b2), static_cast<bf16*>(y), m, c, 4 * c, s);
+  if (bn2 == 160)
+    err = launch_gemm<false, 160>(tm_h, tm_w2, static_cast<const bf16*>(b2),
+                                  static_cast<bf16*>(y), m, c, 4 * c, grid2, s);
+  else
+    err = launch_gemm<false, 128>(tm_h, tm_w2, static_cast<const bf16*>(b2),
+                                  static_cast<bf16*>(y), m, c, 4 * c, grid2, s);
   return (int)err;
 }

@@ -27,11 +27,13 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 # C entry points and their argument types, per kernel library.
 SIGNATURES = {
+    # x, w1, b1, w2, b2, h, y; rows, C; GEMM-2 N tile, grids; stream
     "geglu_ffn": {"syn3r_geglu_ffn":
-                  [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _P]},
+                  [_P] * 7 + [_LL, _I, _I, _I, _I, _P]},
+    # q, k, v, o; 3 x 12 map values; B, H, S; o strides; scale; grid; stream
     "flash_attention": {"syn3r_flash_attention":
-                        [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL,
-                         _LL, _LL, _LL, _F, _P]},
+                        [_P] * 4 + [ctypes.POINTER(_LL), _I, _I, _I, _LL,
+                                    _LL, _LL, _F, _I, _P]},
     # P, G, C, O, out, ltc; T, px, cap, K; stream
     "composite_fwd": {"syn3r_composite_fwd": [_P] * 6 + [_I] * 4 + [_P]},
     # P, G, C, O, ltc, dout, part, dG, dC, dO; T, px, cap, K; stream

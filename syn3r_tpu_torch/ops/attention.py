@@ -15,9 +15,14 @@ dense and chunked paths stay plain torch, as they stay XLA in JAX.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..kernels import build
+
+# Query rows of the kernel's work item, keys of its K/V stage, head dim.
+FLASH_BQ, FLASH_BKV, FLASH_D = 128, 192, 64
 
 
 def attention_dense(q, k, v, scale: float) -> torch.Tensor:
@@ -54,6 +59,55 @@ def attention_packed_heads(q, k, v, scale: float) -> torch.Tensor:
     return out.reshape(b, h, s, d)
 
 
+def flash_tensor_map(shape, strides, data_ptr: int, rows: int,
+                     elem_bytes: int = 2):
+    """The 4-D TMA tensor map of the flash kernel over a (B, H, S, 64) view
+    with element ``strides``, loading ``rows`` rows of S at a time:
+    {"dims": (64, X, Y, B), "strides": byte strides of X, Y, B, "box":
+    (64, ...), "s_dim": the axis of S}, where X and Y are S and H in the
+    order of their strides. None when the view cannot be mapped as it is:
+    the head axis not contiguous, a stride not a multiple of 16 bytes or a
+    start not 16-byte aligned."""
+    b, h, s, d = shape
+    sb, sh, ss, sd = strides
+    if (sd != 1 or data_ptr % 16
+            or any(st * elem_bytes % 16 for st in (sb, sh, ss))):
+        return None
+    if ss <= sh:
+        dims, st, s_dim = (d, s, h, b), (ss, sh, sb), 1
+    else:
+        dims, st, s_dim = (d, h, s, b), (sh, ss, sb), 2
+    box = (d,) + tuple(rows if i == s_dim else 1 for i in (1, 2)) + (1,)
+    return {"dims": dims, "strides": tuple(x * elem_bytes for x in st),
+            "box": box, "s_dim": s_dim}
+
+
+def flash_grid(b: int, h: int, s: int, num_sms: int) -> int:
+    """Persistent grid: one block per SM, at most one per work item (a
+    128-row query tile of one batch and head)."""
+    return min(b * h * -(-s // FLASH_BQ), num_sms)
+
+
+def check_flash_args(q, k, v) -> None:
+    """Raises unless q, k, v are bf16 (B, H, S, 64) of one shape."""
+    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
+        raise TypeError("flash_attention kernel takes bfloat16 q, k, v")
+    if (q.dim() != 4 or q.shape[3] != FLASH_D or k.shape != q.shape
+            or v.shape != q.shape):
+        raise ValueError("flash_attention kernel needs q, k, v of one shape "
+                         f"with d = 64, got {q.shape} {k.shape} {v.shape}")
+
+
+def mapped(t: torch.Tensor, rows: int):
+    """(t, its tensor map): t itself where its strides and start suit TMA,
+    else one contiguous copy in a fresh (aligned) allocation."""
+    m = flash_tensor_map(t.shape, t.stride(), t.data_ptr(), rows)
+    if m is None:
+        t = t.clone(memory_format=torch.contiguous_format)
+        m = flash_tensor_map(t.shape, t.stride(), t.data_ptr(), rows)
+    return t, m
+
+
 def flash_attention(q, k, v, scale: float) -> torch.Tensor:
     """Exact attention: the CUDA kernel for CUDA tensors (bf16, d = 64),
     ``attention_chunked`` for CPU tensors. ``flash_attention.launches``
@@ -63,26 +117,22 @@ def flash_attention(q, k, v, scale: float) -> torch.Tensor:
         return attention_chunked(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    check_flash_args(q, k, v)
     b, h, s, d = q.shape
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise TypeError("flash_attention kernel takes bfloat16 q, k, v")
-    if d != 64 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError("flash_attention kernel needs q, k, v of one shape "
-                         f"with d = 64, got {q.shape} {k.shape} {v.shape}")
-    # the kernel copies 16-byte rows: one shared set of strides, rows
-    # 16-byte aligned
-    if (not (q.stride() == k.stride() == v.stride()) or q.stride(3) != 1
-            or any(st % 8 for st in q.stride()[:3])
-            or any(t.data_ptr() % 16 for t in (q, k, v))):
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    (q, mq), (k, mk), (v, mv) = (mapped(q, FLASH_BQ), mapped(k, FLASH_BKV),
+                                 mapped(v, FLASH_BKV))
+    geom = (ctypes.c_longlong * 36)(*(
+        x for m in (mq, mk, mv)
+        for x in (*m["dims"], *m["strides"], *m["box"], m["s_dim"])))
     out = torch.empty((b, s, h, d), dtype=q.dtype,
                       device=q.device).permute(0, 2, 1, 3)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    sb, sh, ss, _ = q.stride()
     ob, oh, os_, _ = out.stride()
+    grid = flash_grid(b, h, s, torch.cuda.get_device_properties(
+        q.device).multi_processor_count)
     err = build.entry("flash_attention")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, s, d,
-        sb, sh, ss, ob, oh, os_, float(scale), stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), geom, b, h,
+        s, ob, oh, os_, float(scale), grid, stream)
     if err != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed: cudaError {err}")

@@ -3,10 +3,11 @@
 Counterpart of ``syn3r_tpu/ops/pallas_ffn.py``: ``[a|g] = x W1 + b1``
 (C -> 8C), ``y = (a * gelu(g)) W2 + b2`` (4C -> C). On a CUDA tensor
 ``geglu_ffn`` launches the hand-written kernel pair in
-``csrc/geglu_ffn.cu`` (GEMM with a GEGLU epilogue, so the 8C pre-activation
-never reaches device memory, then GEMM with a bias epilogue); on a CPU
-tensor it runs ``geglu_ffn_reference``. A CUDA tensor never falls back:
-the wrapper launches or raises.
+``csrc/geglu_ffn.cu`` (persistent wgmma GEMMs fed by TMA: the first with a
+GEGLU epilogue, so the 8C pre-activation never reaches device memory, the
+second with a bias epilogue); on a CPU tensor it runs
+``geglu_ffn_reference``. A CUDA tensor never falls back: the wrapper
+launches or raises. ``geglu_plan`` is the launch geometry, in plain Python.
 
 Weights use torch's Linear layout: ``w1`` (8C, C), ``w2`` (C, 4C).
 """
@@ -17,6 +18,38 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import build
+
+# Rows of a GEMM tile (128 for each of the two consumer warpgroups);
+# GEMM-1's tiles are 80 output columns (with their 80 g columns); GEMM-2's
+# N tile is one of GEMM2_TILES (the kernel is built for these): 160 for the
+# SVD UNet's C = 320/640/1280, 128 for narrower UNets (C = 64, 128, as in
+# chip_smoke.py's small UNet, which holds it against the plain version).
+TILE_ROWS, GEMM1_TN, GEMM2_TILES = 256, 80, (160, 128)
+
+
+def geglu_plan(rows: int, c: int, num_sms: int) -> dict:
+    """Launch geometry of the kernel pair for x (rows, c) on a card with
+    ``num_sms`` SMs: GEMM-2's N tile (the one that computes the fewest
+    columns, the larger on a tie: 160 at C = 320, 640 and 1280, where
+    none is wasted), each GEMM's output tiles and its persistent grid
+    (one block per SM, at most one per tile)."""
+    bn2 = min(GEMM2_TILES, key=lambda n: (-(-c // n) * n, -n))
+    m_tiles = -(-rows // TILE_ROWS)
+    tiles1 = m_tiles * -(-4 * c // GEMM1_TN)
+    tiles2 = m_tiles * -(-c // bn2)
+    return dict(bn2=bn2, tiles1=tiles1, tiles2=tiles2,
+                grid1=min(tiles1, num_sms), grid2=min(tiles2, num_sms))
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous with a 16-byte aligned start (TMA's rule), copied
+    once if it is not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _num_sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def geglu_ffn_reference(x2: torch.Tensor, w1, b1, w2, b2) -> torch.Tensor:
@@ -30,6 +63,22 @@ def geglu_ffn_reference(x2: torch.Tensor, w1, b1, w2, b2) -> torch.Tensor:
     return torch.matmul(prod, w2.to(dt).t()) + b2.to(dt)
 
 
+def check_geglu_args(x2: torch.Tensor, w1, b1, w2, b2) -> tuple[int, int]:
+    """(rows, C) of what the kernel takes: bf16 x (rows, C) with C % 8 == 0
+    (TMA needs 16-byte row strides) and weights of those widths; raises on
+    anything else."""
+    r, c = x2.shape
+    if x2.dtype != torch.bfloat16:
+        raise TypeError(f"geglu_ffn kernel takes bfloat16, got {x2.dtype}")
+    if c % 8:
+        raise ValueError(f"geglu_ffn kernel needs C % 8 == 0, got C={c}")
+    if (tuple(w1.shape) != (8 * c, c) or tuple(b1.shape) != (8 * c,)
+            or tuple(w2.shape) != (c, 4 * c) or tuple(b2.shape) != (c,)):
+        raise ValueError("geglu_ffn: weight shapes do not match C="
+                         f"{c}: {w1.shape} {b1.shape} {w2.shape} {b2.shape}")
+    return r, c
+
+
 def geglu_ffn(x2: torch.Tensor, w1, b1, w2, b2) -> torch.Tensor:
     """GEGLU FF on (R, C): the CUDA kernel for a CUDA tensor, the plain
     version for a CPU tensor. ``geglu_ffn.launches`` counts kernel
@@ -38,26 +87,15 @@ def geglu_ffn(x2: torch.Tensor, w1, b1, w2, b2) -> torch.Tensor:
         return geglu_ffn_reference(x2, w1, b1, w2, b2)
     if x2.device.type != "cuda":
         raise ValueError(f"geglu_ffn: unsupported device {x2.device}")
-    r, c = x2.shape
-    if x2.dtype != torch.bfloat16:
-        raise TypeError(f"geglu_ffn kernel takes bfloat16, got {x2.dtype}")
-    if c % 32:
-        raise ValueError(f"geglu_ffn kernel needs C % 32 == 0, got C={c}")
-    if (tuple(w1.shape) != (8 * c, c) or tuple(b1.shape) != (8 * c,)
-            or tuple(w2.shape) != (c, 4 * c) or tuple(b2.shape) != (c,)):
-        raise ValueError("geglu_ffn: weight shapes do not match C="
-                         f"{c}: {w1.shape} {b1.shape} {w2.shape} {b2.shape}")
-    args = [t.to(torch.bfloat16).contiguous()
-            for t in (x2, w1, b1, w2, b2)]
-    # the kernel copies x, W1 and W2 in 16-byte pieces
-    if any(args[i].data_ptr() % 16 for i in (0, 1, 3)):
-        raise ValueError("geglu_ffn kernel needs 16-byte aligned x, w1, w2")
+    r, c = check_geglu_args(x2, w1, b1, w2, b2)
+    args = [aligned16(t.to(torch.bfloat16)) for t in (x2, w1, b1, w2, b2)]
+    plan = geglu_plan(r, c, _num_sms(x2.device))
     h = torch.empty((r, 4 * c), dtype=torch.bfloat16, device=x2.device)
     y = torch.empty((r, c), dtype=torch.bfloat16, device=x2.device)
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     err = build.entry("geglu_ffn")(
         *(t.data_ptr() for t in args), h.data_ptr(), y.data_ptr(), r, c,
-        stream)
+        plan["bn2"], plan["grid1"], plan["grid2"], stream)
     if err != 0:
         raise RuntimeError(f"geglu_ffn kernel launch failed: cudaError {err}")
     geglu_ffn.launches += 1
