@@ -27,10 +27,14 @@ Phases, one result line each; any failure raises and the exit code is not 0:
               norms one per call of a norm module, 105 GroupNorms and 112
               LayerNorms per UNet forward (the module tree). Forward
               pre-hooks record every norm call's shape (the census).
+              The UNet's LayerNorm calls must be LN_SHAPES of
+              scripts/kernel_timing.py, bf16 with bf16 weights.
   5b. kernels the GroupNorm (stats and apply) and LayerNorm kernels against
               their plain versions at every shape of the census (UNet and
-              CLIP in bf16, the VAE encode in float32, its decode in bf16),
-              with F.group_norm / F.layer_norm as the library yardstick.
+              CLIP in bf16, the VAE encode in float32, its decode in bf16;
+              LayerNorm weights in the module's dtype, GroupNorm's in
+              float32), with F.group_norm / F.layer_norm as the library
+              yardstick.
   5c. scene   the per-scene loop through the training entry point
               (cli/train.build_runner, then run) with the README's LLFF
               flags (--n_views 3 --refine_cycle_num 2): an in-memory
@@ -43,7 +47,10 @@ Phases, one result line each; any failure raises and the exit code is not 0:
   6. kernels  the tile-composite forward and backward kernels against their
               plain versions at the GS main path's shapes (T 96 tiles,
               px 2048, cap 1024, K 128), on G/C/O from projecting and binning
-              the full-size scene; then the kernel route's parameter
+              the full-size scene; two backward calls must agree bit for bit,
+              and the backward's skip test must skip no (entry, warp
+              rectangle) with a pixel whose alpha reaches 1/255 (the fraction
+              it removed is reported); then the kernel route's parameter
               gradients against autograd through the plain composite.
   7. gs_small one GS train step on the card through the kernels against the
               same step on the CPU through the plain versions.
@@ -89,8 +96,10 @@ from syn3r_tpu_torch.ops.geglu_ffn import (geglu_ffn, geglu_ffn_reference,
                                           geglu_plan)
 from syn3r_tpu_torch.pipeline.completion import search_hypers_v2
 from syn3r_tpu_torch.utils.camera import camera_from_fov, look_at_w2c
-from scripts.kernel_timing import (ATTN_SHAPES, FFN_SHAPES, SmiSampler,
-                                   cuda_ms, window_iters)
+from scripts.kernel_timing import (ATTN_SHAPES, FFN_SHAPES, GS_CAP, GS_H,
+                                   GS_W, LN_SHAPES, SmiSampler, cuda_ms,
+                                   gs_points, gs_scene, gs_tile_lists,
+                                   window_iters)
 
 # Published dense peaks of one H100 SXM (data sheet), for bound_ms.
 PEAK_BF16_FLOPS = 989e12
@@ -118,8 +127,7 @@ BUILD_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "build", "chip_smoke")
 # float32 outside the tensor cores (data sheet), for the composite bounds
 PEAK_F32_FLOPS = 67e12
-# GS main path (bench.py's GS configuration, the CLI's --tile_cap 1024)
-GS_W, GS_H, GS_N, GS_CAP, GS_ITERS = 504, 378, 65_536, 1024, 300
+GS_ITERS = 300
 # the scene phase: the README's LLFF command with the cuts of the docstring
 SCENE_FLAGS = ["--n_views", "3", "--refine_cycle_num", "2",
                "--num_inference_steps", str(STEPS),
@@ -139,6 +147,12 @@ CUBIC_RANGE = (-0.2, 1.2)
 # dalpha (4), dpower, the 12 products and their 12 sums over pixels, log1p
 # and add = 45.
 OPS_LIVE, OPS_FWD_HIT, OPS_BWD_HIT = 15, 15, 45
+# Special-function operations (exp, log1p, reciprocal) per pair: an exp for
+# every live pair; forward hit pairs an exp and a log1p, backward an exp, a
+# log1p and a divide. Their rate: 16 a clock a SM (CUDA Programming Guide,
+# throughput table, compute capability 9.0) x 132 SMs x 1.98 GHz.
+SFU_LIVE, SFU_FWD_HIT, SFU_BWD_HIT = 1, 2, 3
+PEAK_SFU_OPS = 16 * 132 * 1.98e9
 # Composite kernel vs plain version, float32 on both sides, the same
 # formulas in another summation order (and exp/log1p from another library):
 # elementwise |got - want| <= atol + rtol |want| (allclose), as
@@ -438,6 +452,13 @@ def run_unit(dev):
         raise AssertionError(f"UNet norm calls {unet_calls}, expected "
                              f"{n_gn} GroupNorms and {n_ln} LayerNorms x "
                              f"{forwards} forwards")
+    unet_ln = {key[2]: n / forwards for key, n in census.calls.items()
+               if key[:2] == ("layer_norm", "unet")}
+    if unet_ln != {(r, c): n for r, c, n in LN_SHAPES} or any(
+            key[3] != torch.bfloat16 or key[7] != torch.bfloat16
+            for key in census.calls if key[:2] == ("layer_norm", "unet")):
+        raise AssertionError(f"UNet LayerNorm calls a forward {unet_ln}, "
+                             f"expected LN_SHAPES in bf16: {LN_SHAPES}")
     calls = census.totals()
     want = {"geglu_ffn": 48 * forwards, "flash_attention": 15 * forwards,
             "composite_fwd": 0, "composite_bwd": 0,
@@ -489,27 +510,6 @@ def check_grads(name, got, want):
                        1e-6 + atol * want.abs().max().item(), rtol)
 
 
-def gs_points(n=GS_N):
-    """bench.py's GS layout: n points from numpy seed 0 in a slab in front
-    of the cameras, and the generator after the draws."""
-    rng = np.random.default_rng(0)
-    xyz = np.concatenate([rng.uniform(-1.5, 1.5, (n, 2)),
-                          rng.uniform(1.5, 4.0, (n, 1))], 1).astype(np.float32)
-    rgb = rng.uniform(0, 1, (n, 3)).astype(np.float32)
-    return xyz, rgb, rng
-
-
-def gs_scene(dev, n=GS_N, width=GS_W, height=GS_H):
-    """bench.py's GS scene: n Gaussians in front of one camera."""
-    xyz, rgb, rng = gs_points(n)
-    state = GM.from_points(torch.from_numpy(xyz).to(dev),
-                           torch.from_numpy(rgb).to(dev), capacity=n)
-    cam = camera_from_fov(0.9, 0.7, width, height,
-                          look_at_w2c([0.0, 0.0, 0.0], [0.0, 0.0, 2.5]),
-                          device=dev)
-    return state, cam, rng
-
-
 def gs_views(dev):
     """The full-size scene, three cameras around it (the LLFF preset's view
     count) and their targets: renders of a perturbed copy."""
@@ -546,6 +546,34 @@ def composite_pairs(tl):
     return live, hit
 
 
+def skip_report(tl, keep):
+    """The backward kernel's keep bits ``keep`` (TC.keep_words_to_mask
+    layout) on the tile lists ``tl``: (entry, warp rectangle) pairs with
+    opacity >= 1/255, how many the kernel kept, how many it skipped though
+    some pixel of the rectangle has alpha >= 1/255 (must be 0), and its
+    disagreements with the plain mirror ``TC.reach_mask``."""
+    T, _, cap = tl.G.shape
+    pm = TC.bwd_pixel_map(tl.P.shape[1]).to(tl.G.device).reshape(-1, 128)
+    live_rect = (pm >= 0).any(1)
+    opaque = (tl.O[:, 0, None, :] >= TC.ALPHA_MIN) & live_rect[None, :, None]
+    missed = 0
+    for c in range(cap // tl.K):
+        sl = slice(c * tl.K, (c + 1) * tl.K)
+        praw = torch.einsum("tfk,fp->tkp", tl.G[:, :, sl], tl.P)
+        alpha = (tl.O[:, :, sl].transpose(1, 2)
+                 * torch.exp(praw.clamp(max=0.0))).clamp(max=TC.ALPHA_MAX)
+        hit = (alpha >= TC.ALPHA_MIN)[:, :, pm.clamp_min(0)] & (pm >= 0)
+        hit = hit.any(-1).transpose(1, 2)                  # (T, n_rect, K)
+        missed += int((hit & ~keep[:, :, sl]).sum())
+    mirror = TC.reach_mask(tl.P, tl.G, tl.O, tl.K)
+    pairs, kept = int(opaque.sum()), int((keep & opaque).sum())
+    return dict(opaque_pairs=pairs, kept_pairs=kept,
+                removed_fraction=1.0 - kept / max(pairs, 1),
+                kept_outside_opaque=int((keep & ~opaque).sum()),
+                skipped_with_hit=missed,
+                mirror_disagreements=int((mirror != keep).sum()))
+
+
 def param_grads(state, cam, target, composite, cap):
     """d loss / d every parameter field through rasterize_tiled."""
     params = {f: getattr(state, f).clone().requires_grad_(True)
@@ -563,9 +591,7 @@ def check_composite(dev):
     full-size scene's tile lists, then the kernel route's gradients against
     autograd through the plain composite."""
     state, cam, _ = gs_scene(dev)
-    with torch.no_grad():
-        sg = RZ.project_gaussians(state, cam)
-        tl = RZ.bin_tiles(sg, cam.height, cam.width, cap=GS_CAP, chunk=256)
+    tl = gs_tile_lists(dev)
     T, _, cap = tl.G.shape
     px, K = tl.P.shape[1], tl.K
     if (T, px, cap, K) != (96, 2048, 1024, 128):
@@ -585,19 +611,32 @@ def check_composite(dev):
     torch.cuda.synchronize()
     e_bwd = [check_grads(f"composite_bwd {n}", a, b)
              for n, a, b in zip(("dG", "dC", "dO"), got, want)]
+    # deterministic: a second call on the same inputs, bit for bit
+    *again, keep = TC.composite_bwd_launch(*args, ltc_ref, dout, K)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("composite_bwd: two calls differ")
+    skip = skip_report(tl, TC.keep_words_to_mask(keep, K))
+    say("kernels", name="composite_bwd", what="skip test", **skip)
+    if (skip["skipped_with_hit"] or skip["kept_outside_opaque"]
+            or skip["mirror_disagreements"]):
+        raise AssertionError(f"composite_bwd skip test: {skip}")
+    del again, keep
 
     live, hit = composite_pairs(tl)
     fwd_bytes = 4 * (6 * px + T * 12 * cap + T * 6 * px + T * (cap // K) * px)
     bwd_bytes = 4 * (6 * px + T * 24 * cap + T * (cap // K) * px
                      + T * 6 * px)
     rows = {}
-    for name, fn, plain, ops, nbytes, errs in (
+    for name, fn, plain, ops, sfu, nbytes, errs in (
             ("composite_fwd", lambda: TC.composite_fwd(*args, K),
              lambda: TC.composite_fwd_reference(*args, K),
-             OPS_LIVE * live + OPS_FWD_HIT * hit, fwd_bytes, [e_out, e_ltc]),
+             OPS_LIVE * live + OPS_FWD_HIT * hit,
+             SFU_LIVE * live + SFU_FWD_HIT * hit, fwd_bytes, [e_out, e_ltc]),
             ("composite_bwd", lambda: TC.composite_bwd(*args, ltc_ref, dout, K),
              lambda: TC.composite_bwd_reference(*args, ltc_ref, dout, K),
-             OPS_LIVE * live + OPS_BWD_HIT * hit, bwd_bytes, e_bwd)):
+             OPS_LIVE * live + OPS_BWD_HIT * hit,
+             SFU_LIVE * live + SFU_BWD_HIT * hit, bwd_bytes, e_bwd)):
         bms, by = bound_ms(ops, nbytes, PEAK_F32_FLOPS)
         ms = cuda_ms(fn, 20)
         rows[name] = dict(
@@ -605,8 +644,11 @@ def check_composite(dev):
             max_abs_err=max(e[0] for e in errs),
             rel_rms_err=max(e[1] for e in errs), ms=ms,
             plain_ms=cuda_ms(plain, 3), library_ms=None, bound_ms=bms,
-            bound_by=by, gflops=ops / ms / 1e6)
+            bound_by=by, gflops=ops / ms / 1e6, sfu_ops=sfu,
+            sfu_ms=1e3 * sfu / PEAK_SFU_OPS)
         say("kernels", name=name, **rows[name])
+
+    rows["composite_bwd"]["skip"] = skip
 
     # the kernel route's gradients against autograd through the plain
     # composite, every parameter field, on the same scene
@@ -859,8 +901,9 @@ def run_scene(pipe, unit_launches):
 class NormCensus:
     """Counts, by forward pre-hooks, the GroupNorm and LayerNorm calls of
     the modules given to ``watch`` while it is active: {key: calls} with
-    key (kind, where, shape, dtype, silu, groups, eps), shape (B, S, C) for
-    GroupNorm and (R, C) for LayerNorm, as the kernels see them."""
+    key (kind, where, shape, dtype, silu, groups, eps, weight dtype), shape
+    (B, S, C) for GroupNorm and (R, C) for LayerNorm, as the kernels see
+    them."""
 
     def __init__(self):
         self.calls = {}
@@ -878,10 +921,11 @@ class NormCensus:
         if isinstance(mod, L.GroupNorm):
             key = ("group_norm", where,
                    (x.shape[0], x.numel() // (x.shape[0] * c), c),
-                   x.dtype, mod.silu, mod.num_groups, mod.eps)
+                   x.dtype, mod.silu, mod.num_groups, mod.eps,
+                   mod.weight.dtype)
         else:
             key = ("layer_norm", where, (x.numel() // c, c), x.dtype,
-                   False, 0, mod.eps)
+                   False, 0, mod.eps, mod.weight.dtype)
         self.calls[key] = self.calls.get(key, 0) + 1
 
     def totals(self, where=None):
@@ -898,24 +942,28 @@ class NormCensus:
         self._hooks = []
 
 
-def norm_inputs(shape, dtype, gen, dev):
+def norm_inputs(shape, dtype, gen, dev, wdtype=torch.float32):
     c = shape[-1]
     x = (torch.randn(shape, generator=gen, device=dev) * 1.5 + 0.2).to(dtype)
-    w = torch.randn((c,), generator=gen, device=dev) * 0.3 + 1.0
-    b = torch.randn((c,), generator=gen, device=dev) * 0.2
+    w = (torch.randn((c,), generator=gen, device=dev) * 0.3 + 1.0).to(wdtype)
+    b = (torch.randn((c,), generator=gen, device=dev) * 0.2).to(wdtype)
     return x, w, b
 
 
 def check_norm_row(key, calls, gen, dev):
     """One census shape: the norm kernels against their plain versions on
-    random inputs of that shape and dtype, and their times."""
-    kind, where, shape, dtype, silu, groups, eps = key
-    x, w, b = norm_inputs(shape, dtype, gen, dev)
+    random inputs of that shape and dtype, and their times. LayerNorm's
+    weight and bias come in the module's dtype (the UNet's bf16: the
+    kernel takes them as they are), GroupNorm's in float32."""
+    kind, where, shape, dtype, silu, groups, eps, wdtype = key
+    x, w, b = norm_inputs(shape, dtype, gen, dev,
+                          wdtype if kind == "layer_norm" else torch.float32)
     numel, isz = x.numel(), x.element_size()
     big = numel > 50_000_000
     iters = 5 if big else 20
     row = dict(kind=kind, where=where, shape=list(shape),
-               dtype=str(dtype).replace("torch.", ""), silu=silu,
+               dtype=str(dtype).replace("torch.", ""),
+               weight_dtype=str(w.dtype).replace("torch.", ""), silu=silu,
                groups=groups, calls=calls)
     if kind == "group_norm":
         a, bb = N.group_norm_stats(x, w, b, groups, eps)
@@ -1114,6 +1162,8 @@ def main():
             **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                  "bound_by", "library_ms")},
             "per": "one call at T 96, px 2048, cap 1024, K 128"})
+    kernels[-1]["skip_removed_fraction"] = comp["composite_bwd"]["skip"][
+        "removed_fraction"]
     kernels += norm_entries(norm_rows, unit["forwards"], scene["launches"])
     for k in kernels:
         k["launches_by_phase"] = {p: c.get(k["name"], 0)

@@ -1,9 +1,12 @@
-"""The UNet's GEGLU-FFN and flash-attention call shapes and the timing
-helpers shared by chip_smoke.py and scripts/time_unet_kernels.py.
+"""The main path's kernel call shapes (the UNet's GEGLU-FFN, flash-attention
+and LayerNorm calls, the GS scene whose tile lists feed the composite
+kernels) and the timing helpers shared by chip_smoke.py and
+scripts/time_kernels.py.
 
-Imports torch and numpy only (nothing of syn3r_tpu_torch), so that
-time_unet_kernels.py can take it from this checkout and the kernels from
-another.
+At import it loads torch and numpy only, so that time_kernels.py can take
+it from this checkout and the kernels from another; ``gs_scene`` imports
+syn3r_tpu_torch when called, from whichever checkout is first on sys.path
+(the one being timed; its projection and binning build the lists).
 """
 
 import math
@@ -21,6 +24,13 @@ FFN_SHAPES = [(75 * 9216, 320, 15), (75 * 2304, 640, 15),
 # (batch*heads, tokens, calls per forward): spatial self-attention at the
 # three levels with >= 512 tokens, 5 transformers each.
 ATTN_SHAPES = [(75 * 5, 9216, 5), (75 * 10, 2304, 5), (75 * 20, 576, 5)]
+# (rows, C, calls per forward) of the UNet's LayerNorms (bf16, bf16
+# weights): 5 transformers a level (2 down, 3 up; 1 in the mid block), 7
+# LayerNorms each (3 in the spatial block, 4 in the temporal one) = 112.
+LN_SHAPES = [(75 * 9216, 320, 35), (75 * 2304, 640, 35),
+             (75 * 576, 1280, 35), (75 * 144, 1280, 7)]
+# GS main path: bench.py's GS configuration, the CLI's --tile_cap 1024
+GS_W, GS_H, GS_N, GS_CAP = 504, 378, 65_536, 1024
 # shortest timing window, so that it holds several nvidia-smi samples
 WINDOW_MS = 250.0
 
@@ -88,3 +98,37 @@ class SmiSampler:
         self.proc.terminate()
         self.proc.wait()
         self.thread.join(timeout=5)
+
+
+def gs_points(n=GS_N):
+    """bench.py's GS layout: n points from numpy seed 0 in a slab in front
+    of the cameras, and the generator after the draws."""
+    rng = np.random.default_rng(0)
+    xyz = np.concatenate([rng.uniform(-1.5, 1.5, (n, 2)),
+                          rng.uniform(1.5, 4.0, (n, 1))], 1).astype(np.float32)
+    rgb = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    return xyz, rgb, rng
+
+
+def gs_scene(dev, n=GS_N, width=GS_W, height=GS_H):
+    """bench.py's GS scene: n Gaussians in front of one camera; (state,
+    camera, the generator after the draws)."""
+    from syn3r_tpu_torch.models import gaussians as GM
+    from syn3r_tpu_torch.utils.camera import camera_from_fov, look_at_w2c
+    xyz, rgb, rng = gs_points(n)
+    state = GM.from_points(torch.from_numpy(xyz).to(dev),
+                           torch.from_numpy(rgb).to(dev), capacity=n)
+    cam = camera_from_fov(0.9, 0.7, width, height,
+                          look_at_w2c([0.0, 0.0, 0.0], [0.0, 0.0, 2.5]),
+                          device=dev)
+    return state, cam, rng
+
+
+def gs_tile_lists(dev):
+    """The composite kernels' inputs on the GS main path: ``gs_scene``
+    projected and binned (T 96 tiles, px 2048, cap 1024, K 128)."""
+    from syn3r_tpu_torch.ops import rasterize as RZ
+    state, cam, _ = gs_scene(dev)
+    with torch.no_grad():
+        sg = RZ.project_gaussians(state, cam)
+        return RZ.bin_tiles(sg, cam.height, cam.width, cap=GS_CAP, chunk=256)

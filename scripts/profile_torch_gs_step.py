@@ -2,14 +2,16 @@
 """Where the time of one GS train step goes on the card.
 
     PYTHONPATH=. python3 scripts/profile_torch_gs_step.py [--steps 10]
+        [--trace-steps 10]
 
 Builds the GS main path's scene (bench.py's GS layout: 65,536 Gaussians
 from numpy seed 0, one 504x378 camera, tile_cap 1024) in the port's
 GSTrainer with the composite kernels, warms up, times ``--steps`` train
-steps untraced, then traces as many with torch.profiler. Prints the wall
-time per step, the kernel time and device idle share (one stream, kernels do
-not overlap), the kernel time by category and the top kernels, and writes
-them to chiprun_out/profile_torch_gs_step.json. Needs a CUDA device.
+steps untraced, each to its own synchronize (median and mean), then traces
+``--trace-steps`` with torch.profiler. Prints the wall time per step, the
+kernel time and device idle share (one stream, kernels do not overlap), the
+kernel time by category and the top kernels, and writes them to
+chiprun_out/profile_torch_gs_step.json. Needs a CUDA device.
 """
 
 import argparse
@@ -36,7 +38,8 @@ from syn3r_tpu_torch.utils.camera import (camera_from_fov,  # noqa: E402
 # kernel-name fragments -> category, first match wins
 CATEGORIES = [
     ("composite_fwd kernel", ("composite_fwd_kernel",)),
-    ("composite_bwd kernel (+ partial-sum pass)", ("composite_bwd",)),
+    ("composite_bwd kernels (tot, gradient, partial sums)",
+     ("composite_bwd",)),
     ("sort (depth argsort)", ("sort", "radix")),
     ("scan (hit cumsum)", ("scan",)),
     ("searchsorted (slot search)", ("searchsorted",)),
@@ -62,6 +65,7 @@ def category(name: str) -> str:
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--trace-steps", type=int, default=10)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -88,27 +92,30 @@ def main():
                    device=dev)
     cam0, img0 = tr.train_views.view(0)
 
-    def steps():
-        for _ in range(args.steps):
+    def steps(n):
+        for _ in range(n):
             tr.state, _ = tr._train_step(tr.state, cam0, img0)
         torch.cuda.synchronize()
 
-    steps()
-    t0 = time.perf_counter()
-    steps()
-    wall_untraced = (time.perf_counter() - t0) / args.steps
+    steps(args.trace_steps)
+    step_ms = []
+    for _ in range(args.steps):
+        t0 = time.perf_counter()
+        steps(1)
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    wall_untraced = float(np.mean(step_ms)) / 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        steps()
-        wall_traced = (time.perf_counter() - t0) / args.steps
+        steps(args.trace_steps)
+        wall_traced = (time.perf_counter() - t0) / args.trace_steps
 
     kernels = {}
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total", 0)
         if dev_us and "CUDA" in str(getattr(ev, "device_type", "")):
-            kernels[ev.key] = (dev_us / 1e3 / args.steps,
-                               ev.count // args.steps)
+            kernels[ev.key] = (dev_us / 1e3 / args.trace_steps,
+                               ev.count // args.trace_steps)
     busy_ms = sum(ms for ms, _ in kernels.values())
     by_cat = {}
     for name, (ms, cnt) in kernels.items():
@@ -119,9 +126,11 @@ def main():
 
     print(f"device: {smi}  torch {torch.__version__}")
     print(f"GS train step, 504x378, 65,536 Gaussians, tile_cap 1024: wall "
-          f"{wall_untraced * 1e3:.2f} ms untraced, {wall_traced * 1e3:.2f} "
-          f"ms traced; kernel time {busy_ms:.2f} ms; device idle share "
-          f"{1 - busy_ms / (wall_traced * 1e3):.3f}")
+          f"untraced median {np.median(step_ms)} ms, mean "
+          f"{wall_untraced * 1e3} ms (p10 {np.percentile(step_ms, 10)}, "
+          f"p90 {np.percentile(step_ms, 90)}; {args.steps} steps), "
+          f"{wall_traced * 1e3:.2f} ms traced; kernel time {busy_ms:.2f} "
+          f"ms; device idle share {1 - busy_ms / (wall_traced * 1e3):.3f}")
     for c, (ms, cnt) in sorted(by_cat.items(), key=lambda kv: -kv[1][0]):
         print(f"  {ms:8.3f} ms  {ms / busy_ms:6.1%}  {cnt:5d} launches  {c}")
     print("top kernels (ms per step, launches per step):")
@@ -131,6 +140,8 @@ def main():
     with open(os.path.join(out_dir, "profile_torch_gs_step.json"), "w") as f:
         json.dump({"device": smi, "torch": torch.__version__,
                    "wall_ms_untraced": wall_untraced * 1e3,
+                   "wall_ms_untraced_median": float(np.median(step_ms)),
+                   "step_ms": step_ms,
                    "wall_ms_traced": wall_traced * 1e3,
                    "kernel_ms": busy_ms,
                    "by_category": {c: {"ms": ms, "launches": cnt}

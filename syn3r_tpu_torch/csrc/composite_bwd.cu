@@ -3,45 +3,368 @@
 // Replaces: syn3r_tpu/ops/pallas_rasterize.py `_bwd_kernel` (launched by
 // `_composite_bwd_impl` from the custom VJP of `composite_tiles`). From the
 // output cotangent dout (T, 6, px) (rows 0-4 d accum = gacc, row 5 d logT)
-// and the chunk-start logT ltc (T, cap / K, px) it walks the chunks in
-// reverse and, per chunk and pixel, follows the TPU kernel line by line:
+// and the chunk-start logT ltc (T, cap / K, px) it follows the TPU kernel
+// line by line, per chunk c and pixel:
 //   T_in = exp(logT0 + excl_j), w_j = alpha_j T_in, gC_j = C_j . gacc
-//   tot = sum_j w_j gC_j;  suffix_j = tot - cumsum_j(w gC) + s
+//   tot_c = sum_j w_j gC_j;  suffix_j = tot_c - cumsum_j(w gC) + s_c
 //   dalpha_j = T_in gC_j - suffix_j / (1 - alpha_j), 0 where alpha was cut
 //              below 1/255 or clamped at 0.99
 //   dpower_j = 0 where G_j . P > 0, else dalpha_j alpha_raw_j
 //   dG_j += P dpower_j;  dC_j += gacc w_j;  dO_j += dalpha_j e^power
-// and carries s += tot to the previous chunk (s starts at d logT). dP is 0.
+// with excl the forward-order exclusive sum of log1p(-alpha) inside the
+// chunk and the carry s_c = d logT + tot_{n-1} + ... + tot_{c+1}, added in
+// that order (the order of the TPU kernel's reverse walk). dP is 0.
 //
-// Bound on the H100: the same 2.0e8 (entry, pixel) pairs as the forward at
-// the main path's size, each about 15 operations to reach alpha and about 45
-// more where alpha passes 1/255 (the transmittance, suffix, dalpha and the
-// twelve products summed over pixels); under 20 MB of traffic. Operations
-// bound it (chip_smoke.py computes the bound from the run's data).
+// Bound on the H100: the main path's size (T 96, px 2048, cap 1024, K 128)
+// has 2.0e8 (entry, pixel) pairs with opacity >= 1/255; each costs about 15
+// operations to reach alpha and about 45 more where alpha passes 1/255.
+// About 16 MB of inputs and outputs, so operations bound it (chip_smoke.py
+// computes the bound from the run's data). Every such pair needs an exp and
+// every hit pair an exp, a log1p and a divide: the special-function units
+// come within ~7% of the same bound.
 //
-// Design: one thread a pixel, one block 256 pixels of one tile, chunks
-// staged in shared memory as in the forward. Per chunk two forward passes
-// over its entries: the first sums tot, the second forms each entry's
-// suffix from tot and the running inclusive sum, exactly as JAX does (no
-// reverse subtraction of log1p terms). Each entry's twelve gradient terms
-// (dG 6, dC 5, dO 1) are sums over the tile's pixels: a warp folds its 32
-// lanes' 16-slot vectors with a reduce-scatter (16 shuffles instead of
-// 12 x 5), a warp whose lanes all contribute nothing skips it, and every 32
-// entries the block sums its 8 warps through shared memory and writes one
-// partial per (block, term, entry) to scratch. A second kernel sums the
-// px / 256 partials of each (tile, term, entry) in a fixed order. No
-// atomics: the result is deterministic.
+// Design (three launches on one stream, no atomics, deterministic):
+//  * Chunks in parallel. Chunk c needs only ltc[:, c] and its carry, and
+//    the carry is a sum of later chunks' tot. A first kernel computes
+//    tot (T, n_chunks, px) for every (tile, chunk, pixel) at once; the
+//    gradient kernel runs each (pixel block, chunk, tile) as its own block
+//    and forms s_c from those tots in the order above, so it carries the
+//    bits of a sequential walk. Grid (px / 1024, n_chunks, T): 1536 blocks
+//    of 256 threads at the main path's size.
+//  * Four pixels a thread: lane l of warp w owns column 32 (w & 1) + l of
+//    rows 4 (w >> 1) .. +3 of a 16 x 64 pixel block (pixel p = row * 64 +
+//    column, the tile's layout), so a warp covers a 4 x 32 rectangle. An
+//    entry is read from shared memory once per thread (staged entry-major,
+//    16 floats an entry: three 128-bit broadcast loads), the thread sums its
+//    four pixels' twelve gradient terms in registers, and the warp folds
+//    its lanes with one 16-slot reduce-scatter (15 shuffles) per entry: a
+//    quarter of the shuffles of one pixel a thread. The gradient loop is
+//    branch-free over the four pixels (a pair below 1/255 computes with
+//    alpha 0 and adds exact zeros), so their chains interleave.
+//  * Exact skip of entries that cannot reach a warp's pixels. When the tot
+//    kernel stages its chunk, each entry is tested once per warp against
+//    the rectangle spanned by the warp's pixels, from G and O alone (the 3
+//    sigma box of the binning is not conservative: at opacity 0.99 alpha
+//    reaches 1/255 at 3.3 sigma). power = G . [x^2, xy, y^2, x, y, 1] is a
+//    quadratic; where it is strictly concave its maximum over the rectangle
+//    is at the centre if that lies inside, else at the clamped vertex of
+//    one of the four edges. The entry is skipped for the warp when
+//    O exp(max power) stays below 1/255 by a margin that covers the float
+//    rounding of the kernel's own power (1e-6 of the sum of |G_f P_f|, six
+//    roundings are at most 3.6e-7 of it) and the error of __expf and of the
+//    product (1e-5 in the log domain; see Numerics). The test runs in
+//    double, its per-entry part (the centre, 1 / 2a, 1 / 2c,
+//    log(1/255 / O)) once per entry. It is only
+//    taken where every pixel of the warp has P = [x^2, xy, y^2, x, y, 1]
+//    exactly (else every entry with opacity >= 1/255 is kept). A skipped
+//    pair has alpha cut to 0 at every pixel, which contributes exactly
+//    nothing to any output or to the transmittance: the result is the one
+//    without the skip. The tot kernel writes its keep bits (T, n_chunks,
+//    n_blocks, 8 warps, 4 words of 32 entries) and the gradient kernel
+//    reads them. On the gs cell it keeps 34.9% of the (entry, rectangle)
+//    pairs with opacity >= 1/255 (chip_smoke.py reports the fraction).
+//  * Staging: each block stages one chunk once (12 x K floats, coalesced
+//    global reads), so there is no chunk stream to double-buffer; blocks
+//    resident beside it (three a SM for the tot kernel, two for the
+//    gradient kernel, whose partials take 68 KB of shared memory) hide its
+//    latency.
+//  * Sums in a fixed order: per (warp, entry) one partial a term in shared
+//    memory (rows padded to 17 floats: no bank conflicts), the block sums
+//    its 8 warps in order and writes part (T, n_blocks, 12, cap); a third
+//    kernel sums the n_blocks partials in block order into dG, dC, dO.
+//    Scratch at the main path's size: tot 6.3 MB, part 9.4 MB, keep bits
+//    0.2 MB (a pixel a thread and the chunks in sequence wrote 37.7 MB).
+//  * Numerics: the special functions are the hardware-approximate
+//    intrinsics (they took a quarter of the time as the accurate library
+//    functions), with the maximum errors the CUDA C++ Programming Guide
+//    documents (intrinsic functions table):
+//      __expf(x)        2 + floor(|1.173 x|) ulp; for alpha (power in
+//                       [-5.6, 0] wherever alpha can reach 1/255) <= 8 ulp,
+//                       5e-7 relative, inside the skip test's margin
+//      __logf(1 - a)    2^-21.41 absolute for 1 - a in [0.5, 2], else 3 ulp
+//                       (replaces log1pf(-a); 1 - a rounds by <= 2^-25)
+//      __fdividef(x, y) 2 ulp for |y| in [2^-126, 2^126] (y = 1 - alpha is
+//                       in [0.01, 1])
+//    Both passes use the same functions, so tot and the running sum in
+//    suffix agree. chip_smoke.py holds the result to the plain version
+//    (accurate torch functions) under COMPOSITE_TOL at the main path's
+//    shapes and the kernel route's gradients to autograd.
 
 #include "composite_common.cuh"
+
+#include <stdint.h>
 
 using namespace syn3r;
 
 namespace {
 
-constexpr int THREADS = 256;  // = BWD_BLOCK_PIXELS in ops/composite.py
+constexpr int THREADS = 256;  // = ops/composite.py BWD_THREADS
 constexpr int WARPS = THREADS / 32;
-constexpr int SUB = 32;       // entries between block reductions
+constexpr int PXT = 4;                      // pixels a thread (rows)
+constexpr int ROW = 64;                     // columns of a pixel row
+constexpr int BLOCK_PX = THREADS * PXT;     // 1024: 16 rows of 64
+constexpr int KMAX = 128;                   // entries a chunk at most
+constexpr int WORDS = KMAX / 32;            // keep words a warp and chunk
+constexpr int ESTRIDE = 16;                 // floats a staged entry
+constexpr int WSTRIDE = 17;                 // floats a warp-partial row
 constexpr unsigned FULL = 0xffffffffu;
+static_assert(KMAX == THREADS / 2, "keep test: two threads an entry");
+static_assert(ROW == 64 && WARPS % 2 == 0, "two warps a pixel row");
+
+// Entry-major staged chunk, the warps' pixel rectangles and keep bits.
+struct Stage {
+  float ent[KMAX * ESTRIDE];  // G0-5, C0-4, O, 4 unused
+  float rect[WARPS][4];       // x0, x1, y0, y1 of the warp's live pixels
+  int state[WARPS];           // 0 no live pixel, 1 exact P, 2 any other P
+  uint32_t keep[WARPS][WORDS];
+};
+
+__device__ __forceinline__ int pixel_of(int pb, int warp, int lane, int k) {
+  return pb * BLOCK_PX + ((warp >> 1) * PXT + k) * ROW + (warp & 1) * 32 +
+         lane;
+}
+
+// Loads the thread's pixel features; dead pixels (p >= px) read 0.
+__device__ __forceinline__ void load_pixels(const float* P, int px, int pb,
+                                            int warp, int lane,
+                                            float (&pf)[PXT][6],
+                                            int (&pix)[PXT]) {
+#pragma unroll
+  for (int k = 0; k < PXT; ++k) {
+    const int p = pixel_of(pb, warp, lane, k);
+    pix[k] = p < px ? p : -1;
+#pragma unroll
+    for (int f = 0; f < 6; ++f)
+      pf[k][f] = p < px ? P[(size_t)f * px + p] : 0.0f;
+  }
+}
+
+// Stages entries j0 .. j0+K-1 of tile t entry-major. No synchronization.
+__device__ __forceinline__ void stage_entries(Stage& sh, const float* G,
+                                              const float* C, const float* O,
+                                              int t, int cap, int j0, int K) {
+  for (int i = threadIdx.x; i < 12 * K; i += THREADS) {
+    const int f = i / K;
+    const int j = i - f * K;
+    const float* row =
+        f < 6 ? G + ((size_t)t * 6 + f) * cap
+              : (f < 11 ? C + ((size_t)t * 5 + (f - 6)) * cap
+                        : O + (size_t)t * cap);
+    sh.ent[j * ESTRIDE + f] = row[j0 + j];
+  }
+}
+
+// The warp's pixel rectangle, and whether every live pixel has
+// P = [x^2, xy, y^2, x, y, 1] exactly (products of floats are exact in
+// double). Written by lane 0. No synchronization.
+__device__ __forceinline__ void warp_rect(Stage& sh, const float (&pf)[PXT][6],
+                                         const int (&pix)[PXT], int warp,
+                                         int lane) {
+  const float inf = __int_as_float(0x7f800000);
+  float x0 = inf, x1 = -inf, y0 = inf, y1 = -inf;
+  bool any = false, exact = true;
+#pragma unroll
+  for (int k = 0; k < PXT; ++k) {
+    if (pix[k] < 0) continue;
+    const double x = pf[k][3], y = pf[k][4];
+    any = true;
+    exact = exact && x * x == (double)pf[k][0] && x * y == (double)pf[k][1] &&
+            y * y == (double)pf[k][2] && pf[k][5] == 1.0f;
+    x0 = fminf(x0, pf[k][3]);
+    x1 = fmaxf(x1, pf[k][3]);
+    y0 = fminf(y0, pf[k][4]);
+    y1 = fmaxf(y1, pf[k][4]);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    x0 = fminf(x0, __shfl_xor_sync(FULL, x0, off));
+    x1 = fmaxf(x1, __shfl_xor_sync(FULL, x1, off));
+    y0 = fminf(y0, __shfl_xor_sync(FULL, y0, off));
+    y1 = fmaxf(y1, __shfl_xor_sync(FULL, y1, off));
+  }
+  any = __any_sync(FULL, any);
+  exact = __all_sync(FULL, exact);
+  if (lane == 0) {
+    sh.rect[warp][0] = x0;
+    sh.rect[warp][1] = x1;
+    sh.rect[warp][2] = y0;
+    sh.rect[warp][3] = y1;
+    sh.state[warp] = any ? (exact ? 1 : 2) : 0;
+  }
+}
+
+// An entry's quadratic for the rectangle test, in double: G, the centre,
+// the edge vertices' reciprocals 1 / 2a and 1 / 2c, log(1/255 / O), and
+// its kind: 0 opacity below 1/255 (never reaches), 1 always kept (NaN or
+// infinity anywhere, or not strictly concave), 2 tested.
+struct Quad {
+  double g[6], xc, yc, h2a, h2c, lim;
+  int kind;
+};
+
+__device__ __forceinline__ double quad(const double (&g)[6], double x,
+                                       double y) {
+  return g[0] * x * x + g[1] * x * y + g[2] * y * y + g[3] * x + g[4] * y +
+         g[5];
+}
+
+__device__ void make_quad(Quad& q, const float* e) {
+  const float o = e[11];
+  bool finite = isfinite(o);
+  for (int f = 0; f < 6; ++f) {
+    q.g[f] = e[f];
+    finite = finite && isfinite(e[f]);
+  }
+  const double a = q.g[0], b = q.g[1], c = q.g[2], d = q.g[3], ee = q.g[4];
+  const double det = 4.0 * a * c - b * b;
+  q.kind = o < kAlphaMin ? 0
+                         : (finite && a < 0.0 && c < 0.0 && det > 0.0 ? 2 : 1);
+  if (q.kind != 2) return;
+  const double inv = 1.0 / det;
+  q.xc = (b * ee - 2.0 * c * d) * inv;
+  q.yc = (b * d - 2.0 * a * ee) * inv;
+  q.h2a = 1.0 / (2.0 * a);
+  q.h2c = 1.0 / (2.0 * c);
+  q.lim = log((double)kAlphaMin / (double)o);
+}
+
+// False only where the entry's alpha stays below 1/255 at every point of
+// the rectangle r = (x0, x1, y0, y1) (see the header).
+__device__ bool may_reach(const Quad& q, const float* r) {
+  if (q.kind != 2) return q.kind == 1;
+  const double b = q.g[1], d = q.g[3], ee = q.g[4];
+  const double x0 = r[0], x1 = r[1], y0 = r[2], y1 = r[3];
+  double m;
+  if (q.xc >= x0 && q.xc <= x1 && q.yc >= y0 && q.yc <= y1) {
+    m = quad(q.g, q.xc, q.yc);
+  } else {
+    // the vertex of each edge's 1-D quadratic, clamped to the edge
+    const double ya = fmin(fmax(-(b * x0 + ee) * q.h2c, y0), y1);
+    const double yb = fmin(fmax(-(b * x1 + ee) * q.h2c, y0), y1);
+    const double xa = fmin(fmax(-(b * y0 + d) * q.h2a, x0), x1);
+    const double xb = fmin(fmax(-(b * y1 + d) * q.h2a, x0), x1);
+    m = fmax(fmax(quad(q.g, x0, ya), quad(q.g, x1, yb)),
+             fmax(quad(q.g, xa, y0), quad(q.g, xb, y1)));
+  }
+  const double X = fmax(fabs(x0), fabs(x1)), Y = fmax(fabs(y0), fabs(y1));
+  const double S = fabs(q.g[0]) * X * X + fabs(b) * X * Y +
+                   fabs(q.g[2]) * Y * Y + fabs(d) * X + fabs(ee) * Y +
+                   fabs(q.g[5]);
+  return !(m + 1e-6 * S + 1e-5 < q.lim);
+}
+
+// Threads 0 .. K-1 make the entries' quadratics; after a barrier thread i
+// tests entry i % 128 against the rectangles of warps 4 (i / 128) .. +3
+// and lane 0 of each warp stores the ballots. Needs the staged entries and
+// rectangles visible (a barrier before); ends with the keep bits visible.
+__device__ __forceinline__ void keep_bits(Stage& sh, Quad* qs, int K) {
+  const int j = threadIdx.x & (KMAX - 1);
+  if (threadIdx.x < K)
+    make_quad(qs[threadIdx.x], sh.ent + threadIdx.x * ESTRIDE);
+  __syncthreads();
+  const int w0 = (threadIdx.x / KMAX) * 4;
+  const int word = (threadIdx.x >> 5) & (WORDS - 1);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int w = w0 + r;
+    const int st = sh.state[w];
+    bool keep = false;
+    if (j < K && st != 0)
+      keep = st == 1 ? may_reach(qs[j], sh.rect[w]) : qs[j].kind != 0;
+    const uint32_t bits = __ballot_sync(FULL, keep);
+    if ((threadIdx.x & 31) == 0) sh.keep[w][word] = bits;
+  }
+  __syncthreads();
+}
+
+// power, e^power, alpha before and after the clamps of entry e at pixel
+// features p, in the TPU kernel's term order.
+struct Alpha {
+  float praw, epow, raw, alpha;
+};
+
+__device__ __forceinline__ Alpha alpha_at(const float4& g03,
+                                          const float4& g45c01, float o,
+                                          const float (&p)[6]) {
+  Alpha a;
+  float acc = g03.x * p[0];
+  acc = fmaf(g03.y, p[1], acc);
+  acc = fmaf(g03.z, p[2], acc);
+  acc = fmaf(g03.w, p[3], acc);
+  acc = fmaf(g45c01.x, p[4], acc);
+  acc = fmaf(g45c01.y, p[5], acc);
+  a.praw = acc;
+  a.epow = __expf(acc > 0.0f ? 0.0f : acc);
+  a.raw = o * a.epow;
+  a.alpha = a.raw > kAlphaMax ? kAlphaMax : a.raw;
+  return a;
+}
+
+// tot (T, n_chunks, px) = sum_j w_j gC_j per (tile, chunk, pixel), in
+// entry order; also the keep bits (T, n_chunks, n_blocks, WARPS, WORDS).
+__global__ void __launch_bounds__(THREADS, 3)
+    composite_bwd_tot(const float* __restrict__ P, const float* __restrict__ G,
+                      const float* __restrict__ C, const float* __restrict__ O,
+                      const float* __restrict__ ltc,
+                      const float* __restrict__ dout, float* __restrict__ tot,
+                      uint32_t* __restrict__ keep, int px, int cap, int K) {
+  __shared__ __align__(16) Stage sh;
+  __shared__ Quad qs[KMAX];
+  const int pb = blockIdx.x, c = blockIdx.y, t = blockIdx.z;
+  const int n_chunks = gridDim.y, n_pb = gridDim.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float pf[PXT][6];
+  int pix[PXT];
+  load_pixels(P, px, pb, warp, lane, pf, pix);
+  stage_entries(sh, G, C, O, t, cap, c * K, K);
+  warp_rect(sh, pf, pix, warp, lane);
+  float gacc[PXT][5], logT0[PXT], excl[PXT], acc[PXT];
+#pragma unroll
+  for (int k = 0; k < PXT; ++k) {
+    const int p = pix[k] < 0 ? 0 : pix[k];
+#pragma unroll
+    for (int r = 0; r < 5; ++r)
+      gacc[k][r] = pix[k] < 0 ? 0.0f : dout[((size_t)t * 6 + r) * px + p];
+    logT0[k] =
+        pix[k] < 0 ? 0.0f : ltc[((size_t)t * n_chunks + c) * px + p];
+    excl[k] = 0.0f;
+    acc[k] = 0.0f;
+  }
+  __syncthreads();
+  keep_bits(sh, qs, K);
+  if (threadIdx.x < WARPS * WORDS) {
+    const int w = threadIdx.x / WORDS, wd = threadIdx.x % WORDS;
+    keep[((((size_t)t * n_chunks + c) * n_pb + pb) * WARPS + w) * WORDS +
+         wd] = sh.keep[w][wd];
+  }
+
+  const float4* ent = reinterpret_cast<const float4*>(sh.ent);
+  for (int wd = 0; wd < WORDS; ++wd) {
+    uint32_t bits = sh.keep[warp][wd];
+    while (bits) {
+      const int j = wd * 32 + __ffs(bits) - 1;
+      bits &= bits - 1;
+      const float4 e0 = ent[j * 4], e1 = ent[j * 4 + 1], e2 = ent[j * 4 + 2];
+#pragma unroll
+      for (int k = 0; k < PXT; ++k) {
+        if (pix[k] < 0) continue;
+        const Alpha a = alpha_at(e0, e1, e2.w, pf[k]);
+        if (a.alpha < kAlphaMin) continue;
+        const float w = a.alpha * __expf(logT0[k] + excl[k]);
+        float gc = e1.z * gacc[k][0];
+        gc = fmaf(e1.w, gacc[k][1], gc);
+        gc = fmaf(e2.x, gacc[k][2], gc);
+        gc = fmaf(e2.y, gacc[k][3], gc);
+        gc = fmaf(e2.z, gacc[k][4], gc);
+        acc[k] = fmaf(w, gc, acc[k]);
+        excl[k] += __logf(1.0f - a.alpha);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < PXT; ++k)
+    if (pix[k] >= 0) tot[((size_t)t * n_chunks + c) * px + pix[k]] = acc[k];
+}
 
 // One halving step of the warp reduce-scatter: lanes with bit OFF set keep
 // the upper N slots, the others the lower N, each adding its partner's.
@@ -66,116 +389,114 @@ __device__ __forceinline__ float warp_reduce_scatter(float (&v)[16],
   return v[0] + __shfl_xor_sync(FULL, v[0], 1);
 }
 
-__global__ void __launch_bounds__(THREADS)
-    composite_bwd_kernel(const float* __restrict__ P,
-                         const float* __restrict__ G,
-                         const float* __restrict__ C,
-                         const float* __restrict__ O,
-                         const float* __restrict__ ltc,
-                         const float* __restrict__ dout,
-                         float* __restrict__ part, int px, int cap, int K) {
-  extern __shared__ float sh[];            // 12 x K staged chunk
-  __shared__ float wp[SUB][WARPS][16];     // warp partials of SUB entries
-  const int t = blockIdx.y;
-  const int blk = blockIdx.x;
-  const int n_blk = gridDim.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int p = blk * THREADS + threadIdx.x;
-  const bool live = p < px;
+// The twelve gradient terms of chunk c, summed over the block's pixels:
+// part (T, n_blocks, 12, cap).
+__global__ void __launch_bounds__(THREADS, 2)
+    composite_bwd_grad(const float* __restrict__ P,
+                       const float* __restrict__ G,
+                       const float* __restrict__ C,
+                       const float* __restrict__ O,
+                       const float* __restrict__ ltc,
+                       const float* __restrict__ dout,
+                       const float* __restrict__ tot,
+                       const uint32_t* __restrict__ keep,
+                       float* __restrict__ part, int px, int cap, int K) {
+  __shared__ __align__(16) Stage sh;
+  extern __shared__ float wp[];  // [WARPS][KMAX][WSTRIDE]
+  const int pb = blockIdx.x, c = blockIdx.y, t = blockIdx.z;
+  const int n_chunks = gridDim.y, n_pb = gridDim.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float pf[PXT][6];
+  int pix[PXT];
+  load_pixels(P, px, pb, warp, lane, pf, pix);
+  stage_entries(sh, G, C, O, t, cap, c * K, K);
+  if (threadIdx.x < WARPS * WORDS) {
+    const int w = threadIdx.x / WORDS, wd = threadIdx.x % WORDS;
+    sh.keep[w][wd] = keep[((((size_t)t * n_chunks + c) * n_pb + pb) * WARPS +
+                           w) * WORDS + wd];
+  }
+  for (int i = threadIdx.x; i < WARPS * KMAX * WSTRIDE; i += THREADS)
+    wp[i] = 0.0f;
 
-  float pf[6], gacc[5];
+  float gacc[PXT][5], logT0[PXT], excl[PXT], cum[PXT], s[PXT], totc[PXT];
 #pragma unroll
-  for (int f = 0; f < 6; ++f) pf[f] = live ? P[(size_t)f * px + p] : 0.0f;
+  for (int k = 0; k < PXT; ++k) {
+    const int p = pix[k] < 0 ? 0 : pix[k];
+    const bool live = pix[k] >= 0;
 #pragma unroll
-  for (int r = 0; r < 5; ++r)
-    gacc[r] = live ? dout[((size_t)t * 6 + r) * px + p] : 0.0f;
-  float s = live ? dout[((size_t)t * 6 + 5) * px + p] : 0.0f;
-  const int n_chunks = cap / K;
+    for (int r = 0; r < 5; ++r)
+      gacc[k][r] = live ? dout[((size_t)t * 6 + r) * px + p] : 0.0f;
+    logT0[k] = live ? ltc[((size_t)t * n_chunks + c) * px + p] : 0.0f;
+    // the carry in the sequential walk's order: d logT, then the later
+    // chunks' tot from the last one down
+    float sk = live ? dout[((size_t)t * 6 + 5) * px + p] : 0.0f;
+    for (int cc = n_chunks - 1; cc > c; --cc)
+      sk += live ? tot[((size_t)t * n_chunks + cc) * px + p] : 0.0f;
+    s[k] = sk;
+    totc[k] = live ? tot[((size_t)t * n_chunks + c) * px + p] : 0.0f;
+    excl[k] = 0.0f;
+    cum[k] = 0.0f;
+  }
+  __syncthreads();
 
-  for (int c = n_chunks - 1; c >= 0; --c) {
-    stage_chunk(sh, G, C, O, t, cap, c * K, K);
-    const float logT0 = live ? ltc[((size_t)t * n_chunks + c) * px + p] : 0.0f;
-
-    // pass 1: tot = sum_j w_j gC_j over the chunk
-    float tot = 0.0f;
-    if (live) {
-      float excl = 0.0f;
-      for (int j = 0; j < K; ++j) {
-        const float o = sh[11 * K + j];
-        if (o < kAlphaMin) continue;
-        const float praw = gaussian_power(sh, K, j, pf);
-        const float power = praw > 0.0f ? 0.0f : praw;
-        float alpha = o * expf(power);
-        alpha = alpha > kAlphaMax ? kAlphaMax : alpha;
-        if (alpha < kAlphaMin) continue;
-        const float w = alpha * expf(logT0 + excl);
-        float gc = 0.0f;
+  const float4* ent = reinterpret_cast<const float4*>(sh.ent);
+  for (int wd = 0; wd < WORDS; ++wd) {
+    uint32_t bits = sh.keep[warp][wd];
+    while (bits) {
+      const int j = wd * 32 + __ffs(bits) - 1;
+      bits &= bits - 1;
+      const float4 e0 = ent[j * 4], e1 = ent[j * 4 + 1], e2 = ent[j * 4 + 2];
+      float v[16];
 #pragma unroll
-        for (int r = 0; r < 5; ++r) gc = fmaf(sh[(6 + r) * K + j], gacc[r], gc);
-        tot = fmaf(w, gc, tot);
-        excl += log1pf(-alpha);
+      for (int i = 0; i < 16; ++i) v[i] = 0.0f;
+      bool nz = false;
+      // branch-free over the thread's pixels (their chains interleave):
+      // a pair below 1/255 (or a dead pixel) computes with alpha 0, adds
+      // P 0, gacc 0 and 0 to the sums and leaves cum and excl as they were
+#pragma unroll
+      for (int k = 0; k < PXT; ++k) {
+        const Alpha a = alpha_at(e0, e1, e2.w, pf[k]);
+        const bool hit = pix[k] >= 0 && !(a.alpha < kAlphaMin);
+        const float alpha = hit ? a.alpha : 0.0f;
+        const bool hi = a.raw > kAlphaMax;
+        const float t_in = __expf(logT0[k] + excl[k]);
+        const float w = alpha * t_in;
+        float gc = e1.z * gacc[k][0];
+        gc = fmaf(e1.w, gacc[k][1], gc);
+        gc = fmaf(e2.x, gacc[k][2], gc);
+        gc = fmaf(e2.y, gacc[k][3], gc);
+        gc = fmaf(e2.z, gacc[k][4], gc);
+        const float cum_k = fmaf(w, gc, cum[k]);
+        const float suffix = (totc[k] - cum_k) + s[k];
+        const float dalpha =
+            hi || !hit ? 0.0f : t_in * gc - __fdividef(suffix, 1.0f - alpha);
+        const float dpower = a.praw > 0.0f ? 0.0f : dalpha * a.raw;
+        const float l1ma = __logf(1.0f - alpha);
+#pragma unroll
+        for (int f = 0; f < 6; ++f) v[f] = fmaf(pf[k][f], dpower, v[f]);
+#pragma unroll
+        for (int r = 0; r < 5; ++r) v[6 + r] = fmaf(gacc[k][r], w, v[6 + r]);
+        v[11] = fmaf(dalpha, a.epow, v[11]);
+        cum[k] = hit ? cum_k : cum[k];
+        excl[k] = hit ? excl[k] + l1ma : excl[k];
+        nz = nz || hit;
+      }
+      if (__any_sync(FULL, nz)) {
+        const float sum = warp_reduce_scatter(v, lane);
+        const int slot = (lane >> 1) & 15;
+        if ((lane & 1) == 0 && slot < 12)
+          wp[(warp * KMAX + j) * WSTRIDE + slot] = sum;
       }
     }
-
-    // pass 2: per-entry gradient terms, summed over the block's pixels
-    float excl = 0.0f, cum = 0.0f;
-    for (int j0 = 0; j0 < K; j0 += SUB) {
-      const int nsub = min(SUB, K - j0);
-      for (int jj = 0; jj < nsub; ++jj) {
-        const int j = j0 + jj;
-        float v[16];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 12 * K; i += THREADS) {
+    const int term = i / K;
+    const int j = i - term * K;
+    float acc = 0.0f;
 #pragma unroll
-        for (int i = 0; i < 16; ++i) v[i] = 0.0f;
-        bool nz = false;
-        const float o = sh[11 * K + j];
-        if (live && !(o < kAlphaMin)) {
-          const float praw = gaussian_power(sh, K, j, pf);
-          const float power = praw > 0.0f ? 0.0f : praw;
-          const float epow = expf(power);
-          const float alpha_raw = o * epow;
-          const bool hi = alpha_raw > kAlphaMax;
-          const float alpha = hi ? kAlphaMax : alpha_raw;
-          if (!(alpha < kAlphaMin)) {
-            const float t_in = expf(logT0 + excl);
-            const float w = alpha * t_in;
-            float gc = 0.0f;
-#pragma unroll
-            for (int r = 0; r < 5; ++r)
-              gc = fmaf(sh[(6 + r) * K + j], gacc[r], gc);
-            cum = fmaf(w, gc, cum);
-            const float suffix = (tot - cum) + s;
-            const float dalpha = hi ? 0.0f : t_in * gc - suffix / (1.0f - alpha);
-            const float dpower = praw > 0.0f ? 0.0f : dalpha * alpha_raw;
-#pragma unroll
-            for (int f = 0; f < 6; ++f) v[f] = pf[f] * dpower;
-#pragma unroll
-            for (int r = 0; r < 5; ++r) v[6 + r] = gacc[r] * w;
-            v[11] = dalpha * epow;
-            excl += log1pf(-alpha);
-            nz = true;
-          }
-        }
-        if (__any_sync(FULL, nz)) {
-          const float sum = warp_reduce_scatter(v, lane);
-          if ((lane & 1) == 0) wp[jj][warp][(lane >> 1) & 15] = sum;
-        } else if (lane < 16) {
-          wp[jj][warp][lane] = 0.0f;
-        }
-      }
-      __syncthreads();
-      for (int i = threadIdx.x; i < 12 * nsub; i += THREADS) {
-        const int term = i / nsub;
-        const int jj = i - term * nsub;
-        float acc = 0.0f;
-#pragma unroll
-        for (int w = 0; w < WARPS; ++w) acc += wp[jj][w][term];
-        part[(((size_t)t * n_blk + blk) * 12 + term) * cap + c * K + j0 + jj] =
-            acc;
-      }
-      __syncthreads();
-    }
-    s += tot;
+    for (int w = 0; w < WARPS; ++w) acc += wp[(w * KMAX + j) * WSTRIDE + term];
+    part[(((size_t)t * n_pb + pb) * 12 + term) * cap + c * K + j] = acc;
   }
 }
 
@@ -207,26 +528,41 @@ __global__ void composite_bwd_reduce(const float* __restrict__ part,
 
 }  // namespace
 
+// Scratch from the wrapper (ops/composite.py composite_bwd_plan): tot
+// (T, cap / K, px) and part (T, n_blk, 12, cap) float32, keep
+// (T, cap / K, n_blk, 8, 4) 32-bit words, n_blk = ceil(px / 1024).
 extern "C" int syn3r_composite_bwd(const void* P, const void* G, const void* C,
                                    const void* O, const void* ltc,
-                                   const void* dout, void* part, void* dG,
-                                   void* dC, void* dO, int T, int px, int cap,
-                                   int K, void* stream) {
-  if (T <= 0 || T > 65535 || px <= 0 || cap <= 0 || K <= 0 || K > 1024 ||
-      cap % K != 0)
+                                   const void* dout, void* tot, void* keep,
+                                   void* part, void* dG, void* dC, void* dO,
+                                   int T, int px, int cap, int K,
+                                   void* stream) {
+  if (T <= 0 || T > 65535 || px <= 0 || cap <= 0 || K <= 0 || K > KMAX ||
+      cap % K != 0 || cap / K > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = (size_t)12 * K * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      composite_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  const int n_blk = (px + BLOCK_PX - 1) / BLOCK_PX;
+  const dim3 grid(n_blk, cap / K, T);
+  const auto* Pf = static_cast<const float*>(P);
+  const auto* Gf = static_cast<const float*>(G);
+  const auto* Cf = static_cast<const float*>(C);
+  const auto* Of = static_cast<const float*>(O);
+  const auto* ltcf = static_cast<const float*>(ltc);
+  const auto* doutf = static_cast<const float*>(dout);
+  composite_bwd_tot<<<grid, THREADS, 0, s>>>(
+      Pf, Gf, Cf, Of, ltcf, doutf, static_cast<float*>(tot),
+      static_cast<uint32_t*>(keep), px, cap, K);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int n_blk = (px + THREADS - 1) / THREADS;
-  composite_bwd_kernel<<<dim3(n_blk, T), THREADS, smem, s>>>(
-      static_cast<const float*>(P), static_cast<const float*>(G),
-      static_cast<const float*>(C), static_cast<const float*>(O),
-      static_cast<const float*>(ltc), static_cast<const float*>(dout),
-      static_cast<float*>(part), px, cap, K);
+  const size_t smem = (size_t)WARPS * KMAX * WSTRIDE * sizeof(float);
+  err = cudaFuncSetAttribute(composite_bwd_grad,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  composite_bwd_grad<<<grid, THREADS, smem, s>>>(
+      Pf, Gf, Cf, Of, ltcf, doutf, static_cast<const float*>(tot),
+      static_cast<const uint32_t*>(keep), static_cast<float*>(part), px, cap,
+      K);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t n = (size_t)T * 12 * cap;

@@ -5,17 +5,32 @@
 // (not Welford, as the reference), y = (x - mean) rstd w + b, rounded to
 // x's type.
 //
-// Bound on the H100: about ten operations per element against 2 (bf16)
+// Bound on the H100: about six operations per element against 2 (bf16)
 // bytes read and 2 written, so device memory bounds it: the main path's
 // largest call (3 x 25 x 9216 rows x 320 bf16) moves 885 MB, 0.26 ms at
-// 3.35 TB/s.
+// 3.35 TB/s; the 112 calls of a batch-3 UNet forward move 54.6 GB,
+// 16.3 ms (chip_smoke.py sums the bound over the census).
 //
-// Design: one warp a row, eight rows a 256-thread block. A lane loads its
-// 16-byte vectors of the row (8 bf16 or 4 float32 values; C is 320 to 1280
-// in the UNet and 1280 in CLIP, at most 5 vectors a lane) into registers,
-// the warp sums x and x^2 with butterfly shuffles, and the lane writes its
-// normalized values from the same registers: x is read once and y written
-// once.
+// Design, from the launch plan of ops/norm.py `layer_norm_plan`:
+//  * No idle lane. A lane holds NV 16-byte vectors (8 bf16 or 4 float32)
+//    of a row; `lanes` (a power of two) lanes share a row and a warp holds
+//    32 / lanes rows, with lanes the largest power of two that divides the
+//    row's vectors. At the UNet's bf16 widths every lane holds 5 vectors:
+//    C = 320 four rows a warp (8 lanes a row), 640 two (16), 1280 one; float32
+//    C = 1280 one row of 10 vectors a lane. Other widths fall back to 32
+//    lanes a row with the tail masked.
+//  * A persistent grid (two 256-thread blocks a SM for bf16 rows, one for
+//    float32); each warp strides over its groups of rows.
+//  * Weight and bias read once, before the row loop, into registers for
+//    the lane's columns: bf16 parameters stay packed (two a register) and
+//    widen on use (exact), float32 stay float. The wrapper hands them in
+//    their own dtype, so a bf16 module launches no cast.
+//  * The next group's 16-byte loads are issued before the current group's
+//    reduction and stores (two groups in flight a warp) where the registers
+//    allow it (parameters plus two groups within 96 registers: every bf16
+//    row with bf16 parameters at the census widths).
+//  * x is read once and y written once; the sums of x and x^2 are reduced
+//    over the row's lanes with butterfly shuffles.
 
 #include "norm_common.cuh"
 
@@ -24,81 +39,185 @@ using bf16 = __nv_bfloat16;
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int ROWS = THREADS / 32;
+constexpr int THREADS = 256;  // = ops/norm.py LN_THREADS
+constexpr int WARPS = THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
 
-template <typename T, int NV>
-__global__ void __launch_bounds__(THREADS)
-    layer_norm_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                      const float* __restrict__ bias, T* __restrict__ y,
-                      long long R, int C, float eps) {
-  constexpr int V = Vec<T>::N;
-  const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * ROWS + (threadIdx.x >> 5);
-  if (row >= R) return;  // the whole warp leaves together
-  const int ncv = C / V;
-  const T* xr = x + row * C;
-  T* yr = y + row * C;
+// A bf16 pair's low and high halves as float (exact). The asm is
+// volatile so that the compiler keeps each widening where it is used: it
+// would otherwise hoist the parameters' widening out of the row loop (80
+// float registers instead of 40 packed ones) or keep a widened row alive
+// from the statistics to the output pass, and spill.
+__device__ __forceinline__ float bf16_lo(uint32_t u) {
+  uint32_t r;
+  asm volatile("shl.b32 %0, %1, 16;" : "=r"(r) : "r"(u));
+  return __uint_as_float(r);
+}
 
-  float v[NV][V];
-  float s = 0.0f, q = 0.0f;
+__device__ __forceinline__ float bf16_hi(uint32_t u) {
+  uint32_t r;
+  asm volatile("and.b32 %0, %1, 0xffff0000;" : "=r"(r) : "r"(u));
+  return __uint_as_float(r);
+}
+
+// 16 bytes as loaded, widened to float.
+template <typename T>
+struct Raw;
+
+template <>
+struct Raw<float> {
+  __device__ __forceinline__ static void widen(const uint4& q, float (&v)[4]) {
+    v[0] = __uint_as_float(q.x);
+    v[1] = __uint_as_float(q.y);
+    v[2] = __uint_as_float(q.z);
+    v[3] = __uint_as_float(q.w);
+  }
+};
+
+template <>
+struct Raw<bf16> {
+  __device__ __forceinline__ static void widen(const uint4& q, float (&v)[8]) {
+    const uint32_t u[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
-  for (int j = 0; j < NV; ++j) {
-    const int cv = lane + 32 * j;
-    if (cv < ncv) {
-      Vec<T>::load(xr + cv * V, v[j]);
-#pragma unroll
-      for (int i = 0; i < V; ++i) {
-        s += v[j][i];
-        q = fmaf(v[j][i], v[j][i], q);
-      }
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = bf16_lo(u[i]);
+      v[2 * i + 1] = bf16_hi(u[i]);
     }
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    s += __shfl_xor_sync(FULL, s, off);
-    q += __shfl_xor_sync(FULL, q, off);
+};
+
+// N per-lane columns of a parameter vector, in registers.
+template <typename T, int N>
+struct Params;
+
+template <int N>
+struct Params<float, N> {
+  float v[N];
+  __device__ __forceinline__ void set(int i, const float* p, int c, bool ok) {
+    v[i] = ok ? p[c] : 0.0f;
+    v[i + 1] = ok ? p[c + 1] : 0.0f;
   }
-  const float cf = (float)C;
-  const float mean = s / cf;
-  const float var = q / cf - mean * mean;
-  const float rstd = rsqrtf(var + eps);
+  __device__ __forceinline__ float get(int i) const { return v[i]; }
+};
+
+template <int N>
+struct Params<bf16, N> {
+  uint32_t v[N / 2];  // bf16 pairs, low half first
+  __device__ __forceinline__ void set(int i, const bf16* p, int c, bool ok) {
+    const uint32_t lo = ok ? __bfloat16_as_ushort(p[c]) : 0u;
+    const uint32_t hi = ok ? __bfloat16_as_ushort(p[c + 1]) : 0u;
+    v[i / 2] = lo | (hi << 16);
+  }
+  __device__ __forceinline__ float get(int i) const {
+    return (i & 1) ? bf16_hi(v[i / 2]) : bf16_lo(v[i / 2]);
+  }
+};
+
+template <typename TX, typename TW, int NV>
+__global__ void __launch_bounds__(THREADS, sizeof(TX) == 2 ? 2 : 1)
+    layer_norm_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
+                      const TW* __restrict__ bias, TX* __restrict__ y,
+                      long long R, int C, float eps, int lanes) {
+  constexpr int V = Vec<TX>::N;
+  constexpr int N = NV * V;  // columns a lane
+  constexpr int kParamRegs = 2 * N * (int)sizeof(TW) / 4;
+  constexpr int kRowRegs = N * (int)sizeof(TX) / 4;
+  constexpr bool kPrefetch = kParamRegs + 2 * kRowRegs <= 96;
+  const int lane = threadIdx.x & 31;
+  const int slot = lane & (lanes - 1);
+  const int rpg = 32 / lanes;  // rows a warp group
+  const int sub = lane / lanes;
+  const int ncv = C / V;
+
+  Params<TW, N> pw, pb;
 #pragma unroll
   for (int j = 0; j < NV; ++j) {
-    const int cv = lane + 32 * j;
-    if (cv < ncv) {
-      float o[V];
+    const int cv = slot + lanes * j;
+#pragma unroll
+    for (int i = 0; i < V; i += 2) {
+      pw.set(j * V + i, w, cv * V + i, cv < ncv);
+      pb.set(j * V + i, bias, cv * V + i, cv < ncv);
+    }
+  }
+
+  const long long groups = (R + rpg - 1) / rpg;
+  const long long stride = (long long)gridDim.x * WARPS;
+  long long g = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
+  uint4 cur[NV], nxt[NV];
+  auto load = [&](uint4 (&dst)[NV], long long grp) {
+    const long long row = grp * rpg + sub;
+    const TX* xr = x + row * C;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int cv = slot + lanes * j;
+      dst[j] = (row < R && cv < ncv)
+                   ? __ldg(reinterpret_cast<const uint4*>(xr + cv * V))
+                   : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  if (g < groups) load(cur, g);
+  for (; g < groups; g += stride) {
+    const long long gn = g + stride;
+    if (kPrefetch && gn < groups) load(nxt, gn);
+    float s = 0.0f, q = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      float v[V];
+      Raw<TX>::widen(cur[j], v);
 #pragma unroll
       for (int i = 0; i < V; ++i) {
-        const int c = cv * V + i;
-        o[i] = (v[j][i] - mean) * rstd * __ldg(w + c) + __ldg(bias + c);
+        s += v[i];
+        q = fmaf(v[i], v[i], q);
       }
-      Vec<T>::store(yr + cv * V, o);
+    }
+    for (int off = lanes >> 1; off > 0; off >>= 1) {
+      s += __shfl_xor_sync(FULL, s, off);
+      q += __shfl_xor_sync(FULL, q, off);
+    }
+    const float cf = (float)C;
+    const float mean = s / cf;
+    const float var = q / cf - mean * mean;
+    const float rstd = rsqrtf(var + eps);
+    const long long row = g * rpg + sub;
+    if (row < R) {
+      TX* yr = y + row * C;
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        const int cv = slot + lanes * j;
+        if (cv < ncv) {
+          float v[V], o[V];
+          Raw<TX>::widen(cur[j], v);
+#pragma unroll
+          for (int i = 0; i < V; ++i)
+            o[i] = (v[i] - mean) * rstd * pw.get(j * V + i) +
+                   pb.get(j * V + i);
+          Vec<TX>::store(yr + cv * V, o);
+        }
+      }
+    }
+    if (gn < groups) {
+      if (kPrefetch) {
+#pragma unroll
+        for (int j = 0; j < NV; ++j) cur[j] = nxt[j];
+      } else {
+        load(cur, gn);
+      }
     }
   }
 }
 
-template <typename T>
-int layer_norm(const void* x, const void* w, const void* b, void* y,
-               long long R, int C, float eps, cudaStream_t stream) {
-  constexpr int V = Vec<T>::N;
-  if (C % V != 0) return (int)cudaErrorInvalidValue;
-  // vectors a lane, rounded up to a compiled case (C <= 4096 bf16 or
-  // 2048 float32)
-  int nv = (C / V + 31) / 32;
-  if (nv > 8 && nv <= 16) nv = 16;
-  const long long blocks = (R + ROWS - 1) / ROWS;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const T* xt = static_cast<const T*>(x);
-  const float* wt = static_cast<const float*>(w);
-  const float* bt = static_cast<const float*>(b);
-  T* yt = static_cast<T*>(y);
-  const dim3 grid((unsigned)blocks);
-#define SYN3R_LN_CASE(N)                                         \
-  case N:                                                        \
-    layer_norm_kernel<T, N><<<grid, THREADS, 0, stream>>>(       \
-        xt, wt, bt, yt, R, C, eps);                              \
+template <typename TX, typename TW>
+int launch(const void* x, const void* w, const void* b, void* y, long long R,
+           int C, float eps, int lanes, int nv, int grid,
+           cudaStream_t stream) {
+  const TX* xt = static_cast<const TX*>(x);
+  const TW* wt = static_cast<const TW*>(w);
+  const TW* bt = static_cast<const TW*>(b);
+  TX* yt = static_cast<TX*>(y);
+#define SYN3R_LN_CASE(N)                                            \
+  case N:                                                           \
+    layer_norm_kernel<TX, TW, N><<<grid, THREADS, 0, stream>>>(     \
+        xt, wt, bt, yt, R, C, eps, lanes);                          \
     break;
   switch (nv) {
     SYN3R_LN_CASE(1)
@@ -109,7 +228,7 @@ int layer_norm(const void* x, const void* w, const void* b, void* y,
     SYN3R_LN_CASE(6)
     SYN3R_LN_CASE(7)
     SYN3R_LN_CASE(8)
-    SYN3R_LN_CASE(16)
+    SYN3R_LN_CASE(10)
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -119,12 +238,22 @@ int layer_norm(const void* x, const void* w, const void* b, void* y,
 
 }  // namespace
 
-// LayerNorm of each row of x (R, C); weight and bias float32 (C,).
+// LayerNorm of each row of x (R, C) with the plan's lanes a row, nv vectors
+// a lane and grid; weight and bias (C,) in x's type or float32 (a float32
+// x takes float32 parameters).
 extern "C" int syn3r_layer_norm(const void* x, const void* w, const void* b,
                                 void* y, long long R, int C, float eps,
-                                int is_bf16, void* stream) {
-  if (R <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+                                int x_bf16, int w_bf16, int lanes, int nv,
+                                int grid, void* stream) {
+  const int vec = x_bf16 ? 8 : 4;
+  if (R <= 0 || C <= 0 || C % vec != 0 || lanes < 1 || lanes > 32 ||
+      (lanes & (lanes - 1)) != 0 || (long long)lanes * nv * vec < C ||
+      grid <= 0 || (w_bf16 && !x_bf16))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? layer_norm<bf16>(x, w, b, y, R, C, eps, s)
-                 : layer_norm<float>(x, w, b, y, R, C, eps, s);
+  if (!x_bf16) return launch<float, float>(x, w, b, y, R, C, eps, lanes, nv,
+                                           grid, s);
+  return w_bf16 ? launch<bf16, bf16>(x, w, b, y, R, C, eps, lanes, nv, grid, s)
+                : launch<bf16, float>(x, w, b, y, R, C, eps, lanes, nv, grid,
+                                      s);
 }

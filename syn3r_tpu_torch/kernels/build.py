@@ -36,16 +36,19 @@ SIGNATURES = {
                                     _LL, _LL, _F, _I, _P]},
     # P, G, C, O, out, ltc; T, px, cap, K; stream
     "composite_fwd": {"syn3r_composite_fwd": [_P] * 6 + [_I] * 4 + [_P]},
-    # P, G, C, O, ltc, dout, part, dG, dC, dO; T, px, cap, K; stream
-    "composite_bwd": {"syn3r_composite_bwd": [_P] * 10 + [_I] * 4 + [_P]},
+    # P, G, C, O, ltc, dout, tot, keep, part, dG, dC, dO; T, px, cap, K;
+    # stream
+    "composite_bwd": {"syn3r_composite_bwd": [_P] * 12 + [_I] * 4 + [_P]},
     "group_norm": {
         # x, weight, bias, part, a, b; B, S, C, G; eps; nsplit, threads,
         # bf16; stream
         "syn3r_gn_stats": [_P] * 6 + [_I, _LL, _I, _I, _F, _I, _I, _I, _P],
         # x, a, b, y; B, S, C; silu, bf16; stream
         "syn3r_gn_apply": [_P] * 4 + [_I, _LL, _I, _I, _I, _P]},
-    # x, weight, bias, y; R, C; eps; bf16; stream
-    "layer_norm": {"syn3r_layer_norm": [_P] * 4 + [_LL, _I, _F, _I, _P]},
+    # x, weight, bias, y; R, C; eps; x bf16, weight bf16, lanes a row,
+    # vectors a lane, grid; stream
+    "layer_norm": {"syn3r_layer_norm":
+                   [_P] * 4 + [_LL, _I, _F, _I, _I, _I, _I, _I, _P]},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -20,10 +20,17 @@ On CUDA tensors ``composite_tiles`` launches the hand-written kernels in
 ``_fwd_kernel`` and ``_bwd_kernel``); on CPU tensors it runs
 ``composite_fwd_reference`` and ``composite_bwd_reference``. A CUDA tensor
 never falls back: the wrappers launch or raise. ``composite_tiles.launches``
-counts kernel launches, ``{"fwd": n, "bwd": n}``.
+counts wrapper calls that launched, ``{"fwd": n, "bwd": n}`` (a backward
+call is three CUDA launches: ``composite_bwd_plan``).
+
+The backward kernel skips, per warp of pixels, the entries whose alpha
+stays below 1/255 over the warp's pixel rectangle (``reach_mask`` is its
+plain mirror); ``composite_bwd_launch`` also returns its keep bits.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -31,8 +38,17 @@ from ..kernels import build
 
 ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
-# pixels (one a thread) of a backward block; csrc/composite_bwd.cu's THREADS
-BWD_BLOCK_PIXELS = 256
+# The backward kernel's geometry (csrc/composite_bwd.cu): 256 threads of 4
+# pixels; warp w, lane l, pixel k of a 1024-pixel block holds pixel
+# 64 (4 (w // 2) + k) + 32 (w % 2) + l, so a warp covers 4 rows x 32
+# columns of a 64-wide tile; chunks of at most 128 entries.
+BWD_THREADS = 256
+BWD_WARPS = BWD_THREADS // 32
+BWD_PIXELS_PER_THREAD = 4
+BWD_BLOCK_PIXELS = BWD_THREADS * BWD_PIXELS_PER_THREAD
+BWD_ROW = 64
+BWD_MAX_K = 128
+_MAX_GRID_YZ = 65535
 
 
 def _chunk_alpha(P, Gc, Oc):
@@ -100,6 +116,110 @@ def composite_bwd_reference(P, G, C, O, ltc, dout, K: int):
     return dG, dC, dO
 
 
+def composite_bwd_plan(T: int, px: int, cap: int, K: int) -> dict:
+    """Launch plan of the backward kernels for T tiles of px pixels and
+    lists of cap entries in chunks of K: the grid (pixel blocks, chunks,
+    tiles) of the tot and gradient kernels, pixels a thread, and the
+    scratch shapes (tot float32, keep bits int32, part float32). Raises on
+    what the kernels do not take."""
+    if not 1 <= K <= BWD_MAX_K or cap < 1 or cap % K:
+        raise ValueError(f"composite backward kernel needs cap % K == 0 and "
+                         f"1 <= K <= {BWD_MAX_K}, got cap={cap} K={K}")
+    n_chunks = cap // K
+    if not 1 <= T <= _MAX_GRID_YZ or n_chunks > _MAX_GRID_YZ or px < 1:
+        raise ValueError(f"composite backward kernel takes 1 <= T <= "
+                         f"{_MAX_GRID_YZ}, cap / K <= {_MAX_GRID_YZ} and "
+                         f"px >= 1, got T={T} cap/K={n_chunks} px={px}")
+    n_blk = -(-px // BWD_BLOCK_PIXELS)
+    shapes = {"tot": (T, n_chunks, px),
+              "keep": (T, n_chunks, n_blk, BWD_WARPS, BWD_MAX_K // 32),
+              "part": (T, n_blk, 12, cap)}
+    return dict(grid=(n_blk, n_chunks, T), threads=BWD_THREADS,
+                pixels_per_thread=BWD_PIXELS_PER_THREAD,
+                block_pixels=BWD_BLOCK_PIXELS, scratch=shapes,
+                scratch_bytes=4 * sum(math.prod(v) for v in shapes.values()))
+
+
+def bwd_pixel_map(px: int) -> torch.Tensor:
+    """Pixel index (or -1 past px) of every (block, warp, pixel of a
+    thread, lane) of the backward kernel: (n_blk, 8, 4, 32)."""
+    n_blk = -(-px // BWD_BLOCK_PIXELS)
+    b, w, k, lane = torch.meshgrid(
+        torch.arange(n_blk), torch.arange(BWD_WARPS),
+        torch.arange(BWD_PIXELS_PER_THREAD), torch.arange(32),
+        indexing="ij")
+    p = (b * BWD_BLOCK_PIXELS + ((w // 2) * BWD_PIXELS_PER_THREAD + k)
+         * BWD_ROW + (w % 2) * 32 + lane)
+    return torch.where(p < px, p, -1)
+
+
+def reach_mask(P, G, O, K: int) -> torch.Tensor:
+    """Plain mirror of the backward kernel's skip test, in float64: for
+    each tile, warp rectangle (block-major, (n_blk * 8)) and entry, False
+    only where the entry's alpha stays below 1/255 at every point of the
+    rectangle spanned by the warp's pixels. Returns bool (T, n_rect, cap)."""
+    T, _, cap = G.shape
+    dev = G.device
+    pm = bwd_pixel_map(P.shape[1]).to(dev).reshape(-1, 4 * 32)  # (n_rect, 128)
+    live = pm >= 0
+    Pw = P.double()[:, pm.clamp_min(0)]                    # (6, n_rect, 128)
+    x, y = Pw[3], Pw[4]
+    exact = ((x * x == Pw[0]) & (x * y == Pw[1]) & (y * y == Pw[2])
+             & (Pw[5] == 1.0)) | ~live
+    exact = exact.all(1)
+    inf = torch.tensor(float("inf"), dtype=torch.float64, device=dev)
+    x0 = torch.where(live, x, inf).amin(1)[None, :, None]
+    x1 = torch.where(live, x, -inf).amax(1)[None, :, None]
+    y0 = torch.where(live, y, inf).amin(1)[None, :, None]
+    y1 = torch.where(live, y, -inf).amax(1)[None, :, None]
+    g = G.double()[:, :, None, :]                          # (T, 6, 1, cap)
+    a, b, c, d, e, f = g.unbind(1)
+    o = O.double()[:, 0, None, :]                          # (T, 1, cap)
+
+    def quad(xx, yy):
+        return a * xx * xx + b * xx * yy + c * yy * yy + d * xx + e * yy + f
+
+    with torch.no_grad():
+        det = 4.0 * a * c - b * b
+        concave = (a < 0) & (c < 0) & (det > 0)
+        inv, h2a, h2c = 1.0 / det, 1.0 / (2.0 * a), 1.0 / (2.0 * c)
+        xc = (b * e - 2.0 * c * d) * inv
+        yc = (b * d - 2.0 * a * e) * inv
+        inside = (xc >= x0) & (xc <= x1) & (yc >= y0) & (yc <= y1)
+        edges = torch.maximum(
+            torch.maximum(
+                quad(x0, torch.clamp(-(b * x0 + e) * h2c, y0, y1)),
+                quad(x1, torch.clamp(-(b * x1 + e) * h2c, y0, y1))),
+            torch.maximum(
+                quad(torch.clamp(-(b * y0 + d) * h2a, x0, x1), y0),
+                quad(torch.clamp(-(b * y1 + d) * h2a, x0, x1), y1)))
+        m = torch.where(inside, quad(xc, yc), edges)
+        X = torch.maximum(x0.abs(), x1.abs())
+        Y = torch.maximum(y0.abs(), y1.abs())
+        S = (a.abs() * X * X + b.abs() * X * Y + c.abs() * Y * Y
+             + d.abs() * X + e.abs() * Y + f.abs())
+        lim = torch.log(torch.tensor(ALPHA_MIN, dtype=torch.float32)
+                        .double() / o)
+        finite = (torch.isfinite(G).all(1)
+                  & torch.isfinite(O[:, 0]))[:, None, :]
+        test = ~(m + 1e-6 * S + 1e-5 < lim) | ~concave | ~finite
+        opaque = ~(O[:, 0, None, :] < ALPHA_MIN)
+        keep = opaque & torch.where(exact[None, :, None], test, True)
+        keep = keep & live.any(1)[None, :, None]
+    return keep
+
+
+def keep_words_to_mask(words: torch.Tensor, K: int) -> torch.Tensor:
+    """The kernel's keep bits (T, n_chunks, n_blk, 8, 4) as bool
+    (T, n_rect, cap), the layout of ``reach_mask``."""
+    T, n_chunks, n_blk = words.shape[:3]
+    bits = (words.long()[..., None] >> torch.arange(32, device=words.device)
+            ) & 1                                      # (..., 4, 32)
+    bits = bits.reshape(T, n_chunks, n_blk * BWD_WARPS, BWD_MAX_K)[..., :K]
+    return bits.permute(0, 2, 1, 3).reshape(T, n_blk * BWD_WARPS,
+                                            n_chunks * K).bool()
+
+
 def _check(P, G, C, O, K, extra=()):
     T, six, cap = G.shape
     px = P.shape[1]
@@ -146,34 +266,42 @@ def composite_fwd(P, G, C, O, K: int):
     return out, ltc
 
 
-def composite_bwd(P, G, C, O, ltc, dout, K: int):
-    """Backward composite: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. Returns (dG, dC, dO)."""
-    if G.device.type == "cpu":
-        return composite_bwd_reference(P, G, C, O, ltc, dout, K)
+def composite_bwd_launch(P, G, C, O, ltc, dout, K: int):
+    """Launches the backward kernels on CUDA tensors. Returns (dG, dC, dO,
+    keep), keep the skip test's bits (``composite_bwd_plan``'s scratch
+    "keep"; ``keep_words_to_mask`` reads them), or None when there is no
+    work."""
     T, _, cap = G.shape
     px = P.shape[1]
     _check(P, G, C, O, K, extra=[("ltc", ltc, (T, cap // K, px)),
                                  ("dout", dout, (T, 6, px))])
     dG, dC, dO = (torch.empty_like(G), torch.empty_like(C),
                   torch.empty_like(O))
-    # per-block partial sums over pixels, reduced in a second pass
-    n_blk = -(-px // BWD_BLOCK_PIXELS)
-    part = torch.empty((T, n_blk, 12, cap), dtype=torch.float32,
-                       device=G.device)
-    if T and px and cap:
-        err = build.entry("composite_bwd")(
-            P.data_ptr(), G.data_ptr(), C.data_ptr(), O.data_ptr(),
-            ltc.data_ptr(), dout.data_ptr(), part.data_ptr(),
-            dG.data_ptr(), dC.data_ptr(), dO.data_ptr(), T, px, cap, K,
-            torch.cuda.current_stream(G.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"composite_bwd kernel launch failed: "
-                               f"cudaError {err}")
-        composite_tiles.launches["bwd"] += 1
-    else:
-        dG.zero_(), dC.zero_(), dO.zero_()
-    return dG, dC, dO
+    if not (T and px and cap):
+        return dG.zero_(), dC.zero_(), dO.zero_(), None
+    plan = composite_bwd_plan(T, px, cap, K)
+    tot, keep, part = (
+        torch.empty(shape, dtype=torch.int32 if name == "keep"
+                    else torch.float32, device=G.device)
+        for name, shape in plan["scratch"].items())
+    err = build.entry("composite_bwd")(
+        P.data_ptr(), G.data_ptr(), C.data_ptr(), O.data_ptr(),
+        ltc.data_ptr(), dout.data_ptr(), tot.data_ptr(), keep.data_ptr(),
+        part.data_ptr(), dG.data_ptr(), dC.data_ptr(), dO.data_ptr(), T, px,
+        cap, K, torch.cuda.current_stream(G.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"composite_bwd kernel launch failed: "
+                           f"cudaError {err}")
+    composite_tiles.launches["bwd"] += 1
+    return dG, dC, dO, keep
+
+
+def composite_bwd(P, G, C, O, ltc, dout, K: int):
+    """Backward composite: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors. Returns (dG, dC, dO)."""
+    if G.device.type == "cpu":
+        return composite_bwd_reference(P, G, C, O, ltc, dout, K)
+    return composite_bwd_launch(P, G, C, O, ltc, dout, K)[:3]
 
 
 class _CompositeTiles(torch.autograd.Function):
@@ -192,10 +320,11 @@ class _CompositeTiles(torch.autograd.Function):
         return None, dG, dC, dO, None
 
 
-def composite_tiles(P, G, C, O, K: int = 256) -> torch.Tensor:
+def composite_tiles(P, G, C, O, K: int = 128) -> torch.Tensor:
     """Alpha-composite per-tile Gaussian lists over the tile's pixels.
     Returns (T, 6, px): rows 0-4 [r, g, b, depth, alpha] accumulated, row
-    5 the final log-transmittance. Differentiable in G, C and O."""
+    5 the final log-transmittance. Differentiable in G, C and O; the
+    backward kernel takes chunks of K <= 128 (``bin_tiles``' K)."""
     return _CompositeTiles.apply(P, G, C, O, K)
 
 

@@ -11,11 +11,13 @@ On a CUDA tensor the wrappers launch the hand-written kernels:
 across blocks, then a fixed-order fold to the per-(B, C) affine
 ``a = rstd w``, ``b = bias - mean a``; ``group_norm_apply``: ``y = x a + b``
 with the SiLU, one read-write pass) replacing ``_gn_stats_kernel`` and
-``_gn_apply_kernel``, and ``csrc/layer_norm.cu`` (one warp a row)
-replacing ``_ln_kernel``. On a CPU tensor they run the plain versions. A
-CUDA tensor never falls back: the wrappers launch or raise, and no switch
-turns the kernels off. Launches are counted in ``group_norm.launches``
-(``{"stats": n, "apply": n}``) and ``layer_norm.launches``.
+``_gn_apply_kernel``, and ``csrc/layer_norm.cu`` (a persistent grid of
+warps over groups of rows, weight and bias held in registers in their own
+dtype; its launch plan is ``layer_norm_plan``) replacing ``_ln_kernel``.
+On a CPU tensor they run the plain versions. A CUDA tensor never falls
+back: the wrappers launch or raise, and no switch turns the kernels off.
+Launches are counted in ``group_norm.launches`` (``{"stats": n, "apply":
+n}``) and ``layer_norm.launches``.
 
 ``group_norm`` and ``layer_norm`` are ``torch.autograd.Function``s whose
 backward recomputes through the plain version, as ``_gn_bwd`` and
@@ -32,10 +34,16 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import build
+from .geglu_ffn import _num_sms
 
 # a GroupNorm stats grid aims at about eight resident blocks a SM
 _TARGET_BLOCKS = 132 * 8
 _MAX_SPLITS = 256
+# LayerNorm kernel (csrc/layer_norm.cu): threads a block, the compiled
+# counts of 16-byte vectors a lane, resident blocks a SM by row dtype
+LN_THREADS = 256
+LN_VECTORS = (1, 2, 3, 4, 5, 6, 7, 8, 10)
+LN_BLOCKS_PER_SM = {torch.bfloat16: 2, torch.float32: 1}
 
 
 def contiguous_counted(x: torch.Tensor) -> torch.Tensor:
@@ -133,8 +141,9 @@ def _check_input(name: str, x: torch.Tensor, ndim: int):
     return vec
 
 
-def _affine_param(t, c: int, device) -> torch.Tensor:
-    t = t.detach().to(device=device, dtype=torch.float32).contiguous()
+def _affine_param(t, c: int, device,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    t = t.detach().to(device=device, dtype=dtype).contiguous()
     if tuple(t.shape) != (c,):
         raise ValueError(f"norm kernel: affine shape {tuple(t.shape)}, "
                          f"expected ({c},)")
@@ -213,19 +222,62 @@ def group_norm_apply(x3: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     return y
 
 
+def layer_norm_plan(r: int, c: int, dtype: torch.dtype, num_sms: int) -> dict:
+    """Launch plan of the LayerNorm kernel for (r, c) rows of ``dtype`` on
+    a card with ``num_sms`` SMs: 16-byte vectors of ``vec`` elements,
+    ``lanes`` lanes a row (the largest power of two up to 32 that divides
+    the row's vectors, so that no lane idles), ``vectors`` a lane,
+    ``rows_per_warp``, ``idle`` vector slots a row (0 but where the row
+    falls back to 32 lanes) and the persistent ``grid`` (at most
+    LN_BLOCKS_PER_SM blocks a SM, at most one warp a group of rows).
+    Raises on what the kernel does not take."""
+    if dtype not in LN_BLOCKS_PER_SM:
+        raise TypeError(f"layer_norm kernel takes float32 or bfloat16, got "
+                        f"{dtype}")
+    vec = 8 if dtype == torch.bfloat16 else 4
+    if c < 1 or c % vec:
+        raise ValueError(f"layer_norm kernel needs C % {vec} == 0 in {dtype}, "
+                         f"got C={c}")
+    n = c // vec
+    lanes = 32
+    while n % lanes:
+        lanes //= 2
+    vectors = n // lanes
+    if vectors not in LN_VECTORS:
+        lanes = 32
+        vectors = next((k for k in LN_VECTORS if 32 * k >= n), None)
+        if vectors is None:
+            raise ValueError(f"layer_norm kernel takes C <= "
+                             f"{32 * LN_VECTORS[-1] * vec} in {dtype}, got "
+                             f"C={c}")
+    rows_per_warp = 32 // lanes
+    groups = -(-r // rows_per_warp)
+    grid = max(1, min(-(-groups // (LN_THREADS // 32)),
+                      num_sms * LN_BLOCKS_PER_SM[dtype]))
+    return dict(vec=vec, lanes=lanes, vectors=vectors,
+                rows_per_warp=rows_per_warp, idle=lanes * vectors - n,
+                grid=grid)
+
+
 def _layer_norm_forward(x2: torch.Tensor, weight, bias,
                         eps: float) -> torch.Tensor:
     if x2.device.type == "cpu":
         return layer_norm_reference(x2, weight, bias, eps)
     _check_input("layer_norm", x2, 2)
     r, c = x2.shape
-    w = _affine_param(weight, c, x2.device)
-    bi = _affine_param(bias, c, x2.device)
+    # parameters in their own dtype where it is x's (widened in registers,
+    # no cast launch), else float32
+    wdt = (x2.dtype if weight.dtype == bias.dtype == x2.dtype
+           else torch.float32)
+    w = _affine_param(weight, c, x2.device, wdt)
+    bi = _affine_param(bias, c, x2.device, wdt)
+    plan = layer_norm_plan(r, c, x2.dtype, _num_sms(x2.device))
     y = torch.empty_like(x2)
     err = build.entry("layer_norm")(
         x2.data_ptr(), w.data_ptr(), bi.data_ptr(), y.data_ptr(), r, c,
         float(eps), int(x2.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x2.device).cuda_stream)
+        int(wdt == torch.bfloat16), plan["lanes"], plan["vectors"],
+        plan["grid"], torch.cuda.current_stream(x2.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"layer_norm kernel launch failed: cudaError "
                            f"{err}")

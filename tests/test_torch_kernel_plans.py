@@ -1,14 +1,17 @@
-"""Host-side launch plans of the port's GEGLU-FFN and flash-attention
-kernels, on the CPU: the tile and grid choices and the TMA tensor-map
-geometry the wrappers hand to the CUDA code, what they copy, and what they
-refuse. The kernels themselves run only on the card (chip_smoke.py); these
-are the plain-Python parts of their wrappers.
+"""Host-side launch plans of the port's GEGLU-FFN, flash-attention,
+composite-backward and LayerNorm kernels, on the CPU: the tile and grid
+choices, the TMA tensor-map geometry and the scratch the wrappers hand to
+the CUDA code, what they copy, and what they refuse. The kernels themselves
+run only on the card (chip_smoke.py); these are the plain-Python parts of
+their wrappers.
 """
 import pytest
 import torch
 
 from syn3r_tpu_torch.ops import attention as A
+from syn3r_tpu_torch.ops import composite as TC
 from syn3r_tpu_torch.ops import geglu_ffn as G
+from syn3r_tpu_torch.ops import norm as N
 
 H100_SMS = 132
 
@@ -147,7 +150,100 @@ def test_flash_kernel_refuses_unsupported_inputs():
         A.check_flash_args(q, k[:, :, :288], v)
 
 
+@pytest.mark.parametrize("T, px, cap, K, grid", [
+    (96, 2048, 1024, 128, (2, 8, 96)),      # the GS main path
+    (4, 2048, 256, 128, (2, 2, 4)),         # tests/test_torch_rasterize.py
+    (4, 2048, 384, 128, (2, 3, 4)),
+    (4, 2048, 512, 128, (2, 4, 4)),
+    (4, 2048, 24, 24, (2, 1, 4)),
+    (1, 1100, 128, 128, (2, 1, 1))])        # a ragged last block
+def test_composite_bwd_plan(T, px, cap, K, grid):
+    plan = TC.composite_bwd_plan(T, px, cap, K)
+    assert plan["grid"] == grid
+    assert plan["threads"] == 256 and plan["pixels_per_thread"] == 4
+    assert plan["block_pixels"] == 256 * 4
+    n_blk, n_chunks, _ = grid
+    assert plan["scratch"] == {"tot": (T, n_chunks, px),
+                               "keep": (T, n_chunks, n_blk, 8, 4),
+                               "part": (T, n_blk, 12, cap)}
+    assert plan["scratch_bytes"] == 4 * (T * n_chunks * px
+                                         + T * n_chunks * n_blk * 32
+                                         + T * n_blk * 12 * cap)
+
+
+def test_composite_bwd_scratch_at_the_gs_shape():
+    """tot 6.3 MB, part 9.4 MB, keep bits 0.2 MB: under the 37.7 MB of
+    per-256-pixel partials that one chunk at a time wrote."""
+    plan = TC.composite_bwd_plan(96, 2048, 1024, 128)
+    assert plan["scratch_bytes"] == 4 * (96 * 8 * 2048 + 96 * 8 * 2 * 32
+                                         + 96 * 2 * 12 * 1024)
+    assert plan["scratch_bytes"] < 16e6 < 4 * 96 * 8 * 12 * 1024
+
+
+@pytest.mark.parametrize("px", [2048, 1100, 64])
+def test_composite_bwd_pixel_map_covers_each_pixel_once(px):
+    """Every pixel belongs to exactly one (block, warp, row, lane); a warp
+    covers 4 rows x 32 columns of a 64-wide tile."""
+    pm = TC.bwd_pixel_map(px)
+    got = pm[pm >= 0].sort().values
+    assert torch.equal(got, torch.arange(px))
+    if px == 2048:
+        w = pm[0, 3]                          # rows 4-7, columns 32-63
+        assert torch.equal(w // 64, torch.arange(4, 8)[:, None].expand(4, 32))
+        assert torch.equal(w % 64, torch.arange(32, 64).expand(4, 32))
+
+
+@pytest.mark.parametrize("T, px, cap, K, match", [
+    (4, 2048, 256, 256, "K <= 128"),         # chunks beyond 128 entries
+    (4, 2048, 250, 128, "cap % K"),
+    (70000, 2048, 128, 128, "T <="),
+    (4, 0, 128, 128, "px >= 1")])
+def test_composite_bwd_plan_refuses(T, px, cap, K, match):
+    with pytest.raises(ValueError, match=match):
+        TC.composite_bwd_plan(T, px, cap, K)
+
+
+@pytest.mark.parametrize("r, c, dtype, lanes, rows_per_warp", [
+    (75 * 9216, 320, torch.bfloat16, 8, 4),  # UNet level 0
+    (75 * 2304, 640, torch.bfloat16, 16, 2),
+    (75 * 576, 1280, torch.bfloat16, 32, 1),
+    (75 * 144, 1280, torch.bfloat16, 32, 1),
+    (514, 1280, torch.float32, 32, 1),       # CLIP ViT-H
+    (514, 1280, torch.bfloat16, 32, 1)])
+def test_layer_norm_plan_has_no_idle_lane_at_census_widths(
+        r, c, dtype, lanes, rows_per_warp):
+    plan = N.layer_norm_plan(r, c, dtype, H100_SMS)
+    assert plan["idle"] == 0
+    assert (plan["lanes"], plan["rows_per_warp"]) == (lanes, rows_per_warp)
+    assert plan["lanes"] * plan["vectors"] * plan["vec"] == c
+    assert plan["vectors"] == (10 if dtype == torch.float32 else 5)
+    per_sm = 2 if dtype == torch.bfloat16 else 1
+    groups = -(-r // rows_per_warp)
+    assert plan["grid"] == min(-(-groups // 8), H100_SMS * per_sm)
+
+
+def test_layer_norm_plan_falls_back_to_masked_lanes():
+    # 33 vectors a row: no power of two divides it with <= 10 a lane
+    plan = N.layer_norm_plan(100, 264, torch.bfloat16, H100_SMS)
+    assert (plan["lanes"], plan["vectors"], plan["idle"]) == (32, 2, 31)
+    assert N.layer_norm_plan(7, 8, torch.bfloat16, H100_SMS) == dict(
+        vec=8, lanes=1, vectors=1, rows_per_warp=32, idle=0, grid=1)
+
+
+@pytest.mark.parametrize("c, dtype, err, match", [
+    (12, torch.bfloat16, ValueError, "C % 8"),
+    (6, torch.float32, ValueError, "C % 4"),
+    (2568, torch.bfloat16, ValueError, "C <="),
+    (1284, torch.float32, ValueError, "C <="),
+    (64, torch.float16, TypeError, "float32 or bfloat16")])
+def test_layer_norm_plan_refuses(c, dtype, err, match):
+    with pytest.raises(err, match=match):
+        N.layer_norm_plan(16, c, dtype, H100_SMS)
+
+
 def test_plans_decide_nothing_about_a_card():
     """The plans are plain arithmetic: they run where torch has no CUDA."""
     assert G.geglu_plan(10, 8, 1)["grid1"] == 1
     assert A.flash_grid(1, 1, 1, 1) == 1
+    assert TC.composite_bwd_plan(1, 1, 1, 1)["grid"] == (1, 1, 1)
+    assert N.layer_norm_plan(1, 8, torch.bfloat16, 1)["grid"] == 1

@@ -112,6 +112,124 @@ def test_function_backward_matches_autograd(tiles):
     assert TC.composite_tiles.launches == {"fwd": 0, "bwd": 0}
 
 
+def _two_stage_bwd(P, G, C, O, ltc, dout, K):
+    """The backward kernel's decomposition in plain torch: every chunk's
+    tot at once, then each chunk on its own, its carry formed from the
+    later chunks' tots in the order of the sequential walk (d logT, then
+    tot of the last chunk down to the next one)."""
+    n = G.shape[2] // K
+    gacc = dout[:, 0:5]
+
+    def chunk(c):
+        sl = slice(c * K, (c + 1) * K)
+        praw, epow, alpha_raw, alpha = TC._chunk_alpha(P, G[:, :, sl],
+                                                       O[:, :, sl])
+        l1ma = torch.log1p(-alpha)
+        excl = torch.cumsum(l1ma, dim=1) - l1ma
+        t_in = torch.exp(ltc[:, c:c + 1] + excl)
+        w = alpha * t_in
+        g_c = torch.einsum("trk,trp->tkp", C[:, :, sl], gacc)
+        return praw, epow, alpha_raw, alpha, t_in, w, g_c, w * g_c
+
+    tot = [chunk(c)[-1].sum(1, keepdim=True) for c in range(n)]
+    dG, dC, dO = (torch.zeros_like(G), torch.zeros_like(C),
+                  torch.zeros_like(O))
+    for c in range(n):                       # any order: chunks independent
+        s = dout[:, 5:6]
+        for later in reversed(range(c + 1, n)):
+            s = s + tot[later]
+        praw, epow, alpha_raw, alpha, t_in, w, g_c, wgc = chunk(c)
+        suffix = tot[c] - torch.cumsum(wgc, dim=1) + s
+        dalpha = t_in * g_c - suffix / (1.0 - alpha)
+        dalpha = torch.where((alpha == 0.0) | (alpha_raw > TC.ALPHA_MAX),
+                             0.0, dalpha)
+        dpower = torch.where(praw > 0.0, 0.0, dalpha * alpha_raw)
+        sl = slice(c * K, (c + 1) * K)
+        dG[:, :, sl] = torch.einsum("fp,tkp->tfk", P, dpower)
+        dC[:, :, sl] = torch.einsum("trp,tkp->trk", gacc, w)
+        dO[:, :, sl] = (dalpha * epow).sum(2)[:, None, :]
+    return dG, dC, dO
+
+
+def test_chunk_parallel_backward_is_the_sequential_walk(tiles):
+    """The kernel's two stages give composite_bwd_reference's bits, and
+    JAX's interpret-mode kernel within the gradient tolerance."""
+    tl, dout = tiles
+    args = (tl.P, tl.G, tl.C, tl.O)
+    _, ltc = TC.composite_fwd_reference(*args, tl.K)
+    assert ltc.shape[1] > 1                  # several chunks to carry over
+    got = _two_stage_bwd(*args, ltc, dout, tl.K)
+    want = TC.composite_bwd_reference(*args, ltc, dout, tl.K)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    jax_want = _composite_bwd_impl(*[x.numpy() for x in args], ltc.numpy(),
+                                   dout.numpy(), tl.K, interpret=True)
+    for g, w in zip(got, jax_want):
+        _grad_close(g.numpy(), np.asarray(w))
+
+
+def _rect_hits(tl):
+    """(T, n_rect, cap): some pixel of the backward kernel's warp
+    rectangle has alpha >= 1/255."""
+    pm = TC.bwd_pixel_map(tl.P.shape[1]).reshape(-1, 128)
+    praw = torch.einsum("tfk,fp->tkp", tl.G, tl.P)
+    alpha = (tl.O.transpose(1, 2) * torch.exp(praw.clamp(max=0.0))
+             ).clamp(max=TC.ALPHA_MAX)
+    hit = (alpha >= TC.ALPHA_MIN)[:, :, pm.clamp_min(0)] & (pm >= 0)
+    return hit.any(-1).transpose(1, 2)
+
+
+@pytest.mark.parametrize("cap,chunk", [(256, 128), (499, 128), (24, 128)])
+def test_rectangle_skip_never_drops_a_hit(scene, cap, chunk):
+    """The backward kernel's skip test (its plain mirror) skips no (entry,
+    warp rectangle) with a pixel whose alpha reaches 1/255, keeps no entry
+    below 1/255 opacity, and skips something on these lists."""
+    _, _, st, cam = scene
+    sg = rz.project_gaussians(st, cam, sh_degree=3)
+    tl = rz.bin_tiles(sg, cam.height, cam.width, cap=cap, chunk=chunk)
+    keep = TC.reach_mask(tl.P, tl.G, tl.O, tl.K)
+    hits = _rect_hits(tl)
+    assert keep.shape == hits.shape == (tl.G.shape[0], 16, tl.G.shape[2])
+    assert not bool((hits & ~keep).any())
+    assert not bool((keep & (tl.O[:, 0, None, :] < TC.ALPHA_MIN)).any())
+    opaque = int((tl.O >= TC.ALPHA_MIN).sum()) * 16
+    assert int(keep.sum()) < opaque
+
+
+def test_rectangle_skip_needs_pixel_features():
+    """Pixels whose P is not [x^2, xy, y^2, x, y, 1] keep every entry with
+    opacity >= 1/255; a warp with no pixel keeps none."""
+    px = 1100              # the second block: rows 0-1 live, warps 2-7 dead
+    ys, xs = torch.div(torch.arange(px), 64, rounding_mode="floor"), \
+        torch.arange(px) % 64
+    P = rz.pixel_features(ys.float(), xs.float()).T.contiguous()
+    G = torch.zeros((1, 6, 4))
+    G[0, 0], G[0, 2], G[0, 5] = -1.0, -1.0, -1e4  # far below 1/255
+    O = torch.tensor([[[0.9, 0.9, 1e-3, 0.5]]])
+    keep = TC.reach_mask(P, G, O, 4)
+    assert keep.shape == (1, 16, 4) and not bool(keep.any())
+    P[0] += 0.5                               # x^2 no longer matches x
+    keep = TC.reach_mask(P, G, O, 4)
+    want = torch.tensor([True, True, False, True])
+    live = TC.bwd_pixel_map(px).reshape(-1, 128).ge(0).any(1)
+    assert live.tolist() == [True] * 10 + [False] * 6
+    assert torch.equal(keep[0], live[:, None] & want[None, :])
+
+
+def test_keep_words_unpack_to_the_mirror_layout():
+    T, n_chunks, n_blk, K = 2, 3, 2, 24
+    rng = np.random.default_rng(4)
+    mask = torch.from_numpy(rng.random((T, n_chunks, n_blk * 8, K)) < 0.5)
+    bits = torch.zeros((T, n_chunks, n_blk * 8, 128), dtype=torch.long)
+    bits[..., :K] = mask.long()
+    words = (bits.reshape(T, n_chunks, n_blk, 8, 4, 32)
+             << torch.arange(32)).sum(-1)
+    words = torch.where(words >= 2 ** 31, words - 2 ** 32, words).int()
+    got = TC.keep_words_to_mask(words, K)
+    assert torch.equal(got, mask.permute(0, 2, 1, 3).reshape(T, n_blk * 8,
+                                                             n_chunks * K))
+
+
 def _jax_tiled(jsg, jcam, cap, chunk, composite):
     return jrz.rasterize_tiled(jsg, jcam.height, jcam.width, cap=cap,
                                chunk=chunk, composite=composite)
