@@ -27,14 +27,16 @@ Phases, one result line each; any failure raises and the exit code is not 0:
               norms one per call of a norm module, 105 GroupNorms and 112
               LayerNorms per UNet forward (the module tree). Forward
               pre-hooks record every norm call's shape (the census).
-              The UNet's LayerNorm calls must be LN_SHAPES of
-              scripts/kernel_timing.py, bf16 with bf16 weights.
+              The UNet's LayerNorm and GroupNorm calls must be LN_SHAPES
+              and GN_SHAPES of scripts/kernel_timing.py (GroupNorm with its
+              SiLU count), bf16 with bf16 weights.
   5b. kernels the GroupNorm (stats and apply) and LayerNorm kernels against
               their plain versions at every shape of the census (UNet and
               CLIP in bf16, the VAE encode in float32, its decode in bf16;
-              LayerNorm weights in the module's dtype, GroupNorm's in
-              float32), with F.group_norm / F.layer_norm as the library
-              yardstick.
+              weights in the module's dtype), with F.group_norm /
+              F.layer_norm as the library yardstick; two GroupNorm stats
+              calls must agree bit for bit and leave the kernel's arrival
+              counters at zero.
   5c. scene   the per-scene loop through the training entry point
               (cli/train.build_runner, then run) with the README's LLFF
               flags (--n_views 3 --refine_cycle_num 2): an in-memory
@@ -96,8 +98,9 @@ from syn3r_tpu_torch.ops.geglu_ffn import (geglu_ffn, geglu_ffn_reference,
                                           geglu_plan)
 from syn3r_tpu_torch.pipeline.completion import search_hypers_v2
 from syn3r_tpu_torch.utils.camera import camera_from_fov, look_at_w2c
-from scripts.kernel_timing import (ATTN_SHAPES, FFN_SHAPES, GS_CAP, GS_H,
-                                   GS_W, LN_SHAPES, SmiSampler, cuda_ms,
+from scripts.kernel_timing import (ATTN_SHAPES, FFN_SHAPES, GN_SHAPES,
+                                   GS_CAP, GS_H, GS_W, LN_SHAPES,
+                                   SmiSampler, cuda_ms,
                                    gs_points, gs_scene, gs_tile_lists,
                                    window_iters)
 
@@ -459,6 +462,19 @@ def run_unit(dev):
             for key in census.calls if key[:2] == ("layer_norm", "unet")):
         raise AssertionError(f"UNet LayerNorm calls a forward {unet_ln}, "
                              f"expected LN_SHAPES in bf16: {LN_SHAPES}")
+    unet_gn = {}
+    for key, n in census.calls.items():
+        if key[:2] == ("group_norm", "unet"):
+            got = unet_gn.setdefault(key[2], [0, 0])
+            got[0] += n / forwards
+            got[1] += n / forwards if key[4] else 0
+    if unet_gn != {(b, s, c): [n, n_silu] for b, s, c, n, n_silu
+                   in GN_SHAPES} or any(
+            key[3] != torch.bfloat16 or key[7] != torch.bfloat16
+            or key[5] != 32
+            for key in census.calls if key[:2] == ("group_norm", "unet")):
+        raise AssertionError(f"UNet GroupNorm calls a forward {unet_gn}, "
+                             f"expected GN_SHAPES in bf16: {GN_SHAPES}")
     calls = census.totals()
     want = {"geglu_ffn": 48 * forwards, "flash_attention": 15 * forwards,
             "composite_fwd": 0, "composite_bwd": 0,
@@ -952,12 +968,12 @@ def norm_inputs(shape, dtype, gen, dev, wdtype=torch.float32):
 
 def check_norm_row(key, calls, gen, dev):
     """One census shape: the norm kernels against their plain versions on
-    random inputs of that shape and dtype, and their times. LayerNorm's
-    weight and bias come in the module's dtype (the UNet's bf16: the
-    kernel takes them as they are), GroupNorm's in float32."""
+    random inputs of that shape and dtype, and their times. Weight and
+    bias come in the module's dtype (the UNet's bf16: the kernels take
+    them as they are). Two GroupNorm stats calls must agree bit for bit
+    and leave the arrival counters at zero."""
     kind, where, shape, dtype, silu, groups, eps, wdtype = key
-    x, w, b = norm_inputs(shape, dtype, gen, dev,
-                          wdtype if kind == "layer_norm" else torch.float32)
+    x, w, b = norm_inputs(shape, dtype, gen, dev, wdtype)
     numel, isz = x.numel(), x.element_size()
     big = numel > 50_000_000
     iters = 5 if big else 20
@@ -967,6 +983,15 @@ def check_norm_row(key, calls, gen, dev):
                groups=groups, calls=calls)
     if kind == "group_norm":
         a, bb = N.group_norm_stats(x, w, b, groups, eps)
+        a2, bb2 = N.group_norm_stats(x, w, b, groups, eps)
+        torch.cuda.synchronize()
+        left = int(N._gn_buffers(dev, 0, shape[0])[1].abs().sum())
+        if not (torch.equal(a, a2) and torch.equal(bb, bb2)) or left:
+            raise AssertionError(f"gn_stats at {shape}: repeat equal "
+                                 f"{torch.equal(a, a2)} "
+                                 f"{torch.equal(bb, bb2)}, counters left "
+                                 f"{left}")
+        del a2, bb2
         a_ref, bb_ref = N.group_norm_affine_reference(x, w, b, groups, eps)
         e_a = check_close("gn_stats a", a, a_ref, *AFFINE_TOL)
         e_b = check_close("gn_stats b", bb, bb_ref, *AFFINE_TOL)

@@ -1,7 +1,7 @@
-"""The main path's kernel call shapes (the UNet's GEGLU-FFN, flash-attention
-and LayerNorm calls, the GS scene whose tile lists feed the composite
-kernels) and the timing helpers shared by chip_smoke.py and
-scripts/time_kernels.py.
+"""The main path's kernel call shapes (the UNet's GEGLU-FFN,
+flash-attention, LayerNorm and GroupNorm calls, the GS scene whose tile
+lists feed the composite kernels) and the timing helpers shared by
+chip_smoke.py and scripts/time_kernels.py.
 
 At import it loads torch and numpy only, so that time_kernels.py can take
 it from this checkout and the kernels from another; ``gs_scene`` imports
@@ -29,6 +29,19 @@ ATTN_SHAPES = [(75 * 5, 9216, 5), (75 * 10, 2304, 5), (75 * 20, 576, 5)]
 # LayerNorms each (3 in the spatial block, 4 in the temporal one) = 112.
 LN_SHAPES = [(75 * 9216, 320, 35), (75 * 2304, 640, 35),
              (75 * 576, 1280, 35), (75 * 144, 1280, 7)]
+# (B, S, C, calls, of them with SiLU) of the UNet's GroupNorms per batch-3
+# forward (bf16, bf16 weights, 32 groups): 61 spatial calls (B = 3 x 25
+# frames, S = H x W; the 16 transformers' norms have no SiLU) and 44
+# temporal ones (B = 3, S = 25 x H x W) = 105.
+GN_SHAPES = [
+    (75, 9216, 320, 13, 8), (75, 9216, 640, 2, 2), (75, 9216, 960, 1, 1),
+    (75, 2304, 320, 1, 1), (75, 2304, 640, 11, 6), (75, 2304, 960, 1, 1),
+    (75, 2304, 1280, 1, 1), (75, 2304, 1920, 1, 1),
+    (75, 576, 640, 1, 1), (75, 576, 1280, 11, 6), (75, 576, 1920, 1, 1),
+    (75, 576, 2560, 2, 2),
+    (75, 144, 1280, 12, 11), (75, 144, 2560, 3, 3),
+    (3, 230400, 320, 10, 10), (3, 57600, 640, 10, 10),
+    (3, 14400, 1280, 10, 10), (3, 3600, 1280, 14, 14)]
 # GS main path: bench.py's GS configuration, the CLI's --tile_cap 1024
 GS_W, GS_H, GS_N, GS_CAP = 504, 378, 65_536, 1024
 # shortest timing window, so that it holds several nvidia-smi samples
@@ -47,6 +60,28 @@ def cuda_ms(fn, iters, warmup=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls=20, replays=5):
+    """Device ms a call of ``fn``: ``calls`` calls captured in one CUDA
+    graph and replayed, so that the host's time to issue a call is not in
+    it (``cuda_ms`` of a call shorter than its issue times the host)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
 
 
 def window_iters(*fns):

@@ -34,8 +34,7 @@ from syn3r_tpu_torch.models.svd_unet import \
 CATEGORIES = [
     ("geglu_ffn kernel", ("ffn_wgmma_kernel",)),
     ("flash_attention kernel", ("flash_wgmma_kernel",)),
-    ("group_norm kernels", ("gn_partial_kernel", "gn_fold_kernel",
-                            "gn_apply_kernel")),
+    ("group_norm kernels", ("gn_stats_kernel", "gn_apply_kernel")),
     ("layer_norm kernel", ("layer_norm_kernel",)),
     ("convolution (cuDNN)", ("conv", "cudnn", "implicit", "xmma_fprop",
                              "nchwToNhwc", "nhwcToNchw", "fprop")),

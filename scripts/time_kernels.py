@@ -12,6 +12,12 @@ inputs made from seeds:
     taken from this checkout so that an older checkout is timed at the same
     shapes); LayerNorm with bf16 weight and bias (as the UNet holds them)
     and with float32 ones;
+  * ``gn_stats``, ``gn_apply`` and the whole ``group_norm`` call at the
+    UNet's GroupNorm shapes (GN_SHAPES), bf16 with bf16 weight and bias,
+    32 groups; the apply and the whole call with and without SiLU in the
+    forward's proportion; each also as device time alone (``graph_ms``:
+    calls replayed from a CUDA graph, without the host's issue time that
+    bounds the windows' times at the small shapes);
   * ``composite_fwd`` and ``composite_bwd`` on the GS main path's tile
     lists (``gs_tile_lists``: T 96, px 2048, cap 1024, K 128, projected
     and binned by DIR's code).
@@ -30,8 +36,8 @@ import sys
 
 import torch
 
-from kernel_timing import (ATTN_SHAPES, FFN_SHAPES, LN_SHAPES, SmiSampler,
-                           gs_tile_lists, window_iters)
+from kernel_timing import (ATTN_SHAPES, FFN_SHAPES, GN_SHAPES, LN_SHAPES,
+                           SmiSampler, graph_ms, gs_tile_lists, window_iters)
 
 
 def main():
@@ -47,6 +53,7 @@ def main():
     from syn3r_tpu_torch.ops import composite as TC
     from syn3r_tpu_torch.ops.attention import flash_attention
     from syn3r_tpu_torch.ops.geglu_ffn import geglu_ffn
+    from syn3r_tpu_torch.ops import norm as N
     from syn3r_tpu_torch.ops.norm import layer_norm
 
     dev = torch.device("cuda")
@@ -62,7 +69,10 @@ def main():
 
     rows = []
     per_forward = {"geglu_ffn": 0.0, "flash_attention": 0.0,
-                   "layer_norm": 0.0, "layer_norm_f32_weights": 0.0}
+                   "layer_norm": 0.0, "layer_norm_f32_weights": 0.0,
+                   "gn_stats": 0.0, "gn_apply": 0.0, "group_norm": 0.0,
+                   "gn_stats_graph": 0.0, "gn_apply_graph": 0.0,
+                   "group_norm_graph": 0.0}
     smi = SmiSampler()
     try:
         for r, c, calls in FFN_SHAPES:
@@ -96,6 +106,31 @@ def main():
                                  gb_s=4 * r * c / row["ms"] / 1e6))
                 per_forward[key] += calls * row["ms"]
             del x
+        for b_, s, c, calls, n_silu in GN_SHAPES:
+            x = rnd(b_, s, c, std=1.5)
+            w = rnd(c, std=0.3) + 1.0
+            b = rnd(c, std=0.2)
+            a, bb = N.group_norm_stats(x, w, b, 32, 1e-6)
+            shape = dict(b=b_, s=s, c=c)
+            fn = lambda: N.group_norm_stats(x, w, b, 32, 1e-6)
+            row = dict(timed(fn), graph_ms=graph_ms(fn))
+            rows.append(dict(kernel="gn_stats", **shape, **row,
+                             gb_s=2 * x.numel() / row["graph_ms"] / 1e6))
+            per_forward["gn_stats"] += calls * row["ms"]
+            per_forward["gn_stats_graph"] += calls * row["graph_ms"]
+            for silu, n in ((True, n_silu), (False, calls - n_silu)):
+                if not n:
+                    continue
+                for key, fn in (
+                        ("gn_apply",
+                         lambda: N.group_norm_apply(x, a, bb, silu)),
+                        ("group_norm",
+                         lambda: N.group_norm(x, w, b, 32, 1e-6, silu))):
+                    row = dict(timed(fn), graph_ms=graph_ms(fn))
+                    rows.append(dict(kernel=key, **shape, silu=silu, **row))
+                    per_forward[key] += n * row["ms"]
+                    per_forward[key + "_graph"] += n * row["graph_ms"]
+            del x, a, bb
         torch.cuda.empty_cache()
         tl = gs_tile_lists(dev)
         args_ = (tl.P, tl.G, tl.C, tl.O)

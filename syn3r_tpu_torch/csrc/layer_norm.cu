@@ -43,49 +43,6 @@ constexpr int THREADS = 256;  // = ops/norm.py LN_THREADS
 constexpr int WARPS = THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
 
-// A bf16 pair's low and high halves as float (exact). The asm is
-// volatile so that the compiler keeps each widening where it is used: it
-// would otherwise hoist the parameters' widening out of the row loop (80
-// float registers instead of 40 packed ones) or keep a widened row alive
-// from the statistics to the output pass, and spill.
-__device__ __forceinline__ float bf16_lo(uint32_t u) {
-  uint32_t r;
-  asm volatile("shl.b32 %0, %1, 16;" : "=r"(r) : "r"(u));
-  return __uint_as_float(r);
-}
-
-__device__ __forceinline__ float bf16_hi(uint32_t u) {
-  uint32_t r;
-  asm volatile("and.b32 %0, %1, 0xffff0000;" : "=r"(r) : "r"(u));
-  return __uint_as_float(r);
-}
-
-// 16 bytes as loaded, widened to float.
-template <typename T>
-struct Raw;
-
-template <>
-struct Raw<float> {
-  __device__ __forceinline__ static void widen(const uint4& q, float (&v)[4]) {
-    v[0] = __uint_as_float(q.x);
-    v[1] = __uint_as_float(q.y);
-    v[2] = __uint_as_float(q.z);
-    v[3] = __uint_as_float(q.w);
-  }
-};
-
-template <>
-struct Raw<bf16> {
-  __device__ __forceinline__ static void widen(const uint4& q, float (&v)[8]) {
-    const uint32_t u[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      v[2 * i] = bf16_lo(u[i]);
-      v[2 * i + 1] = bf16_hi(u[i]);
-    }
-  }
-};
-
 // N per-lane columns of a parameter vector, in registers.
 template <typename T, int N>
 struct Params;

@@ -40,11 +40,14 @@ SIGNATURES = {
     # stream
     "composite_bwd": {"syn3r_composite_bwd": [_P] * 12 + [_I] * 4 + [_P]},
     "group_norm": {
-        # x, weight, bias, part, a, b; B, S, C, G; eps; nsplit, threads,
-        # bf16; stream
-        "syn3r_gn_stats": [_P] * 6 + [_I, _LL, _I, _I, _F, _I, _I, _I, _P],
-        # x, a, b, y; B, S, C; silu, bf16; stream
-        "syn3r_gn_apply": [_P] * 4 + [_I, _LL, _I, _I, _I, _P]},
+        # x, weight, bias, part, arrivals, a, b; B, S, C, G; eps; x bf16,
+        # weight bf16, threads, grid; stream
+        "syn3r_gn_stats": [_P] * 7 + [_I, _LL, _I, _I, _F, _I, _I, _I, _I,
+                                      _P],
+        # x, a, b, y; B, S, C; silu, bf16, threads, grid; stream
+        "syn3r_gn_apply": [_P] * 4 + [_I, _LL, _I, _I, _I, _I, _I, _P],
+        # kernel (0 stats, 1 apply), x bf16, variant, threads
+        "syn3r_gn_blocks_per_sm": [_I] * 4},
     # x, weight, bias, y; R, C; eps; x bf16, weight bf16, lanes a row,
     # vectors a lane, grid; stream
     "layer_norm": {"syn3r_layer_norm":

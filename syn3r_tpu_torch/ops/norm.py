@@ -7,11 +7,13 @@ channel-major sums, ``var = E[x^2] - mean^2`` (not Welford), the affine in
 float32, optional fused SiLU (GroupNorm), the output in the input's dtype.
 
 On a CUDA tensor the wrappers launch the hand-written kernels:
-``csrc/group_norm.cu`` (``group_norm_stats``: per-(B, C) sums over S split
-across blocks, then a fixed-order fold to the per-(B, C) affine
-``a = rstd w``, ``b = bias - mean a``; ``group_norm_apply``: ``y = x a + b``
-with the SiLU, one read-write pass) replacing ``_gn_stats_kernel`` and
-``_gn_apply_kernel``, and ``csrc/layer_norm.cu`` (a persistent grid of
+``csrc/group_norm.cu`` (``group_norm_stats``: one launch of per-(B, C)
+sums over equal items of rows on a grid sized to residency, folded by the
+last block of each batch element, in a fixed order, to the per-(B, C)
+affine ``a = rstd w``, ``b = bias - mean a``; ``group_norm_apply``:
+``y = x a + b`` with the SiLU, one read-write pass over the same items;
+their launch plan is ``group_norm_plan``) replacing ``_gn_stats_kernel``
+and ``_gn_apply_kernel``, and ``csrc/layer_norm.cu`` (a persistent grid of
 warps over groups of rows, weight and bias held in registers in their own
 dtype; its launch plan is ``layer_norm_plan``) replacing ``_ln_kernel``.
 On a CPU tensor they run the plain versions. A CUDA tensor never falls
@@ -30,15 +32,22 @@ copied once and counted in ``contiguous_counted.copies``, never silently.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
 from ..kernels import build
 from .geglu_ffn import _num_sms
 
-# a GroupNorm stats grid aims at about eight resident blocks a SM
-_TARGET_BLOCKS = 132 * 8
-_MAX_SPLITS = 256
+# GroupNorm kernels (csrc/group_norm.cu): threads a block are a multiple
+# of lcm(C / vec, 32) between GN_MIN_THREADS and GN_MAX_THREADS; groups the
+# fold takes; items a block at least
+GN_MIN_THREADS = 128
+GN_MAX_THREADS = 512
+GN_MAX_GROUPS = 128
+GN_ITEMS_PER_BLOCK = 4
+GN_KERNELS = ("stats", "apply")
 # LayerNorm kernel (csrc/layer_norm.cu): threads a block, the compiled
 # counts of 16-byte vectors a lane, resident blocks a SM by row dtype
 LN_THREADS = 256
@@ -121,18 +130,22 @@ def layer_norm_reference(x2: torch.Tensor, weight, bias,
 
 # -- kernel wrappers ---------------------------------------------------------
 
+def _vec(dtype: torch.dtype, name: str) -> int:
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} kernel takes float32 or bfloat16, got "
+                        f"{dtype}")
+    return 8 if dtype == torch.bfloat16 else 4
+
+
 def _check_input(name: str, x: torch.Tensor, ndim: int):
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{name} kernel takes float32 or bfloat16, got "
-                        f"{x.dtype}")
+    vec = _vec(x.dtype, name)
     if x.dim() != ndim:
         raise ValueError(f"{name} kernel takes a {ndim}-d tensor, got shape "
                          f"{tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} kernel needs a contiguous input")
-    vec = 8 if x.dtype == torch.bfloat16 else 4
     if x.shape[-1] % vec:
         raise ValueError(f"{name} kernel needs C % {vec} == 0 in {x.dtype}, "
                          f"got C={x.shape[-1]}")
@@ -150,51 +163,184 @@ def _affine_param(t, c: int, device,
     return t
 
 
-def gn_launch_geometry(b: int, s: int, c: int, vec: int):
-    """(threads, nsplit) of the stats kernel: threads tile (rows_par, C/vec)
-    with rows_par = threads / (C/vec); S is split so that the grid holds
-    about _TARGET_BLOCKS blocks and every split at least 4 rows a thread."""
-    ncv = c // vec
-    if ncv > 512:
-        raise ValueError(f"group_norm kernel takes C <= {512 * vec} in this "
-                         f"dtype, got C={c}")
-    threads = -(-ncv * max(1, 256 // ncv) // 32) * 32
-    rows_par = threads // ncv
-    nsplit = max(1, min(-(-_TARGET_BLOCKS // b), -(-s // (rows_par * 4)),
-                        _MAX_SPLITS))
-    return threads, nsplit
+def _launch(name: str, fn_name: str | None, device, *args) -> int:
+    """Calls kernel entry ``fn_name`` of library ``name`` on ``device``'s
+    current stream, each tensor of ``args`` as its device pointer; returns
+    the cudaError."""
+    return build.entry(name, fn_name)(
+        *(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args),
+        torch.cuda.current_stream(device).cuda_stream)
+
+
+def group_norm_threads(c: int, dtype: torch.dtype, kernel: str) -> int:
+    """Threads a block of GroupNorm kernel ``kernel`` ("stats" or "apply"):
+    a multiple of lcm(C/vec, 32), so that no lane idles and each thread
+    keeps one window of vec channels. The stats take the largest up to
+    GN_MAX_THREADS (fewer blocks, fewer partials for the fold), the apply
+    the smallest from GN_MIN_THREADS (more resident blocks)."""
+    if kernel not in GN_KERNELS:
+        raise ValueError(f"group_norm kernel is one of {GN_KERNELS}, got "
+                         f"{kernel!r}")
+    vec = _vec(dtype, "group_norm")
+    if c < 1 or c % vec:
+        raise ValueError(f"group_norm kernel needs C % {vec} == 0 in "
+                         f"{dtype}, got C={c}")
+    unit = math.lcm(c // vec, 32)
+    if unit > GN_MAX_THREADS:
+        raise ValueError(f"group_norm kernel takes C with lcm(C/{vec}, 32) "
+                         f"<= {GN_MAX_THREADS} in {dtype}, got C={c}")
+    if kernel == "stats":
+        return unit * (GN_MAX_THREADS // unit)
+    return unit * -(-GN_MIN_THREADS // unit)
+
+
+def group_norm_plan(b: int, s: int, c: int, dtype: torch.dtype,
+                    num_sms: int, blocks_per_sm: int, kernel: str = "stats",
+                    groups: int = 32) -> dict:
+    """Launch plan of GroupNorm kernel ``kernel`` for x (b, s, c) of
+    ``dtype`` on a card with ``num_sms`` SMs that keeps ``blocks_per_sm``
+    of its blocks resident: ``threads`` (``group_norm_threads``), ``rows``
+    rows a pass (threads / (C/vec)), an item = one pass over ``rows`` rows
+    of one batch element (``items_per_b`` a batch element, ``items`` in
+    all), a 1-D ``grid`` of at most the resident blocks with at least
+    GN_ITEMS_PER_BLOCK items a block, the stats kernel's float32 scratch
+    of ``slots`` (2, C) partials, its ``counters`` (one int32 a batch
+    element) and its dynamic shared memory ``smem`` in bytes. Raises on
+    what the kernels do not take."""
+    threads = group_norm_threads(c, dtype, kernel)
+    if groups < 1 or c % groups:
+        raise ValueError(f"group_norm kernel needs C % G == 0, got C={c} "
+                         f"G={groups}")
+    if groups > GN_MAX_GROUPS:
+        raise ValueError(f"group_norm kernel folds G <= {GN_MAX_GROUPS} "
+                         f"groups, got G={groups}")
+    if b < 1 or s < 1:
+        raise ValueError(f"group_norm kernel needs B, S >= 1, got {b}, {s}")
+    vec = _vec(dtype, "group_norm")
+    rows = threads // (c // vec)
+    items_per_b = -(-s // rows)
+    items = b * items_per_b
+    grid = max(1, min(num_sms * blocks_per_sm, items // GN_ITEMS_PER_BLOCK))
+    return dict(vec=vec, threads=threads, rows=rows, items_per_b=items_per_b,
+                items=items, grid=grid, slots=grid + b - 1, counters=b,
+                smem=threads * vec * 8 if kernel == "stats" else 0)
+
+
+def _item_block(i: int, plan: dict) -> int:
+    return ((i + 1) * plan["grid"] - 1) // plan["items"]
+
+
+def group_norm_segments(plan: dict, s: int, k: int) -> list:
+    """Plain mirror of the kernels' walk: the (batch element, first row,
+    end row, partial slot) segments that block ``k`` of ``plan`` takes, in
+    order, for S = ``s``."""
+    i = k * plan["items"] // plan["grid"]
+    i1 = (k + 1) * plan["items"] // plan["grid"]
+    ipb, rows, out = plan["items_per_b"], plan["rows"], []
+    while i < i1:
+        b = i // ipb
+        e = min(i1, (b + 1) * ipb)
+        out.append((b, (i - b * ipb) * rows, min(s, (e - b * ipb) * rows),
+                    k + b))
+        i = e
+    return out
+
+
+def group_norm_parts(plan: dict, b: int) -> range:
+    """Plain mirror of the fold: the partial slots of batch element ``b``,
+    in the order the last block to arrive sums them."""
+    first = _item_block(b * plan["items_per_b"], plan)
+    last = _item_block((b + 1) * plan["items_per_b"] - 1, plan)
+    return range(first + b, last + b + 1)
+
+
+_gn_blocks: dict = {}
+_gn_plans: dict = {}
+_gn_scratch: dict = {}
+
+
+def _gn_resident(which: int, dtype, variant: bool, threads: int,
+                 device) -> tuple[int, int]:
+    """(SMs, resident blocks a SM) of GroupNorm kernel ``which`` (0 stats,
+    1 apply) on ``device``: cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+    asked once a (device, kernel, dtype, variant, threads)."""
+    key = (device, which, dtype, variant, threads)
+    if key not in _gn_blocks:
+        with torch.cuda.device(device):
+            n = build.entry("group_norm", "syn3r_gn_blocks_per_sm")(
+                which, int(dtype == torch.bfloat16), int(variant), threads)
+        if n < 1:
+            raise RuntimeError(f"group_norm kernel {which}: occupancy query "
+                               f"gave {n}")
+        _gn_blocks[key] = (_num_sms(device), n)
+    return _gn_blocks[key]
+
+
+def _gn_launch_plan(which: int, x3: torch.Tensor, variant: bool,
+                    groups: int) -> dict:
+    """``group_norm_plan`` of kernel ``which`` for ``x3`` on its card,
+    made once a (device, kernel, shape, dtype, variant, groups)."""
+    key = (x3.device, which, tuple(x3.shape), x3.dtype, variant, groups)
+    plan = _gn_plans.get(key)
+    if plan is None:
+        b, s, c = x3.shape
+        kernel = GN_KERNELS[which]
+        threads = group_norm_threads(c, x3.dtype, kernel)
+        plan = group_norm_plan(b, s, c, x3.dtype, *_gn_resident(
+            which, x3.dtype, variant, threads, x3.device), kernel=kernel,
+            groups=groups)
+        _gn_plans[key] = plan
+    return plan
+
+
+def _gn_buffers(device, n_part: int, b: int):
+    """The stats kernel's scratch on ``device``: float32 partials (at least
+    ``n_part`` values) and int32 arrival counters (at least ``b``), kept
+    between calls. The kernel leaves the counters at zero and reads only
+    the partials its own launch wrote: one stream, as the whole port."""
+    part, counters = _gn_scratch.get(device, (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty(max(n_part, 1 << 20), dtype=torch.float32,
+                           device=device)
+    if counters is None or counters.numel() < b:
+        counters = torch.zeros(max(b, 128), dtype=torch.int32, device=device)
+    _gn_scratch[device] = (part, counters)
+    return part, counters
+
+
+def _gn_params(weight, bias, c: int, device):
+    """Weight and bias as the stats kernel takes them: in their own dtype
+    where both are bf16 or both float32 (widened in the fold, no cast
+    launch), else float32."""
+    wdt = (weight.dtype if weight.dtype == bias.dtype
+           and weight.dtype in (torch.float32, torch.bfloat16)
+           else torch.float32)
+    return _affine_param(weight, c, device, wdt), \
+        _affine_param(bias, c, device, wdt)
 
 
 def group_norm_stats(x3: torch.Tensor, weight, bias, num_groups: int,
                      eps: float):
     """The per-(B, C) float32 affine (a, b) of GroupNorm: the stats
-    kernels for a CUDA tensor, the plain version for a CPU tensor."""
+    kernel for a CUDA tensor, the plain version for a CPU tensor."""
     if x3.device.type == "cpu":
         return group_norm_affine_reference(x3, weight, bias, num_groups, eps)
-    vec = _check_input("group_norm", x3, 3)
+    _check_input("group_norm", x3, 3)
     b, s, c = x3.shape
-    if c % num_groups or c // num_groups > 256:
-        raise ValueError(f"group_norm kernel needs C % G == 0 and C/G <= 256, "
-                         f"got C={c} G={num_groups}")
-    if b > 65535:
-        raise ValueError(f"group_norm kernel takes B <= 65535, got {b}")
-    w = _affine_param(weight, c, x3.device)
-    bi = _affine_param(bias, c, x3.device)
-    threads, nsplit = gn_launch_geometry(b, s, c, vec)
-    part = torch.empty((b, nsplit, 2, c), dtype=torch.float32,
-                       device=x3.device)
-    a = torch.empty((b, c), dtype=torch.float32, device=x3.device)
-    bb = torch.empty((b, c), dtype=torch.float32, device=x3.device)
-    err = build.entry("group_norm", "syn3r_gn_stats")(
-        x3.data_ptr(), w.data_ptr(), bi.data_ptr(), part.data_ptr(),
-        a.data_ptr(), bb.data_ptr(), b, s, c, num_groups, float(eps),
-        nsplit, threads, int(x3.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x3.device).cuda_stream)
+    w, bi = _gn_params(weight, bias, c, x3.device)
+    w_bf16 = w.dtype == torch.bfloat16
+    plan = _gn_launch_plan(0, x3, w_bf16, num_groups)
+    part, counters = _gn_buffers(x3.device, plan["slots"] * 2 * c, b)
+    ab = torch.empty((2, b, c), dtype=torch.float32, device=x3.device)
+    err = _launch("group_norm", "syn3r_gn_stats", x3.device, x3, w, bi,
+                  part, counters, ab[0], ab[1], b, s, c, num_groups,
+                  float(eps), int(x3.dtype == torch.bfloat16), int(w_bf16),
+                  plan["threads"], plan["grid"])
     if err != 0:
         raise RuntimeError(f"group_norm stats kernel launch failed: "
                            f"cudaError {err}")
     group_norm.launches["stats"] += 1
-    return a, bb
+    return ab[0], ab[1]
 
 
 def group_norm_apply(x3: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -210,11 +356,11 @@ def group_norm_apply(x3: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                 or not t.is_contiguous() or t.device != x3.device):
             raise ValueError(f"group_norm apply: {name} must be float32 "
                              f"({bsz}, {c}) on {x3.device}")
+    plan = _gn_launch_plan(1, x3, silu, 1)
     y = torch.empty_like(x3)
-    err = build.entry("group_norm", "syn3r_gn_apply")(
-        x3.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, s, c,
-        int(silu), int(x3.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x3.device).cuda_stream)
+    err = _launch("group_norm", "syn3r_gn_apply", x3.device, x3, a, b, y,
+                  bsz, s, c, int(silu), int(x3.dtype == torch.bfloat16),
+                  plan["threads"], plan["grid"])
     if err != 0:
         raise RuntimeError(f"group_norm apply kernel launch failed: "
                            f"cudaError {err}")
@@ -273,11 +419,10 @@ def _layer_norm_forward(x2: torch.Tensor, weight, bias,
     bi = _affine_param(bias, c, x2.device, wdt)
     plan = layer_norm_plan(r, c, x2.dtype, _num_sms(x2.device))
     y = torch.empty_like(x2)
-    err = build.entry("layer_norm")(
-        x2.data_ptr(), w.data_ptr(), bi.data_ptr(), y.data_ptr(), r, c,
-        float(eps), int(x2.dtype == torch.bfloat16),
-        int(wdt == torch.bfloat16), plan["lanes"], plan["vectors"],
-        plan["grid"], torch.cuda.current_stream(x2.device).cuda_stream)
+    err = _launch("layer_norm", None, x2.device, x2, w, bi, y, r, c,
+                  float(eps), int(x2.dtype == torch.bfloat16),
+                  int(wdt == torch.bfloat16), plan["lanes"],
+                  plan["vectors"], plan["grid"])
     if err != 0:
         raise RuntimeError(f"layer_norm kernel launch failed: cudaError "
                            f"{err}")

@@ -1,10 +1,12 @@
 """Host-side launch plans of the port's GEGLU-FFN, flash-attention,
-composite-backward and LayerNorm kernels, on the CPU: the tile and grid
-choices, the TMA tensor-map geometry and the scratch the wrappers hand to
-the CUDA code, what they copy, and what they refuse. The kernels themselves
-run only on the card (chip_smoke.py); these are the plain-Python parts of
-their wrappers.
+composite-backward, LayerNorm and GroupNorm kernels, on the CPU: the tile
+and grid choices, the TMA tensor-map geometry and the scratch the wrappers
+hand to the CUDA code, what they copy, and what they refuse. The kernels
+themselves run only on the card (chip_smoke.py); these are the
+plain-Python parts of their wrappers.
 """
+import math
+
 import pytest
 import torch
 
@@ -12,6 +14,7 @@ from syn3r_tpu_torch.ops import attention as A
 from syn3r_tpu_torch.ops import composite as TC
 from syn3r_tpu_torch.ops import geglu_ffn as G
 from syn3r_tpu_torch.ops import norm as N
+from scripts.kernel_timing import GN_SHAPES
 
 H100_SMS = 132
 
@@ -247,3 +250,124 @@ def test_plans_decide_nothing_about_a_card():
     assert A.flash_grid(1, 1, 1, 1) == 1
     assert TC.composite_bwd_plan(1, 1, 1, 1)["grid"] == (1, 1, 1)
     assert N.layer_norm_plan(1, 8, torch.bfloat16, 1)["grid"] == 1
+    assert N.group_norm_plan(1, 1, 8, torch.bfloat16, 1, 1,
+                             groups=1)["grid"] == 1
+
+
+# the VAE's float32 GroupNorms: encode of 25 frames at 576x1024 (C = 128,
+# 256, 512 down the levels) and a decode chunk of 8 frames
+VAE_GN_SHAPES = [(25, 576 * 1024, 128), (25, 288 * 512, 256),
+                 (25, 144 * 256, 512), (25, 72 * 128, 512),
+                 (8, 576 * 1024, 128), (8, 288 * 512, 256)]
+GN_CASES = ([(b, s, c, torch.bfloat16) for b, s, c, _, _ in GN_SHAPES]
+            + [(b, s, c, torch.float32) for b, s, c in VAE_GN_SHAPES])
+
+
+def _gn_plan(b, s, c, dtype, kernel="stats", sms=H100_SMS):
+    """The plan with 2048 resident threads a SM (the occupancy query's
+    answer stands in for the card's)."""
+    threads = N.group_norm_threads(c, dtype, kernel)
+    return N.group_norm_plan(b, s, c, dtype, sms, 2048 // threads,
+                             kernel=kernel)
+
+
+@pytest.mark.parametrize("kernel", N.GN_KERNELS)
+@pytest.mark.parametrize("b, s, c, dtype", GN_CASES)
+def test_group_norm_plan_has_no_idle_lane(b, s, c, dtype, kernel):
+    """Each thread keeps one window of vec channels for the whole launch:
+    threads a multiple of 32 and of C/vec; the stats take the most such
+    threads up to 512, the apply the fewest from 128."""
+    plan = _gn_plan(b, s, c, dtype, kernel)
+    vec = 8 if dtype == torch.bfloat16 else 4
+    unit = plan["threads"] // plan["rows"]
+    assert plan["vec"] == vec and unit == c // vec
+    assert plan["threads"] % 32 == 0 and plan["threads"] % unit == 0
+    lcm = math.lcm(unit, 32)
+    if kernel == "stats":
+        assert 512 - lcm < plan["threads"] <= 512
+        assert plan["smem"] == plan["threads"] * vec * 8 <= 48 * 1024
+    else:
+        assert 128 <= plan["threads"] < 128 + lcm and plan["smem"] == 0
+
+
+@pytest.mark.parametrize("c, stats, apply", [
+    (320, 480, 160), (640, 480, 160), (1280, 480, 160), (960, 480, 480),
+    (1920, 480, 480), (2560, 320, 320), (64, 512, 128), (192, 480, 192)])
+def test_group_norm_threads_at_unet_widths(c, stats, apply):
+    assert N.group_norm_threads(c, torch.bfloat16, "stats") == stats
+    assert N.group_norm_threads(c, torch.bfloat16, "apply") == apply
+
+
+@pytest.mark.parametrize("kernel", N.GN_KERNELS)
+@pytest.mark.parametrize("b, s, c, dtype", GN_CASES)
+def test_group_norm_plan_grid_fits_residency(b, s, c, dtype, kernel):
+    """At least four items a block, on at most the resident blocks: the
+    UNet's and the VAE's shapes all fill every slot."""
+    plan = _gn_plan(b, s, c, dtype, kernel)
+    slots = H100_SMS * (2048 // plan["threads"])
+    assert plan["items"] == b * plan["items_per_b"]
+    assert plan["items_per_b"] == -(-s // plan["rows"])
+    assert plan["items"] >= 4 * plan["grid"]
+    assert plan["grid"] == slots
+    assert plan["slots"] == plan["grid"] + b - 1 and plan["counters"] == b
+
+
+@pytest.mark.parametrize("kernel", N.GN_KERNELS)
+@pytest.mark.parametrize("b, s, c, dtype", [
+    (75, 144, 2560, torch.bfloat16), (3, 3600, 1280, torch.bfloat16),
+    (75, 9216, 320, torch.bfloat16), (3, 230400, 320, torch.bfloat16),
+    (25, 72 * 128, 512, torch.float32),
+    (5, 37, 64, torch.bfloat16),      # a short last item in every batch
+    (2, 1, 192, torch.bfloat16)])     # fewer items than blocks a SM
+def test_group_norm_walk_covers_each_row_once(b, s, c, dtype, kernel):
+    """The kernels' walk (mirrored by group_norm_segments) covers each row
+    of each batch element exactly once, block loads differ by at most one
+    item, and the partial slots of a batch element are the fold's
+    (group_norm_parts): unique, in block order, within the scratch."""
+    plan = _gn_plan(b, s, c, dtype, kernel)
+    covered = {bb: [] for bb in range(b)}
+    slots, loads = [], []
+    for k in range(plan["grid"]):
+        segs = N.group_norm_segments(plan, s, k)
+        assert segs, f"block {k} has no item"
+        loads.append(sum(-(-(s1 - s0) // plan["rows"])
+                         for _, s0, s1, _ in segs))
+        for bb, s0, s1, slot in segs:
+            covered[bb].append((s0, s1))
+            slots.append((bb, slot))
+    assert max(loads) - min(loads) <= 1
+    for bb, spans in covered.items():
+        spans.sort()
+        assert spans[0][0] == 0 and spans[-1][1] == s
+        assert all(e == s0 for (_, e), (s0, _) in zip(spans, spans[1:]))
+        assert [sl for x, sl in slots if x == bb] == \
+            list(N.group_norm_parts(plan, bb))
+    assert len({sl for _, sl in slots}) == len(slots)
+    assert max(sl for _, sl in slots) < plan["slots"]
+
+
+def test_group_norm_plan_scratch_at_the_temporal_shape():
+    """(3, 230400, 320) bf16 stats: 480 threads, 12 rows a pass, 57,600
+    items on 132 x 2 resident blocks (the H100's occupancy at 480
+    threads); 266 float32 (2, 320) partials (0.68 MB) and 3 counters."""
+    plan = N.group_norm_plan(3, 230400, 320, torch.bfloat16, H100_SMS, 2)
+    assert (plan["threads"], plan["rows"], plan["items"], plan["grid"]) == \
+        (480, 12, 57600, 264)
+    assert plan["slots"] == 266 and plan["counters"] == 3
+    assert plan["smem"] == 480 * 8 * 8
+
+
+@pytest.mark.parametrize("c, dtype, groups, err, match", [
+    (64, torch.float16, 32, TypeError, "float32 or bfloat16"),
+    (64, torch.bfloat16, 32, ValueError, "one of"),     # no such kernel
+    (12, torch.bfloat16, 4, ValueError, "C % 8"),
+    (6, torch.float32, 2, ValueError, "C % 4"),
+    (320, torch.bfloat16, 48, ValueError, "C % G"),
+    (1024, torch.float32, 256, ValueError, "G <= 128"),
+    (264, torch.bfloat16, 33, ValueError, "lcm"),     # 33 vectors a row
+    (8192, torch.bfloat16, 32, ValueError, "lcm")])
+def test_group_norm_plan_refuses(c, dtype, groups, err, match):
+    kernel = "fold" if match == "one of" else "stats"
+    with pytest.raises(err, match=match):
+        N.group_norm_plan(3, 64, c, dtype, H100_SMS, 4, kernel=kernel,
+                          groups=groups)

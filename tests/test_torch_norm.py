@@ -197,15 +197,51 @@ def test_cuda_wrappers_never_take_the_plain_version():
     (75, 144, 2560, 8), (75, 2304, 1920, 8), (3, 230400, 320, 8),
     (8, 589824, 128, 4), (1, 4718592, 128, 8), (25, 576, 512, 4)])
 def test_group_norm_launch_geometry(b, s, c, vec):
-    """The stats grid at every main-path shape: whole rows of C/vec
-    vectors per thread row, S split across blocks (the temporal norm's
-    B = 3 alone would give 3 blocks), partial slices of >= 4 rows a
-    thread."""
-    threads, nsplit = N.gn_launch_geometry(b, s, c, vec)
+    """The GroupNorm plan at main-path shapes: whole rows of C/vec vectors
+    a thread row with no idle lane, the rows cut into items of one pass,
+    at least four items a block on a grid of at most the resident blocks
+    (the temporal norm's B = 3 fills the card as B = 75 does)."""
+    dtype = torch.bfloat16 if vec == 8 else torch.float32
     ncv = c // vec
-    assert threads % 32 == 0 and ncv <= threads <= 512
-    rows_par = threads // ncv
-    assert 1 <= nsplit <= 256 and -(-s // nsplit) >= min(s, 4 * rows_par)
-    assert b * nsplit >= min(132, b * -(-s // (4 * rows_par)))
-    with pytest.raises(ValueError, match="C <="):
-        N.gn_launch_geometry(1, 16, 8192, 8)
+    for kernel in N.GN_KERNELS:
+        threads = N.group_norm_threads(c, dtype, kernel)
+        resident = 2048 // threads
+        plan = N.group_norm_plan(b, s, c, dtype, 132, resident, kernel)
+        assert plan["vec"] == vec and plan["threads"] == threads
+        assert threads % 32 == 0 and threads % ncv == 0 and threads <= 512
+        assert plan["rows"] == threads // ncv
+        assert plan["items"] == b * -(-s // plan["rows"])
+        assert plan["items"] >= 4 * plan["grid"]
+        assert plan["grid"] == min(132 * resident, plan["items"] // 4)
+    with pytest.raises(ValueError, match="C/"):
+        N.group_norm_plan(1, 16, 8192, torch.bfloat16, 132, 4)
+
+
+def test_group_norm_wrapper_passes_bf16_weights_uncast(monkeypatch):
+    """The stats launch takes a bf16 weight and bias as they are (widened
+    in the kernel's fold, no cast launch) with its bf16 flag set, and a
+    float32 pair as float32; mixed dtypes go as float32. Runs the wrapper
+    on meta tensors with the launch recorded, not made."""
+    got = []
+    monkeypatch.setattr(N, "_check_input", lambda name, x, ndim: 8)
+    monkeypatch.setattr(N, "_gn_resident", lambda *a: (132, 6))
+    monkeypatch.setattr(N, "_launch", lambda *a: got.append(a) or 0)
+    x = torch.empty((75, 144, 1280), dtype=torch.bfloat16, device="meta")
+    for wdt, bdt, want in ((torch.bfloat16, torch.bfloat16, torch.bfloat16),
+                           (torch.float32, torch.float32, torch.float32),
+                           (torch.bfloat16, torch.float32, torch.float32)):
+        got.clear()
+        w = torch.empty(1280, dtype=wdt, device="meta")
+        bias = torch.empty(1280, dtype=bdt, device="meta")
+        N.group_norm_stats(x, w, bias, 32, 1e-6)
+        (name, fn, _, xa, wa, ba, *rest), = got
+        assert (name, fn) == ("group_norm", "syn3r_gn_stats") and xa is x
+        assert wa.dtype == ba.dtype == want
+        plan = N.group_norm_plan(75, 144, 1280, torch.bfloat16, 132, 6,
+                                 "stats")
+        part, counters = rest[0], rest[1]
+        assert part.dtype == torch.float32
+        assert part.numel() >= plan["slots"] * 2 * 1280
+        assert counters.dtype == torch.int32 and counters.numel() >= 75
+        assert rest[-4:] == [1, int(want == torch.bfloat16),
+                             plan["threads"], plan["grid"]]
