@@ -49,11 +49,15 @@ Phases, one result line each; any failure raises and the exit code is not 0:
   6. kernels  the tile-composite forward and backward kernels against their
               plain versions at the GS main path's shapes (T 96 tiles,
               px 2048, cap 1024, K 128), on G/C/O from projecting and binning
-              the full-size scene; two backward calls must agree bit for bit,
-              and the backward's skip test must skip no (entry, warp
-              rectangle) with a pixel whose alpha reaches 1/255 (the fraction
-              it removed is reported); then the kernel route's parameter
-              gradients against autograd through the plain composite.
+              the full-size scene; two forward and two backward calls must
+              agree bit for bit, and each kernel's skip bits must skip no
+              (entry, warp rectangle) with a pixel whose alpha reaches 1/255,
+              keep none below 1/255 opacity and equal the plain mirror
+              reach_mask (the fraction removed is reported); the forward
+              also on lists the path does not give it (K 24 in 42 chunks,
+              px 1536, pixel features that turn the skip off), each held
+              the same way; then the kernel route's parameter gradients
+              against autograd through the plain composite.
   7. gs_small one GS train step on the card through the kernels against the
               same step on the CPU through the plain versions.
   8. gs       the GS trainer at full size: 504x378, 65,536 Gaussians in
@@ -563,7 +567,7 @@ def composite_pairs(tl):
 
 
 def skip_report(tl, keep):
-    """The backward kernel's keep bits ``keep`` (TC.keep_words_to_mask
+    """A composite kernel's keep bits ``keep`` (TC.keep_words_to_mask
     layout) on the tile lists ``tl``: (entry, warp rectangle) pairs with
     opacity >= 1/255, how many the kernel kept, how many it skipped though
     some pixel of the rectangle has alpha >= 1/255 (must be 0), and its
@@ -602,6 +606,46 @@ def param_grads(state, cam, target, composite, cap):
     return dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
 
 
+def check_fwd_variants(state, cam, tl):
+    """The forward kernel on lists the GS main path does not give it, each
+    against the plain version within COMPOSITE_TOL["fwd"] and with the
+    skip report of the main path: K 24 with lists padded to 42 chunks
+    (1008 entries, not a multiple of 32), tiles of 24 x 64 (px 1536, a
+    ragged last block of the backward's layout), and pixel features that
+    are not [x^2, xy, y^2, x, y, 1] (the skip test off)."""
+    with torch.no_grad():
+        sg = RZ.project_gaussians(state, cam)
+        lists = {
+            "K 24, 42 chunks": RZ.bin_tiles(sg, cam.height, cam.width,
+                                            cap=1000, chunk=24),
+            "px 1536": RZ.bin_tiles(sg, cam.height, cam.width, tile_h=24,
+                                    cap=GS_CAP, chunk=128)}
+    P = tl.P.clone()
+    P[0] += 1e-3
+    lists["P not features"] = tl._replace(P=P)
+    rows = {}
+    for what, v in lists.items():
+        args = (v.P, v.G, v.C, v.O)
+        out, ltc, keep = TC.composite_fwd_launch(*args, v.K, keep_bits=True)
+        out_ref, ltc_ref = TC.composite_fwd_reference(*args, v.K)
+        torch.cuda.synchronize()
+        errs = [check_close(f"composite_fwd ({what}) {n}", a, b,
+                            *COMPOSITE_TOL["fwd"])
+                for n, a, b in (("out", out, out_ref), ("ltc", ltc, ltc_ref))]
+        skip = skip_report(v, TC.keep_words_to_mask(keep, v.K))
+        if (skip["skipped_with_hit"] or skip["kept_outside_opaque"]
+                or skip["mirror_disagreements"]):
+            raise AssertionError(f"composite_fwd ({what}) skip test: {skip}")
+        rows[what] = dict(shape=list(v.G.shape), px=v.P.shape[1], K=v.K,
+                          max_abs_err=max(e[0] for e in errs),
+                          removed_fraction=skip["removed_fraction"])
+        say("kernels", name="composite_fwd", what=what, **rows[what])
+    if rows["P not features"]["removed_fraction"] != 0.0:
+        raise AssertionError("composite_fwd skipped entries at pixel "
+                             "features that are not exact")
+    return rows
+
+
 def check_composite(dev):
     """Both composite kernels against their plain versions on the
     full-size scene's tile lists, then the kernel route's gradients against
@@ -613,13 +657,30 @@ def check_composite(dev):
     if (T, px, cap, K) != (96, 2048, 1024, 128):
         raise AssertionError(f"composite shape {(T, px, cap, K)}")
     args = (tl.P, tl.G, tl.C, tl.O)
-    out, ltc = TC.composite_fwd(*args, K)
+    out, ltc, keep_fwd = TC.composite_fwd_launch(*args, K, keep_bits=True)
     out_ref, ltc_ref = TC.composite_fwd_reference(*args, K)
     torch.cuda.synchronize()
     e_out = check_close("composite_fwd out", out, out_ref,
                         *COMPOSITE_TOL["fwd"])
     e_ltc = check_close("composite_fwd ltc", ltc, ltc_ref,
                         *COMPOSITE_TOL["fwd"])
+    # deterministic: a second call on the same inputs, bit for bit
+    again = TC.composite_fwd_launch(*args, K, keep_bits=True)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip((out, ltc, keep_fwd),
+                                                  again)):
+        raise AssertionError("composite_fwd: two calls differ")
+    # the autograd forward's call, which stores no keep bits
+    if not all(torch.equal(a, b) for a, b in zip(
+            (out, ltc), TC.composite_fwd(*args, K))):
+        raise AssertionError("composite_fwd: differs without keep bits")
+    skip_fwd = skip_report(tl, TC.keep_words_to_mask(keep_fwd, K))
+    say("kernels", name="composite_fwd", what="skip test", **skip_fwd)
+    if (skip_fwd["skipped_with_hit"] or skip_fwd["kept_outside_opaque"]
+            or skip_fwd["mirror_disagreements"]):
+        raise AssertionError(f"composite_fwd skip test: {skip_fwd}")
+    variants = check_fwd_variants(state, cam, tl)
+    del again
     g = torch.Generator(device=dev).manual_seed(5)
     dout = torch.randn((T, 6, px), generator=g, device=dev)
     got = TC.composite_bwd(*args, ltc_ref, dout, K)
@@ -664,7 +725,9 @@ def check_composite(dev):
             sfu_ms=1e3 * sfu / PEAK_SFU_OPS)
         say("kernels", name=name, **rows[name])
 
+    rows["composite_fwd"]["skip"] = skip_fwd
     rows["composite_bwd"]["skip"] = skip
+    rows["composite_fwd"]["variants"] = variants
 
     # the kernel route's gradients against autograd through the plain
     # composite, every parameter field, on the same scene
@@ -1187,8 +1250,9 @@ def main():
             **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                  "bound_by", "library_ms")},
             "per": "one call at T 96, px 2048, cap 1024, K 128"})
-    kernels[-1]["skip_removed_fraction"] = comp["composite_bwd"]["skip"][
-        "removed_fraction"]
+    for k in kernels[-2:]:
+        k["skip_removed_fraction"] = comp[k["name"]]["skip"][
+            "removed_fraction"]
     kernels += norm_entries(norm_rows, unit["forwards"], scene["launches"])
     for k in kernels:
         k["launches_by_phase"] = {p: c.get(k["name"], 0)

@@ -31,38 +31,20 @@
 //    and forms s_c from those tots in the order above, so it carries the
 //    bits of a sequential walk. Grid (px / 1024, n_chunks, T): 1536 blocks
 //    of 256 threads at the main path's size.
-//  * Four pixels a thread: lane l of warp w owns column 32 (w & 1) + l of
-//    rows 4 (w >> 1) .. +3 of a 16 x 64 pixel block (pixel p = row * 64 +
-//    column, the tile's layout), so a warp covers a 4 x 32 rectangle. An
-//    entry is read from shared memory once per thread (staged entry-major,
-//    16 floats an entry: three 128-bit broadcast loads), the thread sums its
-//    four pixels' twelve gradient terms in registers, and the warp folds
-//    its lanes with one 16-slot reduce-scatter (15 shuffles) per entry: a
-//    quarter of the shuffles of one pixel a thread. The gradient loop is
-//    branch-free over the four pixels (a pair below 1/255 computes with
-//    alpha 0 and adds exact zeros), so their chains interleave.
-//  * Exact skip of entries that cannot reach a warp's pixels. When the tot
-//    kernel stages its chunk, each entry is tested once per warp against
-//    the rectangle spanned by the warp's pixels, from G and O alone (the 3
-//    sigma box of the binning is not conservative: at opacity 0.99 alpha
-//    reaches 1/255 at 3.3 sigma). power = G . [x^2, xy, y^2, x, y, 1] is a
-//    quadratic; where it is strictly concave its maximum over the rectangle
-//    is at the centre if that lies inside, else at the clamped vertex of
-//    one of the four edges. The entry is skipped for the warp when
-//    O exp(max power) stays below 1/255 by a margin that covers the float
-//    rounding of the kernel's own power (1e-6 of the sum of |G_f P_f|, six
-//    roundings are at most 3.6e-7 of it) and the error of __expf and of the
-//    product (1e-5 in the log domain; see Numerics). The test runs in
-//    double, its per-entry part (the centre, 1 / 2a, 1 / 2c,
-//    log(1/255 / O)) once per entry. It is only
-//    taken where every pixel of the warp has P = [x^2, xy, y^2, x, y, 1]
-//    exactly (else every entry with opacity >= 1/255 is kept). A skipped
-//    pair has alpha cut to 0 at every pixel, which contributes exactly
-//    nothing to any output or to the transmittance: the result is the one
-//    without the skip. The tot kernel writes its keep bits (T, n_chunks,
-//    n_blocks, 8 warps, 4 words of 32 entries) and the gradient kernel
-//    reads them. On the gs cell it keeps 34.9% of the (entry, rectangle)
-//    pairs with opacity >= 1/255 (chip_smoke.py reports the fraction).
+//  * Four pixels a thread, a warp a 4 x 32 pixel rectangle, entries staged
+//    entry-major (composite_common.cuh). The thread sums its four pixels'
+//    twelve gradient terms in registers, and the warp folds its lanes with
+//    one 16-slot reduce-scatter (15 shuffles) per entry: a quarter of the
+//    shuffles of one pixel a thread. The gradient loop is branch-free over
+//    the four pixels (a pair below 1/255 computes with alpha 0 and adds
+//    exact zeros), so their chains interleave.
+//  * The exact skip of entries that cannot reach a warp's pixels, the
+//    rectangle test of composite_common.cuh (the forward takes the same
+//    one). The tot kernel runs it when it stages its chunk and writes its
+//    keep bits (T, n_chunks, n_blocks, 8 warps, 4 words of 32 entries); the
+//    gradient kernel reads them. On the gs cell it keeps 34.9% of the
+//    (entry, rectangle) pairs with opacity >= 1/255 (chip_smoke.py reports
+//    the fraction).
 //  * Staging: each block stages one chunk once (12 x K floats, coalesced
 //    global reads), so there is no chunk stream to double-buffer; blocks
 //    resident beside it (three a SM for the tot kernel, two for the
@@ -92,24 +74,14 @@
 
 #include "composite_common.cuh"
 
-#include <stdint.h>
-
 using namespace syn3r;
 
 namespace {
 
 constexpr int THREADS = 256;  // = ops/composite.py BWD_THREADS
 constexpr int WARPS = THREADS / 32;
-constexpr int PXT = 4;                      // pixels a thread (rows)
-constexpr int ROW = 64;                     // columns of a pixel row
 constexpr int BLOCK_PX = THREADS * PXT;     // 1024: 16 rows of 64
-constexpr int KMAX = 128;                   // entries a chunk at most
-constexpr int WORDS = KMAX / 32;            // keep words a warp and chunk
-constexpr int ESTRIDE = 16;                 // floats a staged entry
 constexpr int WSTRIDE = 17;                 // floats a warp-partial row
-constexpr unsigned FULL = 0xffffffffu;
-static_assert(KMAX == THREADS / 2, "keep test: two threads an entry");
-static_assert(ROW == 64 && WARPS % 2 == 0, "two warps a pixel row");
 
 // Entry-major staged chunk, the warps' pixel rectangles and keep bits.
 struct Stage {
@@ -119,138 +91,19 @@ struct Stage {
   uint32_t keep[WARPS][WORDS];
 };
 
-__device__ __forceinline__ int pixel_of(int pb, int warp, int lane, int k) {
-  return pb * BLOCK_PX + ((warp >> 1) * PXT + k) * ROW + (warp & 1) * 32 +
-         lane;
-}
-
-// Loads the thread's pixel features; dead pixels (p >= px) read 0.
-__device__ __forceinline__ void load_pixels(const float* P, int px, int pb,
-                                            int warp, int lane,
-                                            float (&pf)[PXT][6],
-                                            int (&pix)[PXT]) {
-#pragma unroll
-  for (int k = 0; k < PXT; ++k) {
-    const int p = pixel_of(pb, warp, lane, k);
-    pix[k] = p < px ? p : -1;
-#pragma unroll
-    for (int f = 0; f < 6; ++f)
-      pf[k][f] = p < px ? P[(size_t)f * px + p] : 0.0f;
-  }
-}
-
-// Stages entries j0 .. j0+K-1 of tile t entry-major. No synchronization.
-__device__ __forceinline__ void stage_entries(Stage& sh, const float* G,
+// Stages entries j0 .. j0+K-1 of tile t entry-major into ent (KMAX x
+// ESTRIDE floats). Consecutive threads read consecutive entries of one row
+// (coalesced); every thread of a pixel block later reads the same address
+// (a broadcast, no bank conflict). No synchronization.
+template <int THREADS>
+__device__ __forceinline__ void stage_entries(float* ent, const float* G,
                                               const float* C, const float* O,
                                               int t, int cap, int j0, int K) {
   for (int i = threadIdx.x; i < 12 * K; i += THREADS) {
     const int f = i / K;
     const int j = i - f * K;
-    const float* row =
-        f < 6 ? G + ((size_t)t * 6 + f) * cap
-              : (f < 11 ? C + ((size_t)t * 5 + (f - 6)) * cap
-                        : O + (size_t)t * cap);
-    sh.ent[j * ESTRIDE + f] = row[j0 + j];
+    ent[j * ESTRIDE + f] = entry_feature(G, C, O, t, cap, f)[j0 + j];
   }
-}
-
-// The warp's pixel rectangle, and whether every live pixel has
-// P = [x^2, xy, y^2, x, y, 1] exactly (products of floats are exact in
-// double). Written by lane 0. No synchronization.
-__device__ __forceinline__ void warp_rect(Stage& sh, const float (&pf)[PXT][6],
-                                         const int (&pix)[PXT], int warp,
-                                         int lane) {
-  const float inf = __int_as_float(0x7f800000);
-  float x0 = inf, x1 = -inf, y0 = inf, y1 = -inf;
-  bool any = false, exact = true;
-#pragma unroll
-  for (int k = 0; k < PXT; ++k) {
-    if (pix[k] < 0) continue;
-    const double x = pf[k][3], y = pf[k][4];
-    any = true;
-    exact = exact && x * x == (double)pf[k][0] && x * y == (double)pf[k][1] &&
-            y * y == (double)pf[k][2] && pf[k][5] == 1.0f;
-    x0 = fminf(x0, pf[k][3]);
-    x1 = fmaxf(x1, pf[k][3]);
-    y0 = fminf(y0, pf[k][4]);
-    y1 = fmaxf(y1, pf[k][4]);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    x0 = fminf(x0, __shfl_xor_sync(FULL, x0, off));
-    x1 = fmaxf(x1, __shfl_xor_sync(FULL, x1, off));
-    y0 = fminf(y0, __shfl_xor_sync(FULL, y0, off));
-    y1 = fmaxf(y1, __shfl_xor_sync(FULL, y1, off));
-  }
-  any = __any_sync(FULL, any);
-  exact = __all_sync(FULL, exact);
-  if (lane == 0) {
-    sh.rect[warp][0] = x0;
-    sh.rect[warp][1] = x1;
-    sh.rect[warp][2] = y0;
-    sh.rect[warp][3] = y1;
-    sh.state[warp] = any ? (exact ? 1 : 2) : 0;
-  }
-}
-
-// An entry's quadratic for the rectangle test, in double: G, the centre,
-// the edge vertices' reciprocals 1 / 2a and 1 / 2c, log(1/255 / O), and
-// its kind: 0 opacity below 1/255 (never reaches), 1 always kept (NaN or
-// infinity anywhere, or not strictly concave), 2 tested.
-struct Quad {
-  double g[6], xc, yc, h2a, h2c, lim;
-  int kind;
-};
-
-__device__ __forceinline__ double quad(const double (&g)[6], double x,
-                                       double y) {
-  return g[0] * x * x + g[1] * x * y + g[2] * y * y + g[3] * x + g[4] * y +
-         g[5];
-}
-
-__device__ void make_quad(Quad& q, const float* e) {
-  const float o = e[11];
-  bool finite = isfinite(o);
-  for (int f = 0; f < 6; ++f) {
-    q.g[f] = e[f];
-    finite = finite && isfinite(e[f]);
-  }
-  const double a = q.g[0], b = q.g[1], c = q.g[2], d = q.g[3], ee = q.g[4];
-  const double det = 4.0 * a * c - b * b;
-  q.kind = o < kAlphaMin ? 0
-                         : (finite && a < 0.0 && c < 0.0 && det > 0.0 ? 2 : 1);
-  if (q.kind != 2) return;
-  const double inv = 1.0 / det;
-  q.xc = (b * ee - 2.0 * c * d) * inv;
-  q.yc = (b * d - 2.0 * a * ee) * inv;
-  q.h2a = 1.0 / (2.0 * a);
-  q.h2c = 1.0 / (2.0 * c);
-  q.lim = log((double)kAlphaMin / (double)o);
-}
-
-// False only where the entry's alpha stays below 1/255 at every point of
-// the rectangle r = (x0, x1, y0, y1) (see the header).
-__device__ bool may_reach(const Quad& q, const float* r) {
-  if (q.kind != 2) return q.kind == 1;
-  const double b = q.g[1], d = q.g[3], ee = q.g[4];
-  const double x0 = r[0], x1 = r[1], y0 = r[2], y1 = r[3];
-  double m;
-  if (q.xc >= x0 && q.xc <= x1 && q.yc >= y0 && q.yc <= y1) {
-    m = quad(q.g, q.xc, q.yc);
-  } else {
-    // the vertex of each edge's 1-D quadratic, clamped to the edge
-    const double ya = fmin(fmax(-(b * x0 + ee) * q.h2c, y0), y1);
-    const double yb = fmin(fmax(-(b * x1 + ee) * q.h2c, y0), y1);
-    const double xa = fmin(fmax(-(b * y0 + d) * q.h2a, x0), x1);
-    const double xb = fmin(fmax(-(b * y1 + d) * q.h2a, x0), x1);
-    m = fmax(fmax(quad(q.g, x0, ya), quad(q.g, x1, yb)),
-             fmax(quad(q.g, xa, y0), quad(q.g, xb, y1)));
-  }
-  const double X = fmax(fabs(x0), fabs(x1)), Y = fmax(fabs(y0), fabs(y1));
-  const double S = fabs(q.g[0]) * X * X + fabs(b) * X * Y +
-                   fabs(q.g[2]) * Y * Y + fabs(d) * X + fabs(ee) * Y +
-                   fabs(q.g[5]);
-  return !(m + 1e-6 * S + 1e-5 < q.lim);
 }
 
 // Threads 0 .. K-1 make the entries' quadratics; after a barrier thread i
@@ -258,6 +111,7 @@ __device__ bool may_reach(const Quad& q, const float* r) {
 // and lane 0 of each warp stores the ballots. Needs the staged entries and
 // rectangles visible (a barrier before); ends with the keep bits visible.
 __device__ __forceinline__ void keep_bits(Stage& sh, Quad* qs, int K) {
+  static_assert(KMAX == THREADS / 2, "keep test: two threads an entry");
   const int j = threadIdx.x & (KMAX - 1);
   if (threadIdx.x < K)
     make_quad(qs[threadIdx.x], sh.ent + threadIdx.x * ESTRIDE);
@@ -315,9 +169,9 @@ __global__ void __launch_bounds__(THREADS, 3)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float pf[PXT][6];
   int pix[PXT];
-  load_pixels(P, px, pb, warp, lane, pf, pix);
-  stage_entries(sh, G, C, O, t, cap, c * K, K);
-  warp_rect(sh, pf, pix, warp, lane);
+  load_pixels<WARPS>(P, px, pb, warp, lane, pf, pix);
+  stage_entries<THREADS>(sh.ent, G, C, O, t, cap, c * K, K);
+  warp_rect(sh.rect[warp], &sh.state[warp], pf, pix, lane);
   float gacc[PXT][5], logT0[PXT], excl[PXT], acc[PXT];
 #pragma unroll
   for (int k = 0; k < PXT; ++k) {
@@ -408,8 +262,8 @@ __global__ void __launch_bounds__(THREADS, 2)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float pf[PXT][6];
   int pix[PXT];
-  load_pixels(P, px, pb, warp, lane, pf, pix);
-  stage_entries(sh, G, C, O, t, cap, c * K, K);
+  load_pixels<WARPS>(P, px, pb, warp, lane, pf, pix);
+  stage_entries<THREADS>(sh.ent, G, C, O, t, cap, c * K, K);
   if (threadIdx.x < WARPS * WORDS) {
     const int w = threadIdx.x / WORDS, wd = threadIdx.x % WORDS;
     sh.keep[w][wd] = keep[((((size_t)t * n_chunks + c) * n_pb + pb) * WARPS +

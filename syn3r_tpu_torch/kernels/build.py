@@ -34,8 +34,8 @@ SIGNATURES = {
     "flash_attention": {"syn3r_flash_attention":
                         [_P] * 4 + [ctypes.POINTER(_LL), _I, _I, _I, _LL,
                                     _LL, _LL, _F, _I, _P]},
-    # P, G, C, O, out, ltc; T, px, cap, K; stream
-    "composite_fwd": {"syn3r_composite_fwd": [_P] * 6 + [_I] * 4 + [_P]},
+    # P, G, C, O, out, ltc, keep (or null); T, px, cap, K; stream
+    "composite_fwd": {"syn3r_composite_fwd": [_P] * 7 + [_I] * 4 + [_P]},
     # P, G, C, O, ltc, dout, tot, keep, part, dG, dC, dO; T, px, cap, K;
     # stream
     "composite_bwd": {"syn3r_composite_bwd": [_P] * 12 + [_I] * 4 + [_P]},

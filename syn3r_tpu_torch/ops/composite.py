@@ -23,9 +23,15 @@ never falls back: the wrappers launch or raise. ``composite_tiles.launches``
 counts wrapper calls that launched, ``{"fwd": n, "bwd": n}`` (a backward
 call is three CUDA launches: ``composite_bwd_plan``).
 
-The backward kernel skips, per warp of pixels, the entries whose alpha
-stays below 1/255 over the warp's pixel rectangle (``reach_mask`` is its
-plain mirror); ``composite_bwd_launch`` also returns its keep bits.
+Both kernels take four pixels a thread (``bwd_pixel_map``) and skip, per
+warp of pixels, the entries whose alpha stays below 1/255 over the warp's
+pixel rectangle (``reach_mask`` is the test's plain mirror);
+``composite_bwd_launch`` also returns its keep bits, and
+``composite_fwd_launch`` its own when asked. The forward walks a tile's
+chunks in sequence in one block (``composite_fwd_plan``), testing the next
+chunk's entries while it composites the current one. Its bound is
+operations, ~0.055 ms at the gs cell's tile lists; the skip removes ~65%
+of the work the bound counts.
 """
 
 from __future__ import annotations
@@ -38,16 +44,21 @@ from ..kernels import build
 
 ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
-# The backward kernel's geometry (csrc/composite_bwd.cu): 256 threads of 4
-# pixels; warp w, lane l, pixel k of a 1024-pixel block holds pixel
-# 64 (4 (w // 2) + k) + 32 (w % 2) + l, so a warp covers 4 rows x 32
-# columns of a 64-wide tile; chunks of at most 128 entries.
+# The kernels' geometry (csrc/composite_common.cuh): threads of 4 pixels;
+# warp w, lane l, pixel k of a block holds pixel
+# 64 (4 (w // 2) + k) + 32 (w % 2) + l of it, so a warp covers 4 rows x 32
+# columns of a 64-wide tile; chunks of at most 128 entries. The backward's
+# blocks are 256 threads (1024 pixels), the forward's 128 (512 pixels):
+# the same warp rectangles in the same order.
 BWD_THREADS = 256
 BWD_WARPS = BWD_THREADS // 32
 BWD_PIXELS_PER_THREAD = 4
 BWD_BLOCK_PIXELS = BWD_THREADS * BWD_PIXELS_PER_THREAD
 BWD_ROW = 64
 BWD_MAX_K = 128
+KEEP_WORDS = BWD_MAX_K // 32
+# the forward's blocks: thread j stages and tests entry j
+FWD_THREADS = 128
 _MAX_GRID_YZ = 65535
 
 
@@ -116,6 +127,30 @@ def composite_bwd_reference(P, G, C, O, ltc, dout, K: int):
     return dG, dC, dO
 
 
+def composite_fwd_plan(T: int, px: int, cap: int, K: int) -> dict:
+    """Launch plan of the forward kernel for T tiles of px pixels and lists
+    of cap entries in chunks of K: blocks of 128 threads (512 pixels, the
+    backward's warp rectangles), each walking every chunk of its (pixel
+    block, tile) in sequence. Returns the grid (pixel blocks, tiles),
+    threads, pixels a thread and the scratch shapes of the keep bits when
+    they are asked for (int32, as many warp rectangles as ``reach_mask``;
+    the kernel writes the first ``kernel_rects``). Raises on what the
+    kernel does not take."""
+    if not 1 <= K <= BWD_MAX_K or cap < 1 or cap % K:
+        raise ValueError(f"composite forward kernel needs cap % K == 0 and "
+                         f"1 <= K <= {BWD_MAX_K}, got cap={cap} K={K}")
+    if not 1 <= T <= _MAX_GRID_YZ or px < 1:
+        raise ValueError(f"composite forward kernel takes 1 <= T <= "
+                         f"{_MAX_GRID_YZ} and px >= 1, got T={T} px={px}")
+    block_px = FWD_THREADS * BWD_PIXELS_PER_THREAD
+    n_blk = -(-px // block_px)
+    keep = (T, cap // K, -(-px // BWD_BLOCK_PIXELS) * BWD_WARPS, KEEP_WORDS)
+    return dict(grid=(n_blk, T), threads=FWD_THREADS,
+                pixels_per_thread=BWD_PIXELS_PER_THREAD,
+                block_pixels=block_px, kernel_rects=n_blk * FWD_THREADS // 32,
+                scratch={"keep": keep}, scratch_bytes=4 * math.prod(keep))
+
+
 def composite_bwd_plan(T: int, px: int, cap: int, K: int) -> dict:
     """Launch plan of the backward kernels for T tiles of px pixels and
     lists of cap entries in chunks of K: the grid (pixel blocks, chunks,
@@ -132,7 +167,7 @@ def composite_bwd_plan(T: int, px: int, cap: int, K: int) -> dict:
                          f"px >= 1, got T={T} cap/K={n_chunks} px={px}")
     n_blk = -(-px // BWD_BLOCK_PIXELS)
     shapes = {"tot": (T, n_chunks, px),
-              "keep": (T, n_chunks, n_blk, BWD_WARPS, BWD_MAX_K // 32),
+              "keep": (T, n_chunks, n_blk, BWD_WARPS, KEEP_WORDS),
               "part": (T, n_blk, 12, cap)}
     return dict(grid=(n_blk, n_chunks, T), threads=BWD_THREADS,
                 pixels_per_thread=BWD_PIXELS_PER_THREAD,
@@ -154,7 +189,7 @@ def bwd_pixel_map(px: int) -> torch.Tensor:
 
 
 def reach_mask(P, G, O, K: int) -> torch.Tensor:
-    """Plain mirror of the backward kernel's skip test, in float64: for
+    """Plain mirror of the composite kernels' skip test, in float64: for
     each tile, warp rectangle (block-major, (n_blk * 8)) and entry, False
     only where the entry's alpha stays below 1/255 at every point of the
     rectangle spanned by the warp's pixels. Returns bool (T, n_rect, cap)."""
@@ -210,18 +245,17 @@ def reach_mask(P, G, O, K: int) -> torch.Tensor:
 
 
 def keep_words_to_mask(words: torch.Tensor, K: int) -> torch.Tensor:
-    """The kernel's keep bits (T, n_chunks, n_blk, 8, 4) as bool
-    (T, n_rect, cap), the layout of ``reach_mask``."""
-    T, n_chunks, n_blk = words.shape[:3]
+    """A kernel's keep bits (T, n_chunks, warp rectangles..., 4 words) as
+    bool (T, n_rect, cap), the layout of ``reach_mask``."""
+    T, n_chunks = words.shape[:2]
     bits = (words.long()[..., None] >> torch.arange(32, device=words.device)
             ) & 1                                      # (..., 4, 32)
-    bits = bits.reshape(T, n_chunks, n_blk * BWD_WARPS, BWD_MAX_K)[..., :K]
-    return bits.permute(0, 2, 1, 3).reshape(T, n_blk * BWD_WARPS,
-                                            n_chunks * K).bool()
+    bits = bits.reshape(T, n_chunks, -1, BWD_MAX_K)[..., :K]
+    return bits.permute(0, 2, 1, 3).reshape(T, -1, n_chunks * K).bool()
 
 
-def _check(P, G, C, O, K, extra=()):
-    T, six, cap = G.shape
+def _check(P, G, C, O, extra=()):
+    T, _, cap = G.shape
     px = P.shape[1]
     shapes = {"P": (P, (6, px)), "G": (G, (T, 6, cap)),
               "C": (C, (T, 5, cap)), "O": (O, (T, 1, cap)),
@@ -238,9 +272,37 @@ def _check(P, G, C, O, K, extra=()):
                              f"{tuple(t.shape)}, expected {shape}")
         if not t.is_contiguous():
             raise ValueError(f"composite kernel: {name} is not contiguous")
-    if six != 6 or K < 1 or K > 1024 or cap % K:
-        raise ValueError(f"composite kernel needs cap % K == 0 and "
-                         f"1 <= K <= 1024, got cap={cap} K={K}")
+
+
+def composite_fwd_launch(P, G, C, O, K: int, keep_bits: bool = False):
+    """Launches the forward kernel on CUDA tensors. Returns (out, ltc,
+    keep): with ``keep_bits`` the skip test's bits (``composite_fwd_plan``'s
+    scratch "keep"; ``keep_words_to_mask`` reads them), else None, as
+    when there is no work."""
+    _check(P, G, C, O)
+    T, _, cap = G.shape
+    px = P.shape[1]
+    out = torch.empty((T, 6, px), dtype=torch.float32, device=G.device)
+    ltc = torch.empty((T, cap // K, px), dtype=torch.float32,
+                      device=G.device)
+    if not (T and px and cap):
+        return out.zero_(), ltc, None
+    plan = composite_fwd_plan(T, px, cap, K)
+    keep = None
+    if keep_bits:
+        shape = plan["scratch"]["keep"]
+        keep = (torch.empty if plan["kernel_rects"] == shape[2]
+                else torch.zeros)(shape, dtype=torch.int32, device=G.device)
+    err = build.entry("composite_fwd")(
+        P.data_ptr(), G.data_ptr(), C.data_ptr(), O.data_ptr(),
+        out.data_ptr(), ltc.data_ptr(),
+        None if keep is None else keep.data_ptr(), T, px, cap, K,
+        torch.cuda.current_stream(G.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"composite_fwd kernel launch failed: "
+                           f"cudaError {err}")
+    composite_tiles.launches["fwd"] += 1
+    return out, ltc, keep
 
 
 def composite_fwd(P, G, C, O, K: int):
@@ -248,22 +310,7 @@ def composite_fwd(P, G, C, O, K: int):
     version for CPU tensors. Returns (out, ltc)."""
     if G.device.type == "cpu":
         return composite_fwd_reference(P, G, C, O, K)
-    _check(P, G, C, O, K)
-    T, _, cap = G.shape
-    px = P.shape[1]
-    out = torch.empty((T, 6, px), dtype=torch.float32, device=G.device)
-    ltc = torch.empty((T, cap // K, px), dtype=torch.float32,
-                      device=G.device)
-    if T and px:
-        err = build.entry("composite_fwd")(
-            P.data_ptr(), G.data_ptr(), C.data_ptr(), O.data_ptr(),
-            out.data_ptr(), ltc.data_ptr(), T, px, cap, K,
-            torch.cuda.current_stream(G.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"composite_fwd kernel launch failed: "
-                               f"cudaError {err}")
-        composite_tiles.launches["fwd"] += 1
-    return out, ltc
+    return composite_fwd_launch(P, G, C, O, K)[:2]
 
 
 def composite_bwd_launch(P, G, C, O, ltc, dout, K: int):
@@ -273,8 +320,8 @@ def composite_bwd_launch(P, G, C, O, ltc, dout, K: int):
     work."""
     T, _, cap = G.shape
     px = P.shape[1]
-    _check(P, G, C, O, K, extra=[("ltc", ltc, (T, cap // K, px)),
-                                 ("dout", dout, (T, 6, px))])
+    _check(P, G, C, O, extra=[("ltc", ltc, (T, cap // K, px)),
+                              ("dout", dout, (T, 6, px))])
     dG, dC, dO = (torch.empty_like(G), torch.empty_like(C),
                   torch.empty_like(O))
     if not (T and px and cap):

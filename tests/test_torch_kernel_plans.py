@@ -1,8 +1,8 @@
 """Host-side launch plans of the port's GEGLU-FFN, flash-attention,
-composite-backward, LayerNorm and GroupNorm kernels, on the CPU: the tile
-and grid choices, the TMA tensor-map geometry and the scratch the wrappers
-hand to the CUDA code, what they copy, and what they refuse. The kernels
-themselves run only on the card (chip_smoke.py); these are the
+composite forward and backward, LayerNorm and GroupNorm kernels, on the
+CPU: the tile and grid choices, the TMA tensor-map geometry and the scratch
+the wrappers hand to the CUDA code, what they copy, and what they refuse.
+The kernels themselves run only on the card (chip_smoke.py); these are the
 plain-Python parts of their wrappers.
 """
 import math
@@ -151,6 +151,62 @@ def test_flash_kernel_refuses_unsupported_inputs():
     q, k, v = qkv()
     with pytest.raises(ValueError, match="one shape"):
         A.check_flash_args(q, k[:, :, :288], v)
+
+
+@pytest.mark.parametrize("T, px, cap, K, grid", [
+    (96, 2048, 1024, 128, (4, 96)),      # the GS main path
+    (4, 2048, 256, 128, (4, 4)),         # tests/test_torch_rasterize.py
+    (4, 2048, 512, 128, (4, 4)),         # chip_smoke.py's gs_small
+    (4, 2048, 24, 24, (4, 4)),           # one chunk
+    (1, 1100, 128, 128, (3, 1)),         # a ragged last block
+    (128, 1536, 1024, 128, (3, 128)),    # tiles of 24 x 64
+    (96, 2048, 1008, 24, (4, 96)),       # 42 chunks of 24
+    (2, 2048, 2304, 128, (4, 2)),        # 18 chunks
+    (1, 2048, 16512, 128, (4, 1)),       # 129 chunks
+    (65535, 512, 128, 128, (1, 65535)),  # the most tiles
+    (1, 2048, 131072, 128, (4, 1))])     # 1024 chunks: a walk, no limit
+def test_composite_fwd_plan(T, px, cap, K, grid):
+    plan = TC.composite_fwd_plan(T, px, cap, K)
+    assert plan["grid"] == grid and "cluster" not in plan
+    assert plan["threads"] == 128 and plan["pixels_per_thread"] == 4
+    assert plan["block_pixels"] == 512
+    # the backward's keep layout: (T, chunks, 1024-pixel blocks x 8 warps,
+    # 4 words); the kernel's 512-pixel blocks write the first 4 a block
+    bwd = TC.composite_bwd_plan(T, px, cap, K)["scratch"]["keep"]
+    assert plan["scratch"] == {"keep": (*bwd[:2], bwd[2] * bwd[3], bwd[4])}
+    assert plan["kernel_rects"] == 4 * grid[0] <= bwd[2] * bwd[3]
+    assert plan["scratch_bytes"] == 4 * math.prod(plan["scratch"]["keep"])
+
+
+@pytest.mark.parametrize("px, rects, written", [
+    (2048, 16, 16), (1100, 16, 12), (512, 8, 4), (1536, 16, 12)])
+def test_composite_fwd_keep_rectangles(px, rects, written):
+    """A 512-pixel block's warp rectangles are those of the backward's
+    1024-pixel blocks, in the same order: block b, warp w is rectangle
+    4 b + w, and a rectangle past the kernel's last block has no pixel."""
+    plan = TC.composite_fwd_plan(1, px, 128, 128)
+    assert plan["scratch"]["keep"][2] == rects
+    assert plan["kernel_rects"] == written
+    pm = TC.bwd_pixel_map(px).reshape(-1, 4, 32)        # rect, row, lane
+    assert bool((pm[written:] < 0).all())
+    for g in range(written):
+        b, w = divmod(g, 4)
+        rows = b * 8 + (w // 2) * 4 + torch.arange(4)
+        want = rows[:, None] * 64 + (w % 2) * 32 + torch.arange(32)
+        assert torch.equal(pm[g], torch.where(want < px, want, -1))
+
+
+@pytest.mark.parametrize("T, px, cap, K, match", [
+    (4, 2048, 256, 256, "K <= 128"),         # chunks beyond 128 entries
+    (4, 2048, 250, 128, "cap % K"),
+    (4, 2048, 1000, 24, "cap % K"),
+    (4, 2048, 0, 128, "cap % K"),
+    (70000, 2048, 128, 128, "T <="),
+    (0, 2048, 128, 128, "T <="),
+    (4, 0, 128, 128, "px >= 1")])
+def test_composite_fwd_plan_refuses(T, px, cap, K, match):
+    with pytest.raises(ValueError, match=match):
+        TC.composite_fwd_plan(T, px, cap, K)
 
 
 @pytest.mark.parametrize("T, px, cap, K, grid", [

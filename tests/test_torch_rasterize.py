@@ -9,6 +9,8 @@ runs them. Tolerances are that file's, f32 on both sides with sums in
 another order: forward atol 2e-5, rtol 1e-4 (depth 1e-4); gradients
 atol 1e-6 + 1e-3 max|g|, rtol 2e-3.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -228,6 +230,76 @@ def test_keep_words_unpack_to_the_mirror_layout():
     got = TC.keep_words_to_mask(words, K)
     assert torch.equal(got, mask.permute(0, 2, 1, 3).reshape(T, n_blk * 8,
                                                              n_chunks * K))
+
+
+def _walk_fwd(P, G, C, O, K, keep=None):
+    """The forward kernel's walk in plain torch: each chunk's exclusive sums
+    and the carried logT in base 2 (log2(1 - alpha), w = alpha
+    2^(logT2 + excl2)), natural logs where ltc and row 5 are written
+    (ln 2 logT2). ``keep`` (T, cap, px) cuts alpha to 0 where False, as
+    the kernel's skip does."""
+    T, _, cap = G.shape
+    acc = G.new_zeros((T, 5, P.shape[1]))
+    logT2 = G.new_zeros((T, 1, P.shape[1]))
+    ltc = []
+    for c in range(cap // K):
+        ltc.append(logT2 * math.log(2.0))
+        sl = slice(c * K, (c + 1) * K)
+        _, _, _, alpha = TC._chunk_alpha(P, G[:, :, sl], O[:, :, sl])
+        if keep is not None:
+            alpha = torch.where(keep[:, sl], alpha, 0.0)
+        l1ma2 = torch.log2(1.0 - alpha)
+        excl2 = torch.cumsum(l1ma2, dim=1) - l1ma2
+        w = alpha * torch.exp2(logT2 + excl2)
+        acc = acc + torch.einsum("trk,tkp->trp", C[:, :, sl], w)
+        logT2 = logT2 + l1ma2.sum(1, keepdim=True)
+    return torch.cat([acc, logT2 * math.log(2.0)], 1), torch.cat(ltc, 1)
+
+
+@pytest.mark.parametrize("cap,chunk", [(256, 128), (499, 128), (24, 128)])
+def test_forward_walk_is_the_reference(scene, cap, chunk):
+    """The forward kernel's walk in base 2 gives composite_fwd_reference
+    within the float32 tolerance, and JAX's interpret-mode kernel within
+    the depth tolerance, out and ltc."""
+    _, _, st, cam = scene
+    sg = rz.project_gaussians(st, cam, sh_degree=3)
+    tl = rz.bin_tiles(sg, cam.height, cam.width, cap=cap, chunk=chunk)
+    args = (tl.P, tl.G, tl.C, tl.O)
+    out, ltc = _walk_fwd(*args, tl.K)
+    want_out, want_ltc = TC.composite_fwd_reference(*args, tl.K)
+    np.testing.assert_allclose(out.numpy(), want_out.numpy(), **FWD)
+    np.testing.assert_allclose(ltc.numpy(), want_ltc.numpy(), **FWD)
+    jax_out, jax_ltc = _composite_fwd_impl(*[x.numpy() for x in args], tl.K,
+                                           interpret=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jax_out), **DEPTH)
+    np.testing.assert_allclose(ltc.numpy(), np.asarray(jax_ltc), **DEPTH)
+
+
+@pytest.mark.parametrize("cap,chunk", [(256, 128), (499, 128), (24, 128)])
+def test_forward_skip_drops_no_hit(scene, cap, chunk):
+    """The forward's skip (reach_mask on its pixel geometry, the
+    backward's) cuts only pairs whose alpha is already cut: the forward
+    with it gives the forward without it, bit for bit, and some pairs
+    are cut."""
+    _, _, st, cam = scene
+    sg = rz.project_gaussians(st, cam, sh_degree=3)
+    tl = rz.bin_tiles(sg, cam.height, cam.width, cap=cap, chunk=chunk)
+    plan = TC.composite_fwd_plan(tl.G.shape[0], tl.P.shape[1],
+                                 tl.G.shape[2], tl.K)
+    pm = TC.bwd_pixel_map(tl.P.shape[1]).reshape(-1, 128)   # rect, pixel
+    assert plan["scratch"]["keep"][2] == pm.shape[0]       # its rectangles
+    rect_of = torch.empty(tl.P.shape[1], dtype=torch.long)
+    rect_of[pm[pm >= 0]] = torch.arange(pm.shape[0])[:, None].expand_as(
+        pm)[pm >= 0]
+    keep = TC.reach_mask(tl.P, tl.G, tl.O, tl.K)[:, rect_of].transpose(1, 2)
+    assert not bool(keep.all())
+    args = (tl.P, tl.G, tl.C, tl.O)
+    got = _walk_fwd(*args, tl.K, keep=keep)
+    # the same walk with nothing cut (torch.where makes alpha contiguous,
+    # and the sums' order follows the layout)
+    want = _walk_fwd(*args, tl.K, keep=torch.ones_like(keep))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def _jax_tiled(jsg, jcam, cap, chunk, composite):
