@@ -45,7 +45,9 @@ Phases, one result line each; any failure raises and the exit code is not 0:
               --iterations 300 (from 10,000), --start_sample_svd_frame 100
               (from 2000, so the refine fits sample pseudo views). 6
               completion units, 6 caches, 72 pseudo views, a checkpoint;
-              every kernel launched, the completion kernels 6 x the unit's.
+              every kernel launched, the completion kernels 6 x the unit's;
+              the GS steps and the batch renders replayed from CUDA graphs
+              (their captures printed).
   6. kernels  the tile-composite forward and backward kernels against their
               plain versions at the GS main path's shapes (T 96 tiles,
               px 2048, cap 1024, K 128), on G/C/O from projecting and binning
@@ -64,8 +66,16 @@ Phases, one result line each; any failure raises and the exit code is not 0:
               bench.py's seed-0 layout, tile_cap 1024, three views, 300
               iterations with densify/prune at 100 and 200 and an opacity
               reset at 200, fitting renders of a perturbed copy of the
-              scene. Launches counted over the run must equal the steps
-              (backward) and the steps plus renders (forward).
+              scene, on the trainer's default path (segments replayed from
+              a captured CUDA graph). Launches counted over the run must
+              equal the steps (backward) and the steps plus renders
+              (forward). The per-step path from the same state and picks
+              must agree with it bit for bit, over one 50-step segment
+              (and with itself, run twice) and over the 300 iterations;
+              render_views_batch (graph replays) must equal a loop of
+              render_view bit for bit on 20 cameras. Prints the captures,
+              and times both paths' steps in turns (eager, graph, graph,
+              eager) and the batch render against the loop.
 The JSON kernel table takes its launches from the scene phase.
 The line before the last is the JSON kernel table, after it the
 nvidia-smi line, and the last line is {"ok": true, "device": {...}}.
@@ -101,11 +111,12 @@ from syn3r_tpu_torch.ops import rasterize as RZ
 from syn3r_tpu_torch.ops.geglu_ffn import (geglu_ffn, geglu_ffn_reference,
                                           geglu_plan)
 from syn3r_tpu_torch.pipeline.completion import search_hypers_v2
-from syn3r_tpu_torch.utils.camera import camera_from_fov, look_at_w2c
+from syn3r_tpu_torch.utils.camera import (camera_from_fov, look_at_w2c,
+                                          stack_cameras)
 from scripts.kernel_timing import (ATTN_SHAPES, FFN_SHAPES, GN_SHAPES,
                                    GS_CAP, GS_H, GS_W, LN_SHAPES,
-                                   SmiSampler, cuda_ms,
-                                   gs_points, gs_scene, gs_tile_lists,
+                                   SmiSampler, cuda_ms, gs_points,
+                                   gs_replays, gs_scene, gs_tile_lists,
                                    window_iters)
 
 # Published dense peaks of one H100 SXM (data sheet), for bound_ms.
@@ -135,6 +146,15 @@ BUILD_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # float32 outside the tensor cores (data sheet), for the composite bounds
 PEAK_F32_FLOPS = 67e12
 GS_ITERS = 300
+# the gs phase's densify-free segment (graph against per-step) and the
+# steps each path is timed over in each of its turns. Tolerance of graph
+# against per-step: none, bit for bit. A replay runs the per-step path's
+# kernels on the same float32 values (the position lr and Adam's bias
+# corrections come from the same host code, and both paths multiply by
+# them), and the step's kernels are deterministic: the per-step path run
+# twice must agree bit for bit too. The batched render against
+# render_view: bit for bit (the same forward kernels).
+GS_SEGMENT, GS_TIMED_STEPS = 50, 30
 # the scene phase: the README's LLFF command with the cuts of the docstring
 SCENE_FLAGS = ["--n_views", "3", "--refine_cycle_num", "2",
                "--num_inference_steps", str(STEPS),
@@ -804,10 +824,50 @@ def check_gs_small(dev):
     return {k: list(v) for k, v in res.items()}
 
 
+def from_start(tr, s0, per_step=False):
+    """Put the trainer back at state s0 with fresh pick and densify
+    streams; ``per_step`` forces the per-step path (``_merged_views`` None,
+    as JAX's fallback), else its default, the graph replays."""
+    tr.state = s0
+    tr._rng = np.random.default_rng(tr.cfg.seed)
+    tr._gen.manual_seed(tr.cfg.seed)
+    tr.__dict__.pop("_merged_views", None)
+    if per_step:
+        tr._merged_views = lambda: None
+
+
+def state_errors(got, want):
+    """Per field of the parameters, Adam's moments and the densify
+    statistics: max |got - want| / max |want|."""
+    pairs = {f: (getattr(got.gaussians, f), getattr(want.gaussians, f))
+             for f in GM.PARAM_FIELDS}
+    pairs.update({f"mu_{f}": (got.adam.mu[f], want.adam.mu[f])
+                  for f in GM.PARAM_FIELDS})
+    pairs.update({f: (getattr(got.stats, f), getattr(want.stats, f))
+                  for f in ("grad_accum", "denom", "max_radii")})
+    return {k: float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            for k, (a, b) in pairs.items()}
+
+
+def step_times(step, n):
+    """ms of n calls of ``step``, each to its own synchronize."""
+    ms = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return ms
+
+
 def run_gs(dev, iters=GS_ITERS):
     """The GS trainer at full size on three views (the LLFF preset's view
     count): fit renders of a perturbed copy of the scene, with densify/prune
-    at 100 and 200 and an opacity reset at 200. The Gaussians must grow."""
+    at 100 and 200 and an opacity reset at 200. The Gaussians must grow.
+    The trainer's default path (segments replayed from a CUDA graph) is
+    held to its per-step path from the same state and picks: over one
+    densify-free segment (and the per-step path against itself, the
+    spread of its atomics) and over the whole run."""
     state, cams, targets = gs_views(dev)
     # densify at 100 (capacity full: nothing written, then it doubles) and
     # at 200 (clones and splits into the new slots, prune), reset at 200
@@ -816,15 +876,37 @@ def run_gs(dev, iters=GS_ITERS):
                       opacity_reset_interval=200)
     tr = GSTrainer(make_viewset(cams, targets), cfg, state,
                    model_path=os.path.join(BUILD_OUT, "gs"), device=dev)
+    s0 = tr.state
 
     def view_loss():
         return float(sum(gs_losses.photometric_loss(
             tr.render_view(c)["render"], t) for c, t in zip(cams, targets))
             / len(cams))
 
+    segment = {}
+    for name, per_step in (("graph", False), ("eager", True),
+                           ("eager_again", True)):
+        from_start(tr, s0, per_step)
+        loss = tr._run_loop(0, GS_SEGMENT, densify=False,
+                            log_every=GS_SEGMENT)
+        segment[name] = (tr.state, loss)
+    seg_err = {"graph": state_errors(segment["graph"][0],
+                                     segment["eager"][0]),
+               "eager_again": state_errors(segment["eager_again"][0],
+                                           segment["eager"][0])}
+    seg_loss = {k: v[1] for k, v in segment.items()}
+    del segment
+    bad = {f"{name} {k}": v for name, errs in seg_err.items()
+           for k, v in errs.items() if v != 0}
+    if bad or len(set(seg_loss.values())) != 1:
+        raise AssertionError(f"gs segment: graph and per-step paths not "
+                             f"bit for bit: {bad} {seg_loss}")
+
+    from_start(tr, s0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     active0, cap0 = tr.gaussians.num_active, tr.gaussians.capacity
+    builds0 = dict(tr.graph_builds)
     TC.composite_tiles.launches.update(fwd=0, bwd=0)
     loss0 = view_loss()
     t0 = time.perf_counter()
@@ -835,6 +917,7 @@ def run_gs(dev, iters=GS_ITERS):
     launches = dict(TC.composite_tiles.launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     active1, cap1 = tr.gaussians.num_active, tr.gaussians.capacity
+    captures = {k: tr.graph_builds[k] - builds0[k] for k in builds0}
 
     want = {"fwd": iters + 2 * len(cams), "bwd": iters}
     if launches != want:
@@ -845,27 +928,67 @@ def run_gs(dev, iters=GS_ITERS):
     if not (np.isfinite(last) and np.isfinite(loss1) and loss1 < loss0):
         raise AssertionError(f"gs loss did not fall: {loss0} -> {loss1} "
                              f"(last step {last})")
+    graph_state = tr.state
 
-    # per-step and per-render times, outside the counted run
+    from_start(tr, s0, per_step=True)
+    t0 = time.perf_counter()
+    last_eager = tr.training(log_every=50)
+    torch.cuda.synchronize()
+    train_s_eager = time.perf_counter() - t0
+    full = dict(last_step_loss=[last, last_eager],
+                active=[active1, tr.gaussians.num_active],
+                capacity=[cap1, tr.gaussians.capacity],
+                errors=state_errors(graph_state, tr.state))
+    tr.__dict__.pop("_merged_views", None)
+    bad = {k: v for k, v in full["errors"].items() if v != 0}
+    if bad or any(a != b for a, b in (full["last_step_loss"],
+                                      full["active"], full["capacity"])):
+        raise AssertionError(f"gs run: graph and per-step paths not bit "
+                             f"for bit: {full}")
+
+    # the batched render (graph replays) against a loop of render_view
+    many = stack_cameras([camera_from_fov(
+        0.9, 0.7, GS_W, GS_H, look_at_w2c([x, y, 0.0], [0.0, 0.0, 2.5]),
+        device=dev) for x in np.linspace(-0.4, 0.4, 5)
+        for y in (-0.1, 0.0, 0.1, 0.2)])
+    rgb, depth = tr.render_views_batch(many)
+    loop = [tr.render_view(many.at(i)) for i in range(len(many))]
+    batch_err = max(max(float((rgb[i] - o["render"]).abs().max()),
+                        float((depth[i] - o["depth"]).abs().max()))
+                    for i, o in enumerate(loop))
+    if batch_err != 0:
+        raise AssertionError(f"gs render_views_batch differs from "
+                             f"render_view: {batch_err}")
+    render_batch_ms = {
+        "graph": step_times(lambda: tr.render_views_batch(many), 5),
+        "loop": step_times(lambda: [tr.render_view(many.at(i))
+                                    for i in range(len(many))], 5)}
+
+    # per-step times of both paths in turns: eager, graph, graph, eager
     cam0, img0 = tr.train_views.view(0)
-    step_ms, render_ms = [], []
-    for _ in range(20):
-        t0 = time.perf_counter()
+
+    def eager():
         tr.state, _ = tr._train_step(tr.state, cam0, img0)
-        torch.cuda.synchronize()
-        step_ms.append(1e3 * (time.perf_counter() - t0))
-    for _ in range(10):
-        t0 = time.perf_counter()
-        tr.render_view(cam0)
-        torch.cuda.synchronize()
-        render_ms.append(1e3 * (time.perf_counter() - t0))
+
+    replays = gs_replays(tr)
+    turns = [step_times(eager if k in (0, 3) else (lambda: replays(1)),
+                        GS_TIMED_STEPS) for k in range(4)]
+    step_ms = {"eager": [float(np.median(t)) for t in turns[::3]],
+               "graph": [float(np.median(t)) for t in turns[1:3]]}
     res = dict(iterations=iters, views=len(cams), train_s=train_s,
+               train_s_per_step_path=train_s_eager,
                loss_before=loss0, loss_after=loss1, last_step_loss=last,
                launches=launches, active_before=active0,
                capacity_before=cap0, active_after=active1,
-               capacity_after=cap1, peak_mem_gb=peak_gb,
-               step_ms_median=float(np.median(step_ms)),
-               render_ms_median=float(np.median(render_ms)))
+               capacity_after=cap1, peak_mem_gb=peak_gb, captures=captures,
+               segment_steps=GS_SEGMENT, segment_errors=seg_err,
+               segment_loss=seg_loss, full_run=full,
+               render_batch=dict(cameras=len(many), max_abs_err=batch_err,
+                                 ms=render_batch_ms),
+               step_ms_median=step_ms,
+               step_ms_p10_p90={k: [float(np.percentile(turns[i], q))
+                                    for q in (10, 90)]
+                                for k, i in (("eager", 0), ("graph", 1))})
     say("gs", **res)
     return res
 
@@ -962,6 +1085,9 @@ def run_scene(pipe, unit_launches):
     rgb = tr.render_view(tr.train_views.cameras.at(1))["render"]
     if not bool(torch.isfinite(rgb).all()):
         raise AssertionError("scene: final render not finite")
+    if min(tr.graph_builds.values()) < 1:
+        raise AssertionError(f"scene: the GS steps and batch renders did "
+                             f"not run from CUDA graphs: {tr.graph_builds}")
 
     phases = {k: v["total_s"] for k, v in runner.timer.summary().items()}
     unit_s = [u["seconds"] for u in units]
@@ -972,7 +1098,8 @@ def run_scene(pipe, unit_launches):
                unit_s=unit_s, densify_other_s=phases["densify"] - sum(unit_s),
                cache_range=[min(lo), max(hi)], pseudo_views=n_pseudo,
                peak_mem_gb=peak_gb, launches=launches,
-               active=tr.gaussians.num_active)
+               active=tr.gaussians.num_active,
+               captures=dict(tr.graph_builds))
     say("scene", **res)
     return res
 

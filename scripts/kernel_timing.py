@@ -84,6 +84,23 @@ def graph_ms(fn, calls=20, replays=5):
     return start.elapsed_time(end) / (calls * replays)
 
 
+def gs_replays(tr):
+    """n -> n replays of a GS trainer's captured step (``tr._segments``),
+    back to back: its step time on the graph path with nothing of the
+    host's segment around it. Every entry of the upload is made entry 0
+    of the last one (a real view, position lr and bias corrections), so
+    any run of replays from j = 0 reads valid values."""
+    seg = tr._segments
+    b = seg.bufs
+    b["idx"].fill_(int(b["idx"][0]))
+    b["scalars"].copy_(b["scalars"][:1].clone().expand_as(b["scalars"]))
+
+    def run(n):
+        b["j"].zero_()
+        seg.run(n)
+    return run
+
+
 def window_iters(*fns):
     """Calls a timing window needs to last ~WINDOW_MS for the slowest of
     ``fns`` (at least 3)."""

@@ -6,9 +6,24 @@ Pearson depth term on SVD pseudo views), its gradients, a per-field Adam
 step and the densify statistics. Densify/prune runs at fixed capacity
 (``gs/densify.py``) and capacity doubles when occupancy passes 85%. The
 view picks use the JAX package's numpy stream, so both trainers pick the
-same views from the same seed; a plain Python loop replaces its
-``lax.scan`` segments. Checkpoints are npz files with the JAX package's
-names and keys, so each package loads the other's.
+same views from the same seed. Checkpoints are npz files with the JAX
+package's names and keys, so each package loads the other's.
+
+The loop runs by segments, as JAX's does: ``_next_boundary`` ends a
+segment where a host action may run (densify, opacity reset, capacity
+growth, a log line); the host pre-picks the segment's views into indices
+of the merged train + pseudo set (``_merged_views``) and runs its steps
+as one static-shape step (``_static_step``: the view, the depth flag, the
+step and Adam's count are device tensors, and every result is written
+back into the buffers it read). On a CUDA device that step is captured
+once as a CUDA graph and replayed (``gs/step_graph.py``, the counterpart
+of JAX's ``lax.scan`` segments); it is captured again only when the
+capacity, the view count, the resolution or ``use_depth`` changes. The
+capture bakes in the config's learning rates, loss weights and
+rasterizer, as JAX's trace does. On the CPU it runs eagerly. The per-step path
+(``_train_step``) runs where JAX's does: when the two view sets differ in
+resolution, or for a segment of one step. ``render_views_batch`` replays
+one captured render per camera, like JAX's ``_render_many_jit``.
 
 ``TrainConfig.rasterizer``: ``"kernel"`` (the tile composite kernels, the
 default), ``"tiled"`` (the same tiles, plain torch composite) or
@@ -34,9 +49,17 @@ import torch
 from ..device import resolve_device
 from ..models import gaussians as G
 from ..ops import rasterize as rz
+from ..ops.composite import composite_tiles
 from ..utils.camera import Camera, make_camera, stack_cameras
 from . import losses
 from .densify import DensifyStats, densify_and_prune, reset_opacity
+from .step_graph import StepGraph, upload
+
+# steps one upload of a segment's view picks holds (a longer segment
+# uploads again), and cameras a replayed batch render writes before their
+# frames are copied out
+SEGMENT_STEPS = 1024
+RENDER_FRAMES = 16
 
 
 @dataclasses.dataclass
@@ -105,18 +128,29 @@ def position_lr(cfg: TrainConfig, extent: float, step: int) -> float:
                              + t * math.log(cfg.position_lr_final))
 
 
+def adam_corrections(count: int, b1: float = 0.9,
+                     b2: float = 0.999) -> tuple[float, float]:
+    """The reciprocals of Adam's bias corrections, 1 / (1 - b1^count) and
+    1 / (1 - b2^count)."""
+    return 1.0 / (1.0 - b1 ** count), 1.0 / (1.0 - b2 ** count)
+
+
 def adam_update(params: dict, grads: dict, st: AdamState, lrs: dict,
-                b1: float = 0.9, b2: float = 0.999, eps: float = 1e-15
-                ) -> tuple[dict, AdamState]:
+                corrections=None, b1: float = 0.9, b2: float = 0.999,
+                eps: float = 1e-15) -> tuple[dict, AdamState]:
+    """One Adam step. ``corrections``: ``adam_corrections`` of step
+    ``st.count + 1`` as host floats or device scalars (computed here by
+    default). The moments are multiplied by them, never divided: a CUDA
+    division by a host scalar multiplies by its reciprocal, by a device
+    scalar it divides, and the two round differently."""
     count = st.count + 1
-    c1 = 1.0 - b1 ** count
-    c2 = 1.0 - b2 ** count
+    ic1, ic2 = corrections or adam_corrections(count, b1, b2)
     new_p, new_mu, new_nu = {}, {}, {}
     for k in params:
         mu = b1 * st.mu[k] + (1 - b1) * grads[k]
         nu = b2 * st.nu[k] + (1 - b2) * grads[k] ** 2
-        new_p[k] = params[k] - lrs[k] * (mu / c1) / (torch.sqrt(nu / c2)
-                                                      + eps)
+        new_p[k] = params[k] - lrs[k] * (mu * ic1) / (torch.sqrt(nu * ic2)
+                                                       + eps)
         new_mu[k], new_nu[k] = mu, nu
     return new_p, AdamState(mu=new_mu, nu=new_nu, count=count)
 
@@ -198,16 +232,19 @@ class GSTrainer:
         self._rng = np.random.default_rng(config.seed)
         self._gen = torch.Generator(device=self.device).manual_seed(
             config.seed)
+        # read once: a captured step holds this tensor's address
+        self._bg = torch.tensor(config.bg_color, dtype=torch.float32,
+                                device=self.device)
+        self._mono_depth_fn = None      # set_mono_depth_fn is not ported
+        self._segments: Optional[StepGraph] = None
+        self._renders: dict[tuple, StepGraph] = {}     # one per (H, W)
+        # holders built, one capture each on CUDA: {"step": n, "render": n}
+        self.graph_builds = {"step": 0, "render": 0}
 
     def _fresh_state(self, g: G.GaussianState, step: int) -> TrainState:
         return TrainState(gaussians=g, adam=AdamState.init(G.get_params(g)),
                           stats=DensifyStats.zeros(g.capacity, self.device),
                           step=step)
-
-    @property
-    def _bg(self) -> torch.Tensor:
-        return torch.tensor(self.cfg.bg_color, dtype=torch.float32,
-                            device=self.device)
 
     def _render(self, g: G.GaussianState, camera: Camera,
                 center_offset=None):
@@ -224,12 +261,20 @@ class GSTrainer:
 
     # -- one step -------------------------------------------------------------
 
-    def _train_step(self, ts: TrainState, camera: Camera,
-                    image: torch.Tensor, depth_target=None,
-                    use_depth: bool = False) -> tuple[TrainState, dict]:
-        """One optimization step: returns (new state, {"loss": tensor})."""
+    def _step_math(self, g: G.GaussianState, adam: AdamState,
+                   stats: DensifyStats, camera: Camera, image: torch.Tensor,
+                   depth_target, depth_flag, use_depth: bool, lr_means,
+                   corrections=None):
+        """One optimization step as math on tensors, shared by the per-step
+        path (``_train_step``: host floats) and the static step (device
+        scalars), as JAX's ``_step_math`` serves its per-step jit and its
+        scan. ``lr_means`` is the position learning rate of this step and
+        ``corrections`` Adam's bias corrections (``adam_update``); both are
+        computed on the host by the same code on either path, so the paths
+        take the same float32 values. ``depth_flag`` gates the depth term (0
+        on a train view inside a segment); ``use_depth`` removes it
+        statically. Returns (params, adam, stats, loss), new tensors."""
         cfg = self.cfg
-        g = ts.gaussians
         params = {k: v.detach().requires_grad_(True)
                   for k, v in G.get_params(g).items()}
         offset = torch.zeros((g.capacity, 2), device=self.device,
@@ -241,34 +286,76 @@ class GSTrainer:
         if use_depth:
             pred_depth = torch.where(out.alpha > 1e-6, out.depth
                                      / torch.clamp(out.alpha, min=1e-6), 0.0)
-            loss = loss + cfg.depth_loss_weight * losses.pearson_depth_loss(
-                pred_depth, depth_target, valid=depth_target > 0)
+            loss = loss + depth_flag * cfg.depth_loss_weight \
+                * losses.pearson_depth_loss(pred_depth, depth_target,
+                                            valid=depth_target > 0)
         names = list(params)
         grads = torch.autograd.grad(loss, [params[k] for k in names]
                                     + [offset])
         g_off = grads[-1]
         grads = dict(zip(names, grads[:-1]))
 
-        lrs = {"means": position_lr(cfg, self.extent, ts.step),
-               "quats": cfg.rotation_lr, "log_scales": cfg.scaling_lr,
+        lrs = {"means": lr_means, "quats": cfg.rotation_lr,
+               "log_scales": cfg.scaling_lr,
                "opacity_logits": cfg.opacity_lr, "sh_dc": cfg.feature_lr,
                "sh_rest": cfg.feature_lr / 20.0}
         with torch.no_grad():
             new_params, new_adam = adam_update(
-                {k: v.detach() for k, v in params.items()}, grads, ts.adam,
-                lrs)
+                {k: v.detach() for k, v in params.items()}, grads, adam, lrs,
+                corrections)
             # densify statistics: the screen-centre gradient in the CUDA
             # rasterizer's NDC scale (pixel grad x W/2, H/2)
-            scale = torch.tensor([camera.width * 0.5, camera.height * 0.5],
-                                 device=self.device)
+            screen = torch.stack([g_off[:, 0] * (camera.width * 0.5),
+                                  g_off[:, 1] * (camera.height * 0.5)], -1)
             c, r = sg.center.detach(), sg.radius
             visible = (sg.valid & (r > 0) & (c[:, 0] > -r)
                        & (c[:, 0] < camera.width + r) & (c[:, 1] > -r)
                        & (c[:, 1] < camera.height + r))
-            new_stats = ts.stats.update(g_off * scale, r, visible)
-        new_ts = TrainState(gaussians=G.with_params(g, new_params),
-                            adam=new_adam, stats=new_stats, step=ts.step + 1)
-        return new_ts, {"loss": loss.detach()}
+            new_stats = stats.update(screen, r, visible)
+        return new_params, new_adam, new_stats, loss.detach()
+
+    def _train_step(self, ts: TrainState, camera: Camera,
+                    image: torch.Tensor, depth_target=None,
+                    use_depth: bool = False) -> tuple[TrainState, dict]:
+        """One optimization step: returns (new state, {"loss": tensor})."""
+        params, adam, stats, loss = self._step_math(
+            ts.gaussians, ts.adam, ts.stats, camera, image, depth_target, 1.0,
+            use_depth, position_lr(self.cfg, self.extent, ts.step))
+        new_ts = TrainState(gaussians=G.with_params(ts.gaussians, params),
+                            adam=adam, stats=stats, step=ts.step + 1)
+        return new_ts, {"loss": loss}
+
+    def _static_step(self, b: dict, use_depth: bool):
+        """One step over the segment buffers ``b`` (``_segment_buffers``),
+        in place: entry ``b["j"]`` of the uploaded picks chooses the view
+        of the merged set, and of the uploaded scalars the depth flag, the
+        position learning rate and Adam's bias corrections; every result
+        is copied back into the tensor it came from. Nothing here waits
+        for the card, so the step captures as a CUDA graph."""
+        j = b["j"].view(1)
+        i = b["idx"].index_select(0, j)
+        flag, lr, ic1, ic2 = b["scalars"].index_select(0, j)[0]
+        cams = b["cams"]
+        cam = dataclasses.replace(
+            cams, K=cams.K.index_select(0, i)[0],
+            w2c=cams.w2c.index_select(0, i)[0],
+            confidence=cams.confidence.index_select(0, i)[0])
+        image = b["images"].index_select(0, i)[0]
+        depth = b["depths"].index_select(0, i)[0] if use_depth else None
+        g = G.GaussianState(**b["params"], active=b["active"])
+        params, adam, stats, loss = self._step_math(
+            g, AdamState(mu=b["mu"], nu=b["nu"], count=0),
+            DensifyStats(**b["stats"]), cam, image, depth, flag, use_depth,
+            lr, (ic1, ic2))
+        with torch.no_grad():
+            for k in G.PARAM_FIELDS:
+                b["params"][k].copy_(params[k])
+                b["mu"][k].copy_(adam.mu[k])
+                b["nu"][k].copy_(adam.nu[k])
+            for k, v in b["stats"].items():
+                v.copy_(getattr(stats, k))
+            b["loss"].copy_(loss)
+            b["j"].add_(1)
 
     def _densify_step(self, ts: TrainState) -> TrainState:
         cfg = self.cfg
@@ -347,32 +434,202 @@ class GSTrainer:
                 return int(self._rng.integers(len(self.pseudo_views))), True
         return int(self._rng.integers(len(self.train_views))), False
 
+    def _merged_views(self):
+        """Train + pseudo views as one set for the segment path: (cameras,
+        images (V, H, W, 3), depths (V, H, W)), train views first, zeros
+        where a view has no depth target. None when the two sets'
+        resolutions differ (then the per-step path runs)."""
+        tv = self.train_views
+        zeros = torch.zeros(tv.images.shape[:3], dtype=torch.float32,
+                            device=self.device)
+        if self.pseudo_views is None or len(self.pseudo_views) == 0:
+            return tv.cameras, tv.images, zeros
+        pv = self.pseudo_views
+        if tv.images.shape[1:] != pv.images.shape[1:]:
+            return None
+        a, c = tv.cameras, pv.cameras
+        cams = dataclasses.replace(
+            a, K=torch.cat([a.K, c.K]), w2c=torch.cat([a.w2c, c.w2c]),
+            confidence=torch.cat([a.confidence, c.confidence]))
+        images = torch.cat([tv.images, pv.images])
+        if self.pseudo_depths is not None:
+            depths = torch.cat([zeros, self.pseudo_depths.float()])
+        else:
+            depths = torch.zeros(images.shape[:3], dtype=torch.float32,
+                                 device=self.device)
+        return cams, images, depths
+
+    def _next_boundary(self, it: int, end_iter: int, densify: bool,
+                       log_every: int) -> int:
+        """First iteration count (exclusive end) after ``it`` at which a
+        host action (densify, opacity reset, capacity growth, a log line)
+        may run: every multiple of each interval, as JAX's."""
+        cfg = self.cfg
+        nxt = end_iter
+        intervals = []
+        if densify:
+            intervals += [cfg.densification_interval,
+                          cfg.opacity_reset_interval]
+        if log_every:
+            intervals.append(log_every)
+        if (self._mono_depth_fn is not None
+                and 0 < cfg.sample_pseudo_interval < 10 ** 9):
+            intervals.append(cfg.sample_pseudo_interval)
+        for iv in intervals:
+            if iv and iv > 0:
+                nxt = min(nxt, ((it // iv) + 1) * iv)
+        return max(nxt, it + 1)
+
+    def _pick_segment(self, it: int, k: int) -> tuple[np.ndarray,
+                                                      np.ndarray]:
+        """The view picks of iterations it .. it + k - 1 in
+        ``_pick_view_index``'s draw order, as JAX's ``_run_loop`` makes
+        them: indices into the merged set (pseudo views after the train
+        views) and 0/1 depth flags (1 on a pseudo pick)."""
+        n_train = len(self.train_views)
+        idx = np.empty(k, np.int64)
+        flags = np.zeros(k, np.float32)
+        for j in range(k):
+            i, is_pseudo = self._pick_view_index(it + j)
+            idx[j] = i + n_train if is_pseudo else i
+            flags[j] = 1.0 if is_pseudo else 0.0
+        return idx, flags
+
+    def _segment_buffers(self, merged, use_depth: bool) -> dict:
+        """The static tensors of ``_static_step``: the state's parameters,
+        active mask, Adam moments and densify statistics; the merged views;
+        an upload of picks and per-step scalars, the entry counter j and
+        the last step's loss."""
+        g, dev = self.state.gaussians, self.device
+        cams, images, depths = merged
+
+        def like(t):
+            return torch.empty_like(t, device=dev)
+        return dict(
+            params={k: like(v) for k, v in G.get_params(g).items()},
+            active=like(g.active),
+            mu={k: like(v) for k, v in G.get_params(g).items()},
+            nu={k: like(v) for k, v in G.get_params(g).items()},
+            stats={k: torch.zeros((g.capacity,), device=dev)
+                   for k in ("grad_accum", "denom", "max_radii")},
+            cams=dataclasses.replace(cams, K=like(cams.K),
+                                     w2c=like(cams.w2c),
+                                     confidence=like(cams.confidence)),
+            images=like(images),
+            depths=like(depths) if use_depth else None,
+            idx=torch.zeros((SEGMENT_STEPS,), dtype=torch.int64, device=dev),
+            # per step: depth flag, position lr, adam_corrections
+            scalars=torch.zeros((SEGMENT_STEPS, 4), device=dev),
+            j=torch.zeros((), dtype=torch.int64, device=dev),
+            loss=torch.zeros((), device=dev))
+
+    def _load_segment_state(self, b: dict, merged):
+        """``self.state`` and the merged views into the segment buffers."""
+        ts = self.state
+        with torch.no_grad():
+            for k, v in G.get_params(ts.gaussians).items():
+                b["params"][k].copy_(v)
+                b["mu"][k].copy_(ts.adam.mu[k])
+                b["nu"][k].copy_(ts.adam.nu[k])
+            b["active"].copy_(ts.gaussians.active)
+            for k, v in b["stats"].items():
+                v.copy_(getattr(ts.stats, k))
+            cams, images, depths = merged
+            for f in ("K", "w2c", "confidence"):
+                getattr(b["cams"], f).copy_(getattr(cams, f))
+            b["images"].copy_(images)
+            if b["depths"] is not None:
+                b["depths"].copy_(depths)
+
+    def _run_segment(self, merged, idx: np.ndarray, flags: np.ndarray,
+                     use_depth: bool) -> torch.Tensor:
+        """The steps of one segment through the static step: replays of
+        its captured graph on CUDA, eager calls on the CPU. ``self.state``
+        is copied in and comes back as new tensors, which no later replay
+        writes. Returns the last step's loss."""
+        ts, k = self.state, len(idx)
+        g = ts.gaussians
+        scalars = np.empty((k, 4), np.float32)
+        for j in range(k):
+            scalars[j] = (flags[j],
+                          position_lr(self.cfg, self.extent, ts.step + j),
+                          *adam_corrections(ts.adam.count + j + 1))
+
+        def load(b, s0):
+            upload(b["idx"], idx[s0:s0 + SEGMENT_STEPS])
+            upload(b["scalars"], scalars[s0:s0 + SEGMENT_STEPS])
+            b["j"].zero_()
+            return min(SEGMENT_STEPS, k - s0)
+
+        key = (g.capacity, merged[1].shape, use_depth)
+        seg = self._segments
+        if seg is None or seg.key != key:
+            self._segments = seg = None          # free the old capture
+            bufs = self._segment_buffers(merged, use_depth)
+            self._load_segment_state(bufs, merged)
+            load(bufs, 0)               # the warm-up runs the first steps
+            seg = StepGraph(key, bufs,
+                            lambda b: self._static_step(b, use_depth),
+                            self.device, [composite_tiles.launches])
+            self._segments = seg
+            self.graph_builds["step"] += 1
+        b = seg.bufs
+        self._load_segment_state(b, merged)
+        for s0 in range(0, k, SEGMENT_STEPS):
+            seg.run(load(b, s0))
+        self.state = TrainState(
+            gaussians=G.GaussianState(
+                **{f: b["params"][f].clone() for f in G.PARAM_FIELDS},
+                active=g.active),
+            adam=AdamState(mu={f: v.clone() for f, v in b["mu"].items()},
+                           nu={f: v.clone() for f, v in b["nu"].items()},
+                           count=ts.adam.count + k),
+            stats=DensifyStats(**{f: v.clone()
+                                  for f, v in b["stats"].items()}),
+            step=ts.step + k)
+        return b["loss"].clone()
+
     def _run_loop(self, start_iter: int, end_iter: int,
                   densify: bool = True, log_every: int = 0) -> float:
+        """Iterations start_iter .. end_iter - 1 by segments, the host
+        actions at each boundary in JAX's order."""
         cfg = self.cfg
         use_depth = bool(cfg.svd_depth_warmup > 0
                          and self.pseudo_depths is not None
                          and self.pseudo_views is not None
                          and len(self.pseudo_views) > 0)
+        merged = self._merged_views()
         last_loss, loss = float("nan"), None
-        for it in range(start_iter, end_iter):
-            i, is_pseudo = self._pick_view_index(it)
-            views = self.pseudo_views if is_pseudo else self.train_views
-            cam, img = views.view(i)
-            ud = is_pseudo and use_depth
-            depth_t = self.pseudo_depths[i] if ud else None
-            self.state, metrics = self._train_step(self.state, cam, img,
-                                                   depth_t, use_depth=ud)
-            loss = metrics["loss"]
-            if densify and cfg.densify_from_iter <= it < cfg.densify_until_iter:
-                if (it + 1) % cfg.densification_interval == 0:
+        it = start_iter
+        while it < end_iter:
+            seg_end = self._next_boundary(it, end_iter, densify, log_every)
+            k = seg_end - it
+            if merged is not None and k > 1:
+                idx, flags = self._pick_segment(it, k)
+                loss = self._run_segment(merged, idx, flags, use_depth)
+            else:
+                for j in range(k):
+                    i, is_pseudo = self._pick_view_index(it + j)
+                    views = self.pseudo_views if is_pseudo \
+                        else self.train_views
+                    cam, img = views.view(i)
+                    ud = is_pseudo and use_depth
+                    depth_t = self.pseudo_depths[i] if ud else None
+                    self.state, metrics = self._train_step(
+                        self.state, cam, img, depth_t, use_depth=ud)
+                    loss = metrics["loss"]
+            it = seg_end
+            last = it - 1       # the iteration the boundary checks see
+            if densify and cfg.densify_from_iter <= last \
+                    < cfg.densify_until_iter:
+                if (last + 1) % cfg.densification_interval == 0:
                     self.state = self._densify_step(self.state)
                     self._maybe_grow()
-                if (it + 1) % cfg.opacity_reset_interval == 0:
+                if (last + 1) % cfg.opacity_reset_interval == 0:
                     self.state = self._reset_opacity_step(self.state)
-            if log_every and (it + 1) % log_every == 0:
+            if log_every and (last + 1) % log_every == 0:
                 last_loss = float(loss)
-                print(f"[gs] iter {it + 1} loss {last_loss:.4f} "
+                print(f"[gs] iter {last + 1} loss {last_loss:.4f} "
                       f"active {self.gaussians.num_active}")
         return last_loss
 
@@ -429,11 +686,80 @@ class GSTrainer:
 
     @torch.no_grad()
     def render_views_batch(self, cameras: Camera):
-        """Render a stacked batch of cameras one after another: returns
-        (rgb (P, H, W, 3), depth (P, H, W))."""
-        outs = [self.render_view(cameras.at(i)) for i in range(len(cameras))]
-        return (torch.stack([o["render"] for o in outs]),
-                torch.stack([o["depth"] for o in outs]))
+        """Render a stacked batch of same-size cameras: returns (rgb (P, H,
+        W, 3), depth (P, H, W)), each frame as ``render_view`` gives it.
+        One static render (``_static_render``) is replayed per camera, from
+        a CUDA graph on the card, like JAX's one-dispatch
+        ``_render_many_jit``; the cameras go up RENDER_FRAMES at a time and
+        their frames come back the same way. A capture is kept per
+        resolution (the orchestrator renders at two) and made again when
+        the capacity changes."""
+        g = self.state.gaussians
+        p, h, w = len(cameras), cameras.height, cameras.width
+        dev = self.device
+        if p == 0:
+            return (torch.zeros((0, h, w, 3), device=dev),
+                    torch.zeros((0, h, w), device=dev))
+        key = (g.capacity, h, w)
+        rg = self._renders.get((h, w))
+        if rg is None or rg.key != key:
+            self._renders.pop((h, w), None)       # free the old capture
+            bufs = dict(
+                params={k: torch.empty_like(v)
+                        for k, v in G.get_params(g).items()},
+                active=torch.empty_like(g.active),
+                cams=Camera(K=torch.zeros((RENDER_FRAMES, 3, 3), device=dev),
+                            w2c=torch.zeros((RENDER_FRAMES, 4, 4),
+                                            device=dev),
+                            confidence=torch.ones((), device=dev),
+                            width=w, height=h),
+                j=torch.zeros((), dtype=torch.int64, device=dev),
+                rgb=torch.zeros((RENDER_FRAMES, h, w, 3), device=dev),
+                depth=torch.zeros((RENDER_FRAMES, h, w), device=dev))
+            # the warm-up renders the batch's first cameras
+            self._load_render_batch(bufs, cameras, 0)
+            rg = StepGraph(key, bufs, self._static_render, dev,
+                           [composite_tiles.launches])
+            self._renders[(h, w)] = rg
+            self.graph_builds["render"] += 1
+        b = rg.bufs
+        rgb = torch.empty((p, h, w, 3), device=dev)
+        depth = torch.empty((p, h, w), device=dev)
+        for s0 in range(0, p, RENDER_FRAMES):
+            n = self._load_render_batch(b, cameras, s0)
+            rg.run(n)
+            rgb[s0:s0 + n].copy_(b["rgb"][:n])
+            depth[s0:s0 + n].copy_(b["depth"][:n])
+        return rgb, depth
+
+    def _load_render_batch(self, b: dict, cameras: Camera, s0: int) -> int:
+        """The state's Gaussians (at the first batch) and cameras s0 ..
+        s0 + n - 1 into the render buffers, the counter to 0; returns n."""
+        if s0 == 0:
+            for k, v in G.get_params(self.state.gaussians).items():
+                b["params"][k].copy_(v)
+            b["active"].copy_(self.state.gaussians.active)
+        n = min(RENDER_FRAMES, len(cameras) - s0)
+        b["cams"].K[:n].copy_(cameras.K[s0:s0 + n])
+        b["cams"].w2c[:n].copy_(cameras.w2c[s0:s0 + n])
+        b["j"].zero_()
+        return n
+
+    def _static_render(self, b: dict):
+        """Render camera ``b["j"]`` of the uploaded batch into frame j of
+        the output buffers, in place (no host sync: it captures)."""
+        j = b["j"].view(1)
+        cams = b["cams"]
+        cam = dataclasses.replace(cams, K=cams.K.index_select(0, j)[0],
+                                  w2c=cams.w2c.index_select(0, j)[0])
+        g = G.GaussianState(**b["params"], active=b["active"])
+        _, out = self._render(g, cam)
+        alpha = out.alpha
+        depth = torch.where(alpha > 1e-6,
+                            out.depth / torch.clamp(alpha, min=1e-6), 0.0)
+        b["rgb"].index_copy_(0, j, out.rgb[None])
+        b["depth"].index_copy_(0, j, depth[None])
+        b["j"].add_(1)
 
     # -- scene surface ----------------------------------------------------------
 

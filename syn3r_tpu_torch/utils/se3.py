@@ -104,7 +104,7 @@ def se3_inverse(pose: torch.Tensor) -> torch.Tensor:
     inv = torch.zeros_like(pose)
     inv[..., :3, :3] = rt
     inv[..., :3, 3:] = -(rt @ pose[..., :3, 3:])
-    inv[..., 3, 3] = 1.0
+    inv[..., 3, 3].fill_(1.0)     # no host scalar copied in: it captures
     return inv
 
 
