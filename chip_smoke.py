@@ -48,6 +48,25 @@ Phases, one result line each; any failure raises and the exit code is not 0:
               every kernel launched, the completion kernels 6 x the unit's;
               the GS steps and the batch renders replayed from CUDA graphs
               (their captures printed).
+  5d. dtu     the DTU preset (cli/batch.py's flags: --diffusion_type
+              2PassProbUncertain --densify_type interpolate_loop0_gs
+              --lambda_dssim 0.5 --resolution 4 ...) with the scene phase's
+              cuts, through cli/train.build_runner + run on a synthetic
+              scan written as COLMAP (10 images of 1600x1200, loaded at
+              400x300; 2 test views with elliptic masks), the prob
+              completion on the unit's networks: 2 cycles x 2 chained
+              pairs, 49 pseudo views. The prob unit's batch-2 forwards
+              launch GEGLU, flash and the norms as often a forward as the
+              post unit's (exact); its s per denoise step beside the post
+              unit's. Then cli/render, cli/metrics (--masks, random LPIPS
+              weights) and summarize on its model directory, all finite.
+              Its batch-2 norm shapes go through the 5b check; every
+              GEGLU and flash call of the run is recorded by shape
+              (KernelShapes, which must account for every launch) and
+              each shape (rows 50 x tokens, B = 50) held against the plain
+              version at the kernels phase's tolerance; both composite
+              kernels against their plain versions on one 400x300 test
+              view's tile lists.
   6. kernels  the tile-composite forward and backward kernels against their
               plain versions at the GS main path's shapes (T 96 tiles,
               px 2048, cap 1024, K 128), on G/C/O from projecting and binning
@@ -76,6 +95,11 @@ Phases, one result line each; any failure raises and the exit code is not 0:
               render_view bit for bit on 20 cameras. Prints the captures,
               and times both paths' steps in turns (eager, graph, graph,
               eager) and the batch render against the loop.
+  9. lpips    the gs phase's trainer with the LPIPS refine loss (random
+              VGG weights): LPIPS on the card against the CPU; one 100-step
+              segment from graph replays held bit for bit to the per-step
+              path, exact composite launches; the step's replay time with
+              LPIPS off and on in turns (off, on, on, off).
 The JSON kernel table takes its launches from the scene phase.
 The line before the last is the JSON kernel table, after it the
 nvidia-smi line, and the last line is {"ok": true, "device": {...}}.
@@ -83,6 +107,7 @@ Details also go to chiprun_out/chip_smoke.json.
 """
 
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -93,16 +118,22 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from syn3r_tpu_torch.cli import metrics as cli_metrics
+from syn3r_tpu_torch.cli import render as cli_render
+from syn3r_tpu_torch.cli import summarize as cli_summarize
 from syn3r_tpu_torch.cli import train as cli_train
 from syn3r_tpu_torch.device import resolve_device
-from syn3r_tpu_torch.diffusion.pipeline import (init_random_weights_,
+from syn3r_tpu_torch.diffusion.pipeline import (GuidedSVDConfig,
+                                                GuidedSVDPipeline,
+                                                init_random_weights_,
                                                 load_svd_completion)
 from syn3r_tpu_torch.gs import losses as gs_losses
-from syn3r_tpu_torch.gs.scene import SceneData
+from syn3r_tpu_torch.gs.scene import SceneData, load_colmap_scene
 from syn3r_tpu_torch.gs.trainer import GSTrainer, TrainConfig, make_viewset
 from syn3r_tpu_torch.kernels import build
 from syn3r_tpu_torch.models import gaussians as GM
 from syn3r_tpu_torch.models import layers as L
+from syn3r_tpu_torch.models.lpips import lpips_module
 from syn3r_tpu_torch.models.svd_unet import UNetSpatioTemporalConditionModel
 from syn3r_tpu_torch.ops import attention as A
 from syn3r_tpu_torch.ops import composite as TC
@@ -111,12 +142,14 @@ from syn3r_tpu_torch.ops import rasterize as RZ
 from syn3r_tpu_torch.ops.geglu_ffn import (geglu_ffn, geglu_ffn_reference,
                                           geglu_plan)
 from syn3r_tpu_torch.pipeline.completion import search_hypers_v2
+from syn3r_tpu_torch.utils import colmap as CM
 from syn3r_tpu_torch.utils.camera import (camera_from_fov, look_at_w2c,
                                           stack_cameras)
 from scripts.kernel_timing import (ATTN_SHAPES, FFN_SHAPES, GN_SHAPES,
                                    GS_CAP, GS_H, GS_W, LN_SHAPES,
                                    SmiSampler, cuda_ms, gs_points,
                                    gs_replays, gs_scene, gs_tile_lists,
+                                   random_lpips_params, save_params,
                                    window_iters)
 
 # Published dense peaks of one H100 SXM (data sheet), for bound_ms.
@@ -196,6 +229,25 @@ COMPOSITE_TOL = {"fwd": (1e-4, 1e-4), "bwd": (1e-3, 2e-3)}
 # rtol 1e-4.
 NORM_TOL = {torch.bfloat16: (1e-5, 2.0 ** -7), torch.float32: (1e-4, 1e-4)}
 AFFINE_TOL = (1e-5, 1e-4)
+# the dtu phase: cli/batch.py's DTU preset with the scene phase's cuts, on
+# a synthetic scan written as COLMAP: 10 images of 1600x1200 (DTU's size),
+# loaded at --resolution 4 (400x300); llffhold 8 makes images 0 and 8 the
+# test views, and --n_views 3 takes 3 of the other 8
+DTU_FLAGS = ["--n_views", "3", "--diffusion_type", "2PassProbUncertain",
+             "--densify_type", "interpolate_loop0_gs", "--cam_confidence",
+             "0.05", "--lambda_dssim", "0.5", "--sample_svd_pseudo_interval",
+             "1", "--resolution", "4", "--refine_cycle_num", "2",
+             "--num_inference_steps", str(STEPS),
+             "--iterations", str(GS_ITERS), "--start_sample_svd_frame", "100"]
+DTU_IMAGES, DTU_W, DTU_H, DTU_SCALE = 10, 400, 300, 4
+DTU_PAIRS, DTU_CYCLES, DTU_TEST = 2, 2, 2
+# the lpips phase: one segment of the gs phase's trainer with the LPIPS
+# loss. LPIPS on the card against the CPU, float32 on both sides with TF32
+# off, 13 convolutions summed in another order: allclose atol 1e-6, rtol
+# 1e-4. Graph against per-step: bit for bit, as in the gs phase (the step
+# takes cuDNN's deterministic convolutions while LPIPS is on).
+LPIPS_STEPS = 100
+LPIPS_TOL = (1e-6, 1e-4)
 # elementwise operations per element, for the norm bounds (memory bounds
 # them all): stats add + fma; apply fma (+ exp, add, divide for SiLU);
 # LayerNorm add, fma, subtract, 2 multiplies, add
@@ -550,9 +602,9 @@ def check_grads(name, got, want):
                        1e-6 + atol * want.abs().max().item(), rtol)
 
 
-def gs_views(dev):
-    """The full-size scene, three cameras around it (the LLFF preset's view
-    count) and their targets: renders of a perturbed copy."""
+def gs_truth(dev):
+    """The full-size scene, its camera and the truth the GS phases fit: a
+    perturbed copy of it."""
     state, cam, rng = gs_scene(dev)
     n = state.capacity
     gt = state.replace(
@@ -561,6 +613,13 @@ def gs_views(dev):
         sh_dc=GM.rgb_to_sh_dc(torch.from_numpy(
             rng.uniform(0, 1, (n, 1, 3)).astype(np.float32)).to(dev)),
         opacity_logits=torch.full_like(state.opacity_logits, 1.0))
+    return state, gt, cam
+
+
+def gs_views(dev):
+    """The full-size scene, three cameras around it (the LLFF preset's view
+    count) and their targets: renders of a perturbed copy."""
+    state, gt, cam = gs_truth(dev)
     cams = [camera_from_fov(0.9, 0.7, cam.width, cam.height,
                             look_at_w2c([x, 0.0, 0.0], [0.0, 0.0, 2.5]),
                             device=dev) for x in (-0.3, 0.0, 0.3)]
@@ -1104,6 +1163,484 @@ def run_scene(pipe, unit_launches):
     return res
 
 
+def write_dtu_scene(dev, root):
+    """A synthetic DTU scan as COLMAP: the gs phase's truth rendered at
+    400x300 from DTU_IMAGES cameras in an arc, saved at 1600x1200 (bicubic
+    upsample) with the intrinsics of that size; bench.py's points as the
+    sparse cloud; and, for the two test views, masks named as cli/render
+    names its frames: an ellipse over the middle of the view."""
+    from PIL import Image
+    _, gt, _ = gs_truth(dev)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "sparse", "0"))
+    os.makedirs(os.path.join(root, "images"))
+    os.makedirs(os.path.join(root, "mask"))
+    big_w, big_h = DTU_W * DTU_SCALE, DTU_H * DTU_SCALE
+    images = {}
+    for i, x in enumerate(np.linspace(-0.45, 0.45, DTU_IMAGES)):
+        cam = camera_from_fov(0.9, 0.7, DTU_W, DTU_H,
+                              look_at_w2c([x, 0.03 * i, 0.0],
+                                          [0.0, 0.0, 2.5]), device=dev)
+        with torch.no_grad():
+            rgb = RZ.render(gt, cam, method="kernel", tile_cap=GS_CAP).rgb
+        img = Image.fromarray((rgb.clamp(0, 1) * 255).round().byte()
+                              .cpu().numpy())
+        name = f"{i:03d}.png"
+        img.resize((big_w, big_h), Image.BICUBIC).save(
+            os.path.join(root, "images", name), compress_level=1)
+        w2c = cam.w2c.cpu().numpy().astype(np.float64)
+        images[i + 1] = CM.ColmapImage(
+            i + 1, CM.rotmat_to_qvec(w2c[:3, :3]), w2c[:3, 3], 1, name,
+            np.zeros((0, 2)), np.zeros((0,), np.int64))
+    K = cam.K.cpu().numpy().astype(np.float64) * DTU_SCALE
+    cams = {1: CM.ColmapCamera(1, "PINHOLE", big_w, big_h, np.array(
+        [K[0, 0], K[1, 1], K[0, 2], K[1, 2]]))}
+    xyz, rgb, _ = gs_points()
+    sparse = os.path.join(root, "sparse", "0")
+    CM.write_cameras_binary(cams, os.path.join(sparse, "cameras.bin"))
+    CM.write_images_binary(images, os.path.join(sparse, "images.bin"))
+    CM.write_points3d_binary(CM.ColmapPoints3D(
+        xyz.astype(np.float64), np.round(rgb * 255).astype(np.uint8),
+        np.zeros(len(xyz))), os.path.join(sparse, "points3D.bin"))
+    yy, xx = np.mgrid[:DTU_H, :DTU_W]
+    inside = (((xx - DTU_W / 2) / (0.35 * DTU_W)) ** 2
+              + ((yy - DTU_H / 2) / (0.38 * DTU_H)) ** 2) <= 1.0
+    for t in range(DTU_TEST):
+        Image.fromarray((inside * 255).astype(np.uint8)).save(
+            os.path.join(root, "mask", f"{t:05d}.png"))
+    return os.path.join(root, "mask")
+
+
+def run_dtu(pipe, unit, unit_census):
+    """The DTU preset as a user runs it: cli/train's parser, the scan
+    loaded by load_colmap_scene as cli/train.main loads it, build_runner
+    with the prob completion that --diffusion_type 2PassProbUncertain
+    selects (on the unit's networks), run; then cli/render, cli/metrics
+    with the masks and random LPIPS weights, and summarize. Returns the
+    phase's results and the norm census of its batch-2 UNet forwards that
+    the unit's census lacks."""
+    root = os.path.join(BUILD_OUT, "dtu")
+    shutil.rmtree(root, ignore_errors=True)
+    scan = os.path.join(BUILD_OUT, "dtu_scan")
+    t0 = time.perf_counter()
+    masks = write_dtu_scene(pipe.device, scan)
+    out = os.path.join(root, "synthetic_scan")
+    args = cli_train.build_parser().parse_args(["-s", scan, "-m", out]
+                                               + DTU_FLAGS)
+    scene = load_colmap_scene(args.source_path, images_dir=args.images,
+                              resolution=args.resolution,
+                              n_views=args.n_views, llffhold=args.llffhold,
+                              rand_pcd=args.rand_pcd, seed=args.seed)
+    write_s = time.perf_counter() - t0
+    if (scene.train_images.shape != (3, DTU_H, DTU_W, 3)
+            or len(scene.test_cameras) != DTU_TEST):
+        raise AssertionError(f"dtu scan: train {scene.train_images.shape}, "
+                             f"{len(scene.test_cameras)} test views")
+    prob = GuidedSVDPipeline(pipe.m, GuidedSVDConfig(
+        **cli_train.svd_config(args)))
+    if prob.cfg.variant != "prob":
+        raise AssertionError(f"dtu: variant {prob.cfg.variant}")
+    units, denoise_s = [], []
+    denoise = prob.denoise
+
+    def timed_denoise(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lat = denoise(*a)
+        torch.cuda.synchronize()
+        denoise_s.append(time.perf_counter() - t)
+        return lat
+    prob.denoise = timed_denoise
+
+    def completion(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        frames = prob(*a)
+        torch.cuda.synchronize()
+        units.append(dict(seconds=time.perf_counter() - t,
+                          lo=frames.min().item(), hi=frames.max().item(),
+                          finite=bool(torch.isfinite(frames).all())))
+        return frames
+
+    runner = cli_train.build_runner(args, scene, completion_fn=completion)
+    tr = runner.trainer
+    census = NormCensus()
+    census.watch(prob.m.unet, "unet_prob")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    with KernelShapes() as shapes:
+        runner.run(log_every=0)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = launch_counts()
+    census.close()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    n_units = DTU_PAIRS * DTU_CYCLES
+    if len(units) != n_units or not all(
+            u["finite"] and u["lo"] >= 0.0 and u["hi"] <= 1.0 for u in units):
+        raise AssertionError(f"dtu: completion units {units}, expected "
+                             f"{n_units} finite in [0, 1]")
+    lo, hi = [], []
+    for c in range(DTU_CYCLES):
+        for p in range(DTU_PAIRS):
+            path = os.path.join(runner.save_dir, f"interpolated_dense_views_"
+                                f"cyc{c}_view{p}.npz")
+            with np.load(path) as data:
+                frames = data["frames"]
+            if frames.shape != (FRAMES, DTU_H, DTU_W, 3) or \
+                    not np.isfinite(frames).all():
+                raise AssertionError(f"dtu cache {path}: {frames.shape}")
+            lo.append(float(frames.min()))
+            hi.append(float(frames.max()))
+    if min(lo) < CUBIC_RANGE[0] or max(hi) > CUBIC_RANGE[1]:
+        raise AssertionError(f"dtu caches outside {CUBIC_RANGE}: "
+                             f"{min(lo)} {max(hi)}")
+    # the chain: each pair's frames but its last, and the last pair's last
+    n_pseudo = DTU_PAIRS * (FRAMES - 1) + 1
+    conf = tr.pseudo_views.cameras.confidence
+    if len(tr.pseudo_views) != n_pseudo or not bool((conf == 0.05).all()):
+        raise AssertionError(f"dtu: {len(tr.pseudo_views)} pseudo views "
+                             f"(expected {n_pseudo}) at {conf.unique()}")
+    # the prob unit: one batch-2 forward a direction and step, as many
+    # forwards as the post unit's batch-3 ones, so the same launches a unit
+    forwards = n_units * unit["forwards"]
+    n_gn, n_ln = unit["unet_norms_per_forward"]
+    per_forward = {k: launches[k] / forwards
+                   for k in ("geglu_ffn", "flash_attention")}
+    unit_per_forward = {k: unit["launches"][k] / unit["forwards"]
+                        for k in per_forward}
+    norm_calls = census.totals("unet_prob")
+    want = {k: n_units * unit["launches"][k] for k in
+            ("geglu_ffn", "flash_attention", "gn_stats", "gn_apply",
+             "layer_norm")}
+    steps = GS_ITERS * (1 + DTU_CYCLES)
+    if (per_forward != unit_per_forward
+            or norm_calls != {"group_norm": n_gn * forwards,
+                              "layer_norm": n_ln * forwards}
+            or any(launches[k] != v for k, v in want.items())
+            or launches["composite_bwd"] != steps
+            or launches["composite_fwd"] <= steps):
+        raise AssertionError(
+            f"dtu launches {launches}: per forward {per_forward} (post unit "
+            f"{unit_per_forward}), UNet norm calls {norm_calls} (expected "
+            f"{n_gn}, {n_ln} x {forwards}); expected {want}, composite_bwd "
+            f"{steps}, composite_fwd more")
+    unet_shapes = {(k[0],) + k[2:] for k in unit_census if k[1] == "unet"}
+    new_shapes = {k: n for k, n in census.calls.items()
+                  if (k[0],) + k[2:] not in unet_shapes}
+    if not new_shapes or any(k[0] == "group_norm"
+                             and k[2][0] not in (2, 2 * FRAMES)
+                             for k in new_shapes):
+        raise AssertionError(f"dtu: batch-2 norm shapes {list(new_shapes)}")
+    # every GEGLU and flash launch of the run recorded by shape: the
+    # batch-2 rows (2 x 25 frames x tokens) and B = 50 that main holds
+    # against the plain versions
+    shape_calls = shapes.totals()
+    if (any(shape_calls[k] != launches[k] for k in shape_calls)
+            or any(s[0] % (2 * FRAMES) for (k, s) in shapes.calls)):
+        raise AssertionError(f"dtu: GEGLU/flash shapes {shapes.calls} "
+                             f"against launches {launches}")
+    composite_view = check_composite_view(tr, scene.test_cameras[0])
+
+    # the evaluation protocol on the trained scan
+    t0 = time.perf_counter()
+    weights = os.path.join(root, "lpips_vgg.npz")
+    save_params(random_lpips_params(11), weights)
+    rendered = cli_render.main(["-s", scan, "-m", out, "-r",
+                                str(DTU_SCALE), "--n_views", "3"])
+    render_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res_path = cli_metrics.main(["-m", out, "--masks", masks,
+                                 "--lpips_weights", weights])
+    metrics_s = time.perf_counter() - t0
+    blocks = cli_summarize.parse_eval_res(res_path)
+    name = os.path.basename(rendered) + ".pth"
+    table = cli_summarize.summarize(root, checkpoints=[name])
+    stats = blocks.get(name, {})
+    if (name != f"ours_refine_{DTU_CYCLES - 1}_chkpnt{GS_ITERS}.pth"
+            or sorted(stats) != ["LPIPS", "PSNR", "SSIM"]
+            or not all(np.isfinite(v) for v in stats.values())
+            or "synthetic_scan" not in table or "AVG(1 scenes)" not in table
+            or len(os.listdir(os.path.join(rendered, "renders")))
+            != DTU_TEST):
+        raise AssertionError(f"dtu eval: {name} {blocks} {table!r}")
+    res = dict(flags=" ".join(DTU_FLAGS),
+               cuts="num_inference_steps 2 (from 100), iterations 300 "
+                    "(from 10000), start_sample_svd_frame 100 (from 2000)",
+               scan_write_load_s=write_s, total_s=total_s,
+               phases_s={k: v["total_s"] for k, v in
+                         runner.timer.summary().items()},
+               unit_s=[u["seconds"] for u in units],
+               s_per_denoise_step=dict(
+                   prob=float(np.mean(denoise_s)) / STEPS,
+                   post=unit["s_per_denoise_step"],
+                   prob_each=[d / STEPS for d in denoise_s]),
+               cache_range=[min(lo), max(hi)], pseudo_views=n_pseudo,
+               peak_mem_gb=peak_gb, launches=launches,
+               launches_per_forward=per_forward,
+               unet_norm_calls=norm_calls,
+               kernel_shapes={f"{k} {list(s)}": n
+                              for (k, s), n in sorted(shapes.calls.items())},
+               composite_view=composite_view, render_s=render_s,
+               metrics_s=metrics_s, eval=stats, summary=table,
+               captures=dict(tr.graph_builds))
+    say("dtu", **{k: v for k, v in res.items() if k != "summary"})
+    print(table, flush=True)
+    return res, new_shapes, shapes.calls
+
+
+def cutoff_pairs(tl):
+    """The (tile, entry, pixel) pairs at a cut of alpha: where the plain
+    alpha lies within twice the bound on the two versions' difference
+    from 1/255 (below it alpha is cut to 0) or from 0.99 (above it the
+    backward drops d alpha). There one version may fall on either side:
+    the kernel sums the power G.P in another order (two float32 six-term
+    sums differ by at most 2 gamma_6 sum_i |G_i P_i|) and takes ex2.approx
+    and two float32 products (16 ulp of alpha, generously). Returns the
+    pairs at 1/255 a pixel (T, px), the entries with a pair at either cut
+    (T, cap), and the pairs at each cut."""
+    T, _, cap = tl.G.shape
+    gamma6 = 6 * 2.0 ** -24 / (1 - 6 * 2.0 ** -24)
+    lo_px = torch.zeros((T, tl.P.shape[1]), device=tl.G.device)
+    at_cut = torch.zeros((T, cap), dtype=torch.bool, device=tl.G.device)
+    n_lo = n_hi = 0
+    for c in range(cap // tl.K):
+        sl = slice(c * tl.K, (c + 1) * tl.K)
+        praw = torch.einsum("tfk,fp->tkp", tl.G[:, :, sl], tl.P)
+        size = torch.einsum("tfk,fp->tkp", tl.G[:, :, sl].abs(), tl.P.abs())
+        raw = tl.O[:, :, sl].transpose(1, 2) * torch.exp(praw.clamp(max=0.0))
+        rel = 2 * (2 * gamma6 * size + 16 * 2.0 ** -23)
+        lo = (raw - TC.ALPHA_MIN).abs() <= rel * TC.ALPHA_MIN
+        hi = (raw - TC.ALPHA_MAX).abs() <= rel * TC.ALPHA_MAX
+        lo_px += lo.sum(1)
+        at_cut[:, sl] = (lo | hi).any(-1)
+        n_lo, n_hi = n_lo + int(lo.sum()), n_hi + int(hi.sum())
+    return lo_px, at_cut, n_lo, n_hi
+
+
+def check_composite_view(tr, cam):
+    """Both composite kernels against their plain versions on the tile
+    lists of one 400x300 test view of the trained dtu scan, binned as the
+    trainer bins them. COMPOSITE_TOL everywhere, except where a pair lies
+    at a cut of alpha (``cutoff_pairs``; a trained scene has such pairs,
+    the gs cell's lists had none): the forward may differ at such a pixel
+    by what the pairs there can move it, each at most 2 x 1.01/255 x the
+    tile's largest |C| of the row (the pair's own weight, and the same
+    share of the weights behind it), and -log(1 - 1.01/255) on logT; the
+    gradients are held on every entry without such a pair (the gradient of
+    a random output cotangent)."""
+    cfg, cam = tr.cfg, cam.to(tr.device)
+    with torch.no_grad():
+        sg = RZ.project_gaussians(tr.gaussians, cam, sh_degree=cfg.sh_degree)
+        tl = RZ.bin_tiles(sg, cam.height, cam.width, cap=cfg.tile_cap,
+                          chunk=min(cfg.chunk, cfg.tile_cap))
+    args = (tl.P, tl.G, tl.C, tl.O)
+    out, ltc = TC.composite_fwd(*args, tl.K)
+    out_ref, ltc_ref = TC.composite_fwd_reference(*args, tl.K)
+    g = torch.Generator(device=tr.device).manual_seed(6)
+    dout = torch.randn(out_ref.shape, generator=g, device=tr.device)
+    got = TC.composite_bwd(*args, ltc_ref, dout, tl.K)
+    want = TC.composite_bwd_reference(*args, ltc_ref, dout, tl.K)
+    torch.cuda.synchronize()
+    lo_px, at_cut, n_lo, n_hi = cutoff_pairs(tl)
+    a_cut = 1.01 * TC.ALPHA_MIN
+    log_jump = -math.log1p(-a_cut)
+    jump = torch.cat([2 * a_cut * tl.C.abs().amax(2),
+                      torch.full_like(tl.C[:, :1, 0], log_jump)], 1)
+    atol, rtol = COMPOSITE_TOL["fwd"]
+    off_cut = (lo_px == 0)[:, None, :]
+    fwd, at, beyond = [], [0.0], 0
+    for n, a, b, j in (("out", out, out_ref, jump[:, :, None]),
+                       ("ltc", ltc, ltc_ref, log_jump)):
+        err = (a - b).abs()
+        tol = atol + rtol * b.abs()
+        beyond += int((err > tol).sum())
+        bad = int((err > tol + lo_px[:, None, :] * j).sum())
+        if bad or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"dtu view composite_fwd {n}: {bad} "
+                                 "elements beyond tolerance and the cut's "
+                                 f"allowance; max_abs {err.max().item()}")
+        fwd.append(err.where(off_cut, 0.0).max().item())
+        at.append(err.where(~off_cut, 0.0).max().item())
+    keep = ~at_cut
+    bwd = [check_grads(f"dtu view composite_bwd {n}",
+                       a.transpose(1, 2)[keep], b.transpose(1, 2)[keep])
+           for n, a, b in zip(("dG", "dC", "dO"), got, want)]
+    if not all(bool(torch.isfinite(a).all()) for a in got):
+        raise AssertionError("dtu view composite_bwd: not finite")
+    T, _, cap = tl.G.shape
+    res = dict(width=cam.width, height=cam.height, tiles=T,
+               px=tl.P.shape[1], cap=cap, K=tl.K, pairs_at_1_255=n_lo,
+               pairs_at_0_99=n_hi, entries_at_a_cut=int(at_cut.sum()),
+               fwd_elements_beyond_tol_at_a_cut=beyond,
+               fwd_max_abs_err=max(fwd), fwd_max_abs_err_at_a_cut=max(at),
+               bwd_max_abs_err=max(e[0] for e in bwd),
+               bwd_rel_rms_err=max(e[1] for e in bwd))
+    say("dtu", what="composite kernels vs plain on a test view", **res)
+    return res
+
+
+def check_unet_kernels(shapes, dev):
+    """GEGLU and flash against their plain versions (TOL) at every shape
+    of ``shapes`` (KernelShapes.calls of the dtu phase), with the kernel's
+    ms a call."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = []
+    for (name, shape), calls in sorted(shapes.items()):
+        if name == "geglu_ffn":
+            args = geglu_inputs(gen, dev, *shape)
+            fn, plain = geglu_ffn, geglu_ffn_reference
+            extra = dict(plan=geglu_plan(*shape, sms))
+        else:
+            b, h, s, d = shape
+            # (B, S, H, D) projections viewed as (B, H, S, D), as the UNet
+            args = tuple(torch.randn((b, s, h, d), generator=gen,
+                                     device=dev).to(torch.bfloat16)
+                         .transpose(1, 2) for _ in range(3)) + (d ** -0.5,)
+            fn, plain = A.flash_attention, A.attention_chunked
+            extra = {}
+        got, want = fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        max_abs, rel_rms = check(name, got, want)
+        del got, want
+        row = dict(name=name, shape=list(shape), calls=calls,
+                   max_abs_err=max_abs, rel_rms_err=rel_rms,
+                   ms=cuda_ms(lambda: fn(*args), 5), **extra)
+        say("dtu", what="kernel vs plain at a prob-unit shape", **row)
+        rows.append(row)
+        del args
+        torch.cuda.empty_cache()
+    return rows
+
+
+def run_lpips(dev):
+    """The gs phase's trainer with the LPIPS refine loss: LPIPS on the
+    card against the CPU on one (render, target) pair; one LPIPS_STEPS
+    segment from graph replays against the per-step path from the same
+    state and picks (bit for bit, exact composite launches); the step's
+    replay time with LPIPS off and on in turns (off, on, on, off)."""
+    state, cams, targets = gs_views(dev)
+    cfg = TrainConfig(iterations=LPIPS_STEPS, tile_cap=GS_CAP,
+                      densify_from_iter=10 ** 9)
+    tr = GSTrainer(make_viewset(cams, targets), cfg, state,
+                   model_path=os.path.join(BUILD_OUT, "lpips"), device=dev)
+    params = random_lpips_params(12)
+    tr.set_lpips(params)
+    s0 = tr.state
+    with torch.no_grad():
+        rgb = tr.render_view(cams[0])["render"]
+        card = tr._lpips(rgb, targets[0])
+        cpu = lpips_module(params, "cpu")(rgb.cpu(), targets[0].cpu())
+    err = check_close("lpips card vs cpu", card.cpu()[None], cpu[None],
+                      *LPIPS_TOL)
+
+    tr.use_lpips_loss = True
+    runs = {}
+    for name, per_step in (("graph", False), ("eager", True)):
+        from_start(tr, s0, per_step)
+        TC.composite_tiles.launches.update(fwd=0, bwd=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = tr._run_loop(0, LPIPS_STEPS, densify=False,
+                            log_every=LPIPS_STEPS)
+        torch.cuda.synchronize()
+        runs[name] = dict(state=tr.state, loss=loss,
+                          seconds=time.perf_counter() - t0,
+                          launches=dict(TC.composite_tiles.launches))
+    tr.__dict__.pop("_merged_views", None)
+    seg_on = tr._segments
+    errs = state_errors(runs["graph"]["state"], runs["eager"]["state"])
+    bad = {k: v for k, v in errs.items() if v != 0}
+    want = {"fwd": LPIPS_STEPS, "bwd": LPIPS_STEPS}
+    if (bad or runs["graph"]["loss"] != runs["eager"]["loss"]
+            or seg_on.key[-1] is not True
+            or any(r["launches"] != want for r in runs.values())):
+        raise AssertionError(
+            f"lpips segment: graph and per-step not bit for bit {bad}, "
+            f"losses {[r['loss'] for r in runs.values()]}, launches "
+            f"{[r['launches'] for r in runs.values()]} (expected {want})")
+
+    tr.use_lpips_loss = False
+    from_start(tr, s0)
+    tr._run_loop(0, 2, densify=False)
+    seg_off = tr._segments
+    replays = {}
+    for name, seg in (("off", seg_off), ("on", seg_on)):
+        tr._segments = seg
+        replays[name] = gs_replays(tr)
+    turns = [step_times(lambda r=replays[k]: r(1), GS_TIMED_STEPS)
+             for k in ("off", "on", "on", "off")]
+    step_ms = {"off": [float(np.median(t)) for t in turns[::3]],
+               "on": [float(np.median(t)) for t in turns[1:3]]}
+    res = dict(steps=LPIPS_STEPS, lpips_card=float(card),
+               lpips_cpu=float(cpu), lpips_max_abs_err=err[0],
+               losses={k: r["loss"] for k, r in runs.items()},
+               seconds={k: r["seconds"] for k, r in runs.items()},
+               launches=runs["graph"]["launches"], step_ms_median=step_ms,
+               step_ms_p10_p90={k: [float(np.percentile(turns[i], q))
+                                    for q in (10, 90)]
+                                for k, i in (("off", 0), ("on", 1))},
+               captures=dict(tr.graph_builds))
+    say("lpips", **res)
+    return res
+
+
+class ShapeRecorder:
+    """A kernel wrapper that counts its calls by the shape of the first
+    argument in ``calls`` and passes each on; ``launches`` is the
+    wrapper's own count (the wrapper adds to it under its module-level
+    name, which the recorder takes while active)."""
+
+    def __init__(self, name, fn, calls):
+        self.name, self.fn, self.calls = name, fn, calls
+
+    def __call__(self, x, *args):
+        key = (self.name, tuple(x.shape))
+        self.calls[key] = self.calls.get(key, 0) + 1
+        return self.fn(x, *args)
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.launches = n
+
+
+class KernelShapes:
+    """Counts, while active, the GEGLU and flash calls by the shape the
+    kernel sees: the names the callers look up (``L.geglu_ffn``, which
+    FeedForward calls, and ``A.flash_attention``, which ``A.attention``
+    calls) are bound to ShapeRecorders. ``calls``: {(name, shape): calls},
+    shape (rows, C) for GEGLU and (B, H, S, D) for flash."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def _recorder(self, name, fn):
+        return ShapeRecorder(name, fn, self.calls)
+
+    def totals(self):
+        out = {"geglu_ffn": 0, "flash_attention": 0}
+        for (name, _), n in self.calls.items():
+            out[name] += n
+        return out
+
+    def __enter__(self):
+        self._saved = L.geglu_ffn, A.flash_attention
+        L.geglu_ffn = self._recorder("geglu_ffn", self._saved[0])
+        A.flash_attention = self._recorder("flash_attention", self._saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        L.geglu_ffn, A.flash_attention = self._saved
+
+
 class NormCensus:
     """Counts, by forward pre-hooks, the GroupNorm and LayerNorm calls of
     the modules given to ``watch`` while it is active: {key: calls} with
@@ -1349,14 +1886,20 @@ def main():
     unit, pipe, census = run_unit(dev)
     norm_rows = check_norms(census, dev)
     scene = run_scene(pipe, unit["launches"])
+    dtu, dtu_census, dtu_shapes = run_dtu(pipe, unit, census)
+    dtu_norm_rows = check_norms(dtu_census, dev)
+    dtu_kernel_rows = check_unet_kernels(dtu_shapes, dev)
     del pipe                 # the GS phases measure their own peak memory
     torch.cuda.empty_cache()
     comp = check_composite(dev)
     gs_small = check_gs_small(dev)
     gs = run_gs(dev)
+    lpips = run_lpips(dev)
     by_phase = {"unit": unit["launches"],
                 "gs": {f"composite_{k}": v for k, v in gs["launches"].items()},
-                "scene": scene["launches"]}
+                "scene": scene["launches"], "dtu": dtu["launches"],
+                "lpips": {f"composite_{k}": v
+                          for k, v in lpips["launches"].items()}}
 
     kernels = [
         kernel_entry("geglu_ffn", "syn3r_tpu_torch/csrc/geglu_ffn.cu",
@@ -1380,7 +1923,13 @@ def main():
     for k in kernels[-2:]:
         k["skip_removed_fraction"] = comp[k["name"]]["skip"][
             "removed_fraction"]
-    kernels += norm_entries(norm_rows, unit["forwards"], scene["launches"])
+    # GEGLU and flash: the largest error at the dtu phase's shapes too
+    for k in kernels[:2]:
+        k["max_abs_err"] = max([k["max_abs_err"]] + [
+            r["max_abs_err"] for r in dtu_kernel_rows
+            if r["name"] == k["name"]])
+    kernels += norm_entries(norm_rows + dtu_norm_rows, unit["forwards"],
+                            scene["launches"])
     for k in kernels:
         k["launches_by_phase"] = {p: c.get(k["name"], 0)
                                   for p, c in by_phase.items()}
@@ -1392,7 +1941,9 @@ def main():
                    "flash_attention": attn_rows,
                    "small_unet": small, "unit": unit, "norms": norm_rows,
                    "composite": comp, "gs_small": gs_small, "gs": gs,
-                   "scene": scene, "kernels": kernels}, f, indent=1)
+                   "scene": scene, "dtu": dtu, "dtu_norms": dtu_norm_rows,
+                   "dtu_kernels": dtu_kernel_rows,
+                   "lpips": lpips, "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

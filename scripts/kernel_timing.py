@@ -184,3 +184,40 @@ def gs_tile_lists(dev):
     with torch.no_grad():
         sg = RZ.project_gaussians(state, cam)
         return RZ.bin_tiles(sg, cam.height, cam.width, cap=GS_CAP, chunk=256)
+
+
+def random_lpips_params(seed: int) -> dict:
+    """A random LPIPS param tree in the JAX package's flax layout, as numpy
+    arrays from ``seed``: He-normal 3x3 kernels (the features keep their
+    scale through 13 layers), small biases, non-negative 1x1 heads (as
+    trained heads are)."""
+    from syn3r_tpu_torch.models.lpips import _CHANNELS, _VGG_CFG
+    rng = np.random.default_rng(seed)
+    net, c_in = {}, 3
+    for i, c in enumerate(c for c in _VGG_CFG if c != "M"):
+        net[f"conv_{i}"] = {
+            "kernel": (rng.normal(size=(3, 3, c_in, c))
+                       * np.sqrt(2.0 / (9 * c_in))).astype(np.float32),
+            "bias": rng.uniform(-0.05, 0.05, c).astype(np.float32)}
+        c_in = c
+    tree = {"net": net}
+    for i, c in enumerate(_CHANNELS):
+        tree[f"lin_{i}"] = {"kernel": rng.uniform(0, 0.1, (1, 1, c, 1))
+                            .astype(np.float32)}
+    return {"params": tree}
+
+
+def save_params(params: dict, path) -> None:
+    """A param tree (under a top-level "params") as the flat npz that
+    ``syn3r_tpu_torch.utils.params.load_params`` reads: keys are the
+    '/'-joined paths."""
+    flat = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}/")
+            else:
+                flat[prefix + k] = np.asarray(v)
+    walk(params["params"], "")
+    np.savez(path, **flat)

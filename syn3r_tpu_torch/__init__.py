@@ -10,5 +10,9 @@ its wrapper that CPU tensors take.
 Ported so far: the guided SVD completion unit (``diffusion.pipeline.
 load_svd_completion``), with the GEGLU feed-forward and flash-attention
 kernels; and the 3DGS train step (``gs.trainer.GSTrainer``), with the tile
-composite's forward and backward kernels.
+composite's forward and backward kernels; the per-scene loop
+(``cli.train``, ``pipeline.orchestrator``) with the GroupNorm and LayerNorm
+kernels, the post and prob completion variants and the LPIPS refine loss
+(``models.lpips``); and the evaluation protocol (``cli.render``,
+``cli.metrics``, ``cli.summarize``).
 """

@@ -5,16 +5,18 @@ Counterpart of ``syn3r_tpu/cli/train.py`` with the same flags, plus
 ``--rasterizer kernel|tiled|dense`` (the port's ``TrainConfig`` names).
 Loads a COLMAP scene, fits 3DGS and runs the refine-cycle loop with guided
 SVD completion (``--svd_weights``: the converted ``unet.npz``, ``vae.npz``,
-``clip.npz`` of the JAX package) or the warp-only completion without it::
+``clip.npz`` of the JAX package; ``--diffusion_type`` picks the post or
+the prob variant) or the warp-only completion without it, and the LPIPS
+refine loss with ``--lpips_weights`` (the JAX package's converted VGG
+``.npz``)::
 
     python -m syn3r_tpu_torch.cli.train -s <scene> -m <out> --n_views 3
 
 ``main`` is parse -> ``load_colmap_scene`` -> ``build_runner`` -> ``run``;
 ``build_runner`` also takes an in-memory ``SceneData`` and a completion
 callable. Not ported, each raising ``NotImplementedError``:
-``--dust3r_weights``, ``--gmflow_weights``, ``--lpips_weights``,
-``--scene_parallel on``, ``--interp_type forward_warp``, ``--save_debug``
-and ``--diffusion_type 2PassProbUncertain``.
+``--dust3r_weights``, ``--gmflow_weights``, ``--scene_parallel on``,
+``--interp_type forward_warp`` and ``--save_debug``.
 """
 
 from __future__ import annotations
@@ -104,17 +106,24 @@ def _check_ported(args):
     deferred = {
         "--dust3r_weights": args.dust3r_weights is not None,
         "--gmflow_weights": args.gmflow_weights is not None,
-        "--lpips_weights": args.lpips_weights is not None,
         "--scene_parallel on": args.scene_parallel == "on",
         "--interp_type forward_warp": args.interp_type == "forward_warp",
         "--save_debug": args.save_debug,
-        "--diffusion_type 2PassProbUncertain":
-            args.diffusion_type == "2PassProbUncertain",
     }
     for flag, given in deferred.items():
         if given:
             raise NotImplementedError(f"{flag} is not ported to "
                                       "syn3r_tpu_torch")
+
+
+def svd_config(args) -> dict:
+    """The ``GuidedSVDConfig`` fields the flags set."""
+    return dict(
+        num_inference_steps=args.num_inference_steps,
+        num_frames=args.num_frames,
+        variant=("post" if args.diffusion_type == "2PassProbUncertainPost"
+                 else "prob"),
+        guidance_reuse_cfg_uncond=bool(args.guidance_reuse_cfg_uncond))
 
 
 def build_runner(args, scene, completion_fn=None):
@@ -151,13 +160,14 @@ def build_runner(args, scene, completion_fn=None):
         rasterizer=args.rasterizer, tile_cap=args.tile_cap, seed=args.seed)
     trainer = GSTrainer(views, cfg, init, model_path=args.model_path,
                         test_views=test_views, device=dev)
+    if args.lpips_weights:
+        from ..utils.params import load_params
+        trainer.set_lpips(load_params(args.lpips_weights))
     if completion_fn is None and args.svd_weights:
         from ..diffusion.pipeline import load_svd_completion
-        completion_fn = load_svd_completion(
-            args.svd_weights, dev, seed=args.seed,
-            num_inference_steps=args.num_inference_steps,
-            num_frames=args.num_frames,
-            guidance_reuse_cfg_uncond=bool(args.guidance_reuse_cfg_uncond))
+        completion_fn = load_svd_completion(args.svd_weights, dev,
+                                            seed=args.seed,
+                                            **svd_config(args))
     dcfg = DiffusionGSConfig(
         diffusion_width=args.diffusion_width,
         diffusion_height=args.diffusion_height,
@@ -169,6 +179,7 @@ def build_runner(args, scene, completion_fn=None):
         interp_type=args.interp_type,
         disable_densification=args.disable_densification,
         pseudo_cam_sampling_rate=args.pseudo_cam_sampling_rate,
+        use_lpips_loss=bool(args.lpips_weights),
         num_views_for_pcd_densification=args.num_views_for_pcd_densification,
         fps_keyframe_sampling=bool(args.fps_keyframe_sampling),
         reorg_train_views=bool(args.reorg_train_views),

@@ -1,4 +1,5 @@
-"""Guided SVD video completion, the post variant (LLFF / DL3DV default).
+"""Guided SVD video completion: the post variant (LLFF / DL3DV) and the
+prob variant (DTU).
 
 Counterpart of ``syn3r_tpu/diffusion/pipeline.py`` ``GuidedSVDPipeline``
 with its defaults: for one view pair it takes a start frame, the warped
@@ -9,10 +10,14 @@ a lambda schedule, and returns the completed frames.
     224 resize), the float32 VAE encode of all frames in chunks of 8 with
     one shared noise-augmentation draw, cond latents / FACTOR_S.
   - ``denoise``: per step and direction (forward, then the time-flipped
-    backward one), ONE batch-3 UNet forward with batch_groups (1, 2) gives
-    the uncond guidance pass and the CFG pair at the pre-grad latents; the
-    closed-form 4-tile guidance gradient moves the latents, and the Euler
-    step starts from the post-grad latents. Directions merge with
+    backward one). Post (``variant="post"``): ONE batch-3 UNet forward
+    with batch_groups (1, 2) gives the uncond guidance pass and the CFG
+    pair at the pre-grad latents; the closed-form 4-tile guidance gradient
+    moves the latents, and the Euler step starts from the post-grad
+    latents. Prob (``variant="prob"``, ``--diffusion_type
+    2PassProbUncertain``): no guidance pass; one batch-2 CFG forward, then
+    the soft latent replacement step
+    (``scheduler.step_interp_prob_uncertain``). Directions merge with
     w = linspace(1, 0, F); ``latent_num`` draws are averaged.
   - ``decode``: temporal decode in the compute dtype in chunks of
     ``decode_chunk_size`` (the decoder mixes frames within a chunk, so the
@@ -66,16 +71,15 @@ class GuidedSVDConfig:
     # = reference when the latent grid is at least 25 x 57
     guidance_tile_mode: str = "auto"
     compute_dtype: torch.dtype = torch.bfloat16
+    variant: str = "post"           # "post" or "prob"
     # Not ported yet; each raises NotImplementedError when set.
-    variant: str = "post"
     direction_parallel: bool = False
     guidance_through_unet: bool = False
     guidance_reuse_cfg_uncond: bool = False
 
     def __post_init__(self):
-        if self.variant != "post":
-            raise NotImplementedError(
-                f"variant={self.variant!r}: only 'post' is ported")
+        if self.variant not in ("post", "prob"):
+            raise ValueError(f"unknown variant {self.variant!r}")
         for name in ("direction_parallel", "guidance_through_unet",
                      "guidance_reuse_cfg_uncond"):
             if getattr(self, name):
@@ -154,10 +158,23 @@ class GuidedSVDPipeline:
         dt = cfg.compute_dtype
         t = sch.timesteps[step_i]
         sigma = sch.sigmas[step_i]
+        scaled = S.scale_model_input(sch, latents, step_i)
+        if cfg.variant == "prob":
+            # one batch-2 CFG forward, no guidance pass; the soft
+            # replacement step runs in (F, C, h, w)
+            inp2 = torch.stack([
+                torch.cat([scaled, torch.zeros_like(img_lat)], dim=-1),
+                torch.cat([scaled, img_lat], dim=-1)])
+            eps2 = self.m.unet(inp2.to(dt), t, clip_emb.to(dt),
+                               self._added_time_ids(2)).float()
+            eps = eps2[0] + guidance * (eps2[1] - eps2[0])
+            prev, _ = S.step_interp_prob_uncertain(
+                sch, eps.permute(0, 3, 1, 2), latents.permute(0, 3, 1, 2),
+                step_i, cond.permute(0, 3, 1, 2), msk, lam)
+            return prev.permute(0, 2, 3, 1)
         # The guidance pass (batch 1, uncond) and the CFG pair (batch 2)
         # evaluate the same PRE-grad latents as one batch-3 forward; the
         # Euler step then starts from the POST-grad latents.
-        scaled = S.scale_model_input(sch, latents, step_i)
         uncond = torch.cat([scaled, torch.zeros_like(img_lat)], dim=-1)
         inp3 = torch.stack([uncond, uncond,
                             torch.cat([scaled, img_lat], dim=-1)])

@@ -1,12 +1,14 @@
-"""Guided Euler-discrete scheduler for SVD, the post variant's functions.
+"""Guided Euler-discrete scheduler for SVD.
 
 Counterpart of ``syn3r_tpu/diffusion/scheduler.py`` (the reference's
 modified ``scheduling_euler_discrete.py``): the Karras sigma schedule with
 continuous timesteps, the v-prediction Euler step, the per-frame top-k
-latent masks and the reference's closed-form, detached, 4-tile guidance
-gradient. The reference quirks the JAX package keeps are kept here too:
-the ``num_zero`` count over (h, w) only and the sort-cutoff indexing
-(``_frame_top_masks``), and the absolute tile bounds.
+latent masks, the reference's closed-form, detached, 4-tile guidance
+gradient (the post variant) and the soft latent replacement step of the
+prob variant (``step_interp_prob_uncertain``). The reference quirks the
+JAX package keeps are kept here too: the ``num_zero`` count over (h, w)
+only and the sort-cutoff indexing (``_frame_top_masks``), and the
+absolute tile bounds.
 
 Latent tensors in this module are (T, C, H, W) float32.
 """
@@ -64,9 +66,10 @@ def euler_step(schedule: EulerSchedule, sample, pred_x0, step_i):
 
 
 def _frame_top_masks(pred, cond, certain, weight, clamp_lo: float):
-    """Per-frame top-k masks. pred/cond: (T', C, H, W); certain:
-    (T', 1, H, W) bool; weight: (T',). The reference counts the masked-out
-    zeros over (h, w) only, not times C, and cuts the sorted |diff| at
+    """Per-frame top-k masks (T', C, H, W) and their cutoffs (T', 1, 1, 1).
+    pred/cond: (T', C, H, W); certain: (T', 1, H, W) bool; weight: (T',).
+    The reference counts the masked-out zeros over (h, w) only, not times
+    C, and cuts the sorted |diff| at
     int(clamp(weight) * (len - num_zero)) + num_zero; both kept."""
     t = pred.shape[0]
     num_zero = (~certain).reshape(t, -1).sum(dim=1)
@@ -78,7 +81,7 @@ def _frame_top_masks(pred, cond, certain, weight, clamp_lo: float):
     cutoff_e = (w * (n - num_zero)).to(torch.int32) + num_zero
     idx = (cutoff_e - 1).clamp(0, n - 1).long()
     cutoff = sorted_diff.gather(1, idx[:, None])[:, :, None, None]
-    return (masked_diff.abs() <= cutoff) & certain
+    return (masked_diff.abs() <= cutoff) & certain, cutoff
 
 
 def top_k_masks(pred_x0, cond_latents, mask, lambda_row,
@@ -87,8 +90,8 @@ def top_k_masks(pred_x0, cond_latents, mask, lambda_row,
     mask: (T-2, H, W) uncertainty; lambda_row: (T,). Returns bool
     (T, C, H, W)."""
     certain = ((1.0 - mask) > 0.5)[:, None]
-    tops = _frame_top_masks(pred_x0[1:-1], cond_latents[1:-1], certain,
-                            lambda_row[1:-1], clamp_lo)
+    tops, _ = _frame_top_masks(pred_x0[1:-1], cond_latents[1:-1], certain,
+                               lambda_row[1:-1], clamp_lo)
     ones = torch.ones_like(pred_x0[:1], dtype=torch.bool)
     return torch.cat([ones, tops, ones], dim=0)
 
@@ -155,3 +158,43 @@ def step_interp(schedule: EulerSchedule, model_output, sample, step_i):
     """Plain v-prediction Euler step. Returns (prev_sample, pred_x0)."""
     x0 = pred_original_sample(model_output, sample, schedule.sigmas[step_i])
     return euler_step(schedule, sample, x0, step_i), x0
+
+
+def step_interp_prob_uncertain(schedule: EulerSchedule, model_output,
+                               sample, step_i, cond_latents, mask,
+                               lambda_ts, clamp_lo: float = 0.4):
+    """Soft latent replacement step of the prob variant. sample and
+    model_output: (T, C, H, W); cond_latents: (T, C, H, W) warped
+    conditioning latents; mask: (T-2, H, W) uncertainty in [0, 1];
+    lambda_ts: (num_steps, T). Frame t of 1..T-2 blends x0 toward its
+    conditioning latent with w = inv / (1 + inv), inv = 1 / (1 - certain +
+    1e-6), zeroed under 0.51 and where |masked diff| passes the frame's
+    top-k cutoff; the endpoints are replaced. Returns (prev_sample,
+    blended pred_x0)."""
+    x0 = pred_original_sample(model_output, sample, schedule.sigmas[step_i])
+    inner, cond_in = x0[1:-1], cond_latents[1:-1]
+    certain = ((1.0 - mask) > 0.5)[:, None]                # (T-2, 1, H, W)
+    _, cutoff = _frame_top_masks(inner, cond_in, certain,
+                                 lambda_ts[step_i][1:-1], clamp_lo)
+    inv = 1.0 / (1.0 - certain.float() + 1e-6)
+    wgt = inv / (1.0 + inv)
+    wgt = torch.where(wgt >= 0.51, wgt, 0.0)
+    masked_diff = (inner - cond_in) * certain
+    wgt = (masked_diff.abs() <= cutoff).float() * wgt
+    x0 = torch.cat([cond_latents[:1], (1.0 - wgt) * inner + wgt * cond_in,
+                    cond_latents[-1:]])
+    return euler_step(schedule, sample, x0, step_i), x0
+
+
+def undo_step(schedule: EulerSchedule, sample, step_i,
+              generator: torch.Generator, ratio: float = 0.49):
+    """Partial re-noising: sample + noise x sqrt(sigma_i^2 -
+    sigma_{i+1}^2) x ratio, the noise drawn from ``generator``."""
+    noise = torch.randn(sample.shape, generator=generator,
+                        device=sample.device, dtype=sample.dtype)
+    s0, s1 = schedule.sigmas[step_i], schedule.sigmas[step_i + 1]
+    return sample + noise * torch.sqrt(s0 ** 2 - s1 ** 2) * ratio
+
+
+def add_noise(schedule: EulerSchedule, sample, noise, step_i):
+    return sample + noise * schedule.sigmas[step_i]

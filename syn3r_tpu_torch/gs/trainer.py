@@ -18,20 +18,26 @@ step and Adam's count are device tensors, and every result is written
 back into the buffers it read). On a CUDA device that step is captured
 once as a CUDA graph and replayed (``gs/step_graph.py``, the counterpart
 of JAX's ``lax.scan`` segments); it is captured again only when the
-capacity, the view count, the resolution or ``use_depth`` changes. The
-capture bakes in the config's learning rates, loss weights and
-rasterizer, as JAX's trace does. On the CPU it runs eagerly. The per-step path
-(``_train_step``) runs where JAX's does: when the two view sets differ in
-resolution, or for a segment of one step. ``render_views_batch`` replays
-one captured render per camera, like JAX's ``_render_many_jit``.
+capacity, the view count, the resolution, ``use_depth`` or ``use_lpips``
+changes. The capture bakes in the config's learning rates, loss weights
+and rasterizer, as JAX's trace does. On the CPU it runs eagerly. The
+per-step path (``_train_step``) runs where JAX's does: when the two view
+sets differ in resolution, or for a segment of one step.
+``render_views_batch`` replays one captured render per camera, like JAX's
+``_render_many_jit``.
 
 ``TrainConfig.rasterizer``: ``"kernel"`` (the tile composite kernels, the
 default), ``"tiled"`` (the same tiles, plain torch composite) or
 ``"dense"``. ``GSTrainer(..., device="cuda")`` resolves through
 ``device.resolve_device``: the CPU runs only when the caller asks for it.
 
-Not ported, each raising ``NotImplementedError``: the LPIPS loss (needs VGG
-weights, which LLFF never passes) and the monocular-depth pseudo step
+The LPIPS refine loss (``set_lpips`` with the JAX package's converted VGG
+params, gated by ``use_lpips_loss``, which the orchestrator turns on around
+``refine_GS``) adds ``confidence x lpips_weight x LPIPS(render, target)``;
+the LPIPS module takes cuDNN's deterministic convolutions for it and its
+gradient, so a step's graph replay and its per-step run agree bit for
+bit. Not ported, raising
+``NotImplementedError``: the monocular-depth pseudo step
 (``sample_pseudo_interval`` is 1e20 in every shipped config).
 """
 
@@ -48,6 +54,7 @@ import torch
 
 from ..device import resolve_device
 from ..models import gaussians as G
+from ..models.lpips import LPIPS, lpips_module
 from ..ops import rasterize as rz
 from ..ops.composite import composite_tiles
 from ..utils.camera import Camera, make_camera, stack_cameras
@@ -225,6 +232,7 @@ class GSTrainer:
         self.pseudo_views: Optional[ViewSet] = None
         self.pseudo_depths: Optional[torch.Tensor] = None
         self.use_lpips_loss = False
+        self._lpips: Optional[LPIPS] = None
         self.model_path = model_path
         os.makedirs(model_path, exist_ok=True)
         self.extent = max(scene_extent(self.train_views.cameras), 1e-6)
@@ -264,7 +272,7 @@ class GSTrainer:
     def _step_math(self, g: G.GaussianState, adam: AdamState,
                    stats: DensifyStats, camera: Camera, image: torch.Tensor,
                    depth_target, depth_flag, use_depth: bool, lr_means,
-                   corrections=None):
+                   corrections=None, use_lpips: bool = False):
         """One optimization step as math on tensors, shared by the per-step
         path (``_train_step``: host floats) and the static step (device
         scalars), as JAX's ``_step_math`` serves its per-step jit and its
@@ -273,7 +281,8 @@ class GSTrainer:
         computed on the host by the same code on either path, so the paths
         take the same float32 values. ``depth_flag`` gates the depth term (0
         on a train view inside a segment); ``use_depth`` removes it
-        statically. Returns (params, adam, stats, loss), new tensors."""
+        statically, as ``use_lpips`` the LPIPS term. Returns (params, adam,
+        stats, loss), new tensors."""
         cfg = self.cfg
         params = {k: v.detach().requires_grad_(True)
                   for k, v in G.get_params(g).items()}
@@ -283,9 +292,13 @@ class GSTrainer:
         loss = losses.photometric_loss(out.rgb, image,
                                        lambda_dssim=cfg.lambda_dssim,
                                        confidence=camera.confidence)
+        if use_lpips:
+            loss = loss + camera.confidence * cfg.lpips_weight \
+                * self._lpips(out.rgb, image)
         if use_depth:
-            pred_depth = torch.where(out.alpha > 1e-6, out.depth
-                                     / torch.clamp(out.alpha, min=1e-6), 0.0)
+            pred_depth = torch.where(
+                out.alpha > 1e-6,
+                out.depth / torch.clamp(out.alpha, min=1e-6), 0.0)
             loss = loss + depth_flag * cfg.depth_loss_weight \
                 * losses.pearson_depth_loss(pred_depth, depth_target,
                                             valid=depth_target > 0)
@@ -316,16 +329,18 @@ class GSTrainer:
 
     def _train_step(self, ts: TrainState, camera: Camera,
                     image: torch.Tensor, depth_target=None,
-                    use_depth: bool = False) -> tuple[TrainState, dict]:
+                    use_depth: bool = False,
+                    use_lpips: bool = False) -> tuple[TrainState, dict]:
         """One optimization step: returns (new state, {"loss": tensor})."""
         params, adam, stats, loss = self._step_math(
             ts.gaussians, ts.adam, ts.stats, camera, image, depth_target, 1.0,
-            use_depth, position_lr(self.cfg, self.extent, ts.step))
+            use_depth, position_lr(self.cfg, self.extent, ts.step),
+            use_lpips=use_lpips)
         new_ts = TrainState(gaussians=G.with_params(ts.gaussians, params),
                             adam=adam, stats=stats, step=ts.step + 1)
         return new_ts, {"loss": loss}
 
-    def _static_step(self, b: dict, use_depth: bool):
+    def _static_step(self, b: dict, use_depth: bool, use_lpips: bool):
         """One step over the segment buffers ``b`` (``_segment_buffers``),
         in place: entry ``b["j"]`` of the uploaded picks chooses the view
         of the merged set, and of the uploaded scalars the depth flag, the
@@ -346,7 +361,7 @@ class GSTrainer:
         params, adam, stats, loss = self._step_math(
             g, AdamState(mu=b["mu"], nu=b["nu"], count=0),
             DensifyStats(**b["stats"]), cam, image, depth, flag, use_depth,
-            lr, (ic1, ic2))
+            lr, (ic1, ic2), use_lpips)
         with torch.no_grad():
             for k in G.PARAM_FIELDS:
                 b["params"][k].copy_(params[k])
@@ -542,7 +557,7 @@ class GSTrainer:
                 b["depths"].copy_(depths)
 
     def _run_segment(self, merged, idx: np.ndarray, flags: np.ndarray,
-                     use_depth: bool) -> torch.Tensor:
+                     use_depth: bool, use_lpips: bool) -> torch.Tensor:
         """The steps of one segment through the static step: replays of
         its captured graph on CUDA, eager calls on the CPU. ``self.state``
         is copied in and comes back as new tensors, which no later replay
@@ -561,7 +576,7 @@ class GSTrainer:
             b["j"].zero_()
             return min(SEGMENT_STEPS, k - s0)
 
-        key = (g.capacity, merged[1].shape, use_depth)
+        key = (g.capacity, merged[1].shape, use_depth, use_lpips)
         seg = self._segments
         if seg is None or seg.key != key:
             self._segments = seg = None          # free the old capture
@@ -569,7 +584,8 @@ class GSTrainer:
             self._load_segment_state(bufs, merged)
             load(bufs, 0)               # the warm-up runs the first steps
             seg = StepGraph(key, bufs,
-                            lambda b: self._static_step(b, use_depth),
+                            lambda b: self._static_step(b, use_depth,
+                                                        use_lpips),
                             self.device, [composite_tiles.launches])
             self._segments = seg
             self.graph_builds["step"] += 1
@@ -594,6 +610,8 @@ class GSTrainer:
         """Iterations start_iter .. end_iter - 1 by segments, the host
         actions at each boundary in JAX's order."""
         cfg = self.cfg
+        use_lpips = bool(self.use_lpips_loss and self._lpips is not None
+                         and cfg.lpips_weight > 0)
         use_depth = bool(cfg.svd_depth_warmup > 0
                          and self.pseudo_depths is not None
                          and self.pseudo_views is not None
@@ -606,7 +624,8 @@ class GSTrainer:
             k = seg_end - it
             if merged is not None and k > 1:
                 idx, flags = self._pick_segment(it, k)
-                loss = self._run_segment(merged, idx, flags, use_depth)
+                loss = self._run_segment(merged, idx, flags, use_depth,
+                                         use_lpips)
             else:
                 for j in range(k):
                     i, is_pseudo = self._pick_view_index(it + j)
@@ -616,7 +635,8 @@ class GSTrainer:
                     ud = is_pseudo and use_depth
                     depth_t = self.pseudo_depths[i] if ud else None
                     self.state, metrics = self._train_step(
-                        self.state, cam, img, depth_t, use_depth=ud)
+                        self.state, cam, img, depth_t, use_depth=ud,
+                        use_lpips=use_lpips)
                     loss = metrics["loss"]
             it = seg_end
             last = it - 1       # the iteration the boundary checks see
@@ -634,9 +654,13 @@ class GSTrainer:
         return last_loss
 
     def set_lpips(self, params: dict):
-        raise NotImplementedError(
-            "the LPIPS loss is not ported: it needs converted VGG weights, "
-            "and the LLFF preset never passes them")
+        """Install converted LPIPS (VGG) params, the JAX package's tree
+        (``utils.params.load_params`` of its ``.npz``; see
+        ``models/lpips.py``). The loss itself is gated by
+        ``use_lpips_loss``, which the orchestrator turns on around
+        ``refine_GS``."""
+        self._lpips = lpips_module(params, self.device)
+        self._segments = None      # a capture holds the old weights
 
     def set_mono_depth_fn(self, fn):
         raise NotImplementedError(

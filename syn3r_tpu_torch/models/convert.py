@@ -8,7 +8,9 @@ merge into their parent, ``weight`` becomes ``kernel`` or ``scale``;
 ``syn3r_tpu/models/clip.py:convert_clip_torch`` for CLIP). The array at
 that path is transposed back (HWIO -> OIHW, (kt,kh,kw,I,O) -> OIDHW,
 IO -> OI) and loaded. Flax names are never inverted textually:
-``linear_1``, ``to_out_0`` and ``down_blocks_0`` look alike.
+``linear_1``, ``to_out_0`` and ``down_blocks_0`` look alike. LPIPS has
+its own map (``lpips_state_from_flax``): the flax module numbers its
+convolutions, the ``lpips`` package names them by slice and index.
 """
 
 from __future__ import annotations
@@ -119,3 +121,31 @@ def load_flax_params(module: nn.Module, params: dict,
             f"({len(extra)}) {extra[:8]}; shape ({len(mismatched)}) "
             f"{mismatched[:8]}")
     return module
+
+
+def lpips_state_from_flax(params: dict) -> dict:
+    """The JAX package's LPIPS param tree (``net/conv_i/{kernel,bias}`` in
+    HWIO, ``lin_i/kernel``; optionally under a top-level "params") as the
+    state dict of ``models.lpips.LPIPS``, the ``lpips`` package's names
+    (the inverse of ``syn3r_tpu/models/lpips.py:convert_lpips_torch``)."""
+    from .lpips import _CHANNELS, _SCALE, _SHIFT, vgg_conv_keys
+    tree = params.get("params", params)
+    keys = vgg_conv_keys()
+    if (sorted(tree) != sorted(["net"] + [f"lin_{i}" for i in range(5)])
+            or len(tree["net"]) != len(keys)):
+        raise ValueError(f"not an LPIPS param tree: {sorted(tree)}")
+    state = {"scaling_layer.shift": torch.tensor(_SHIFT)[None, :, None, None],
+             "scaling_layer.scale": torch.tensor(_SCALE)[None, :, None, None]}
+    for i, key in enumerate(keys):
+        conv = tree["net"][f"conv_{i}"]
+        state[f"{key}.weight"] = torch.tensor(_to_torch_layout(
+            np.asarray(conv["kernel"], np.float32), "kernel"))
+        state[f"{key}.bias"] = torch.tensor(np.asarray(conv["bias"],
+                                                       np.float32))
+    for i, c in enumerate(_CHANNELS):
+        w = _to_torch_layout(np.asarray(tree[f"lin_{i}"]["kernel"],
+                                        np.float32), "kernel")
+        if w.shape != (1, c, 1, 1):
+            raise ValueError(f"lin_{i}: kernel {w.shape}")
+        state[f"lin{i}.model.1.weight"] = torch.tensor(w)
+    return state

@@ -212,21 +212,23 @@ def test_segment_picks_match_jax(tmp_path, toy, rate):
 
     def j_steps(ts, cams, images, depths, idx, flags, lpips_params=None,
                 use_lpips=False, use_depth=False):
-        want.append((np.asarray(idx), np.asarray(flags), use_depth))
+        want.append((np.asarray(idx), np.asarray(flags), use_depth,
+                     use_lpips))
         return ts, jnp.zeros(len(idx))
 
-    def t_segment(merged, idx, flags, use_depth):
-        got.append((idx, flags, use_depth))
+    def t_segment(merged, idx, flags, use_depth, use_lpips):
+        got.append((idx, flags, use_depth, use_lpips))
         return torch.zeros(())
     jtr._train_steps, ttr._run_segment = j_steps, t_segment
     for tr in (jtr, ttr):
         tr._run_loop(1990, 2100, densify=False, log_every=25)
     assert len(got) == len(want) == 5
-    for (gi, gf, gd), (wi, wf, wd) in zip(got, want):
+    for (gi, gf, gd, gl), (wi, wf, wd, wl) in zip(got, want):
         np.testing.assert_array_equal(gi, wi)
         np.testing.assert_array_equal(gf, wf)
         assert gd == wd is True
-    flags = np.concatenate([f for _, f, _ in got])
+        assert gl == wl is False
+    flags = np.concatenate([f for _, f, _, _ in got])
     assert 0 < flags.sum() < len(flags)       # both kinds of view picked
 
 
@@ -241,9 +243,9 @@ def test_segmented_training_matches_jax_scan(tmp_path, toy, monkeypatch):
     capacities = []
     run_segment = ttr._run_segment
 
-    def segment(merged, idx, flags, use_depth):
+    def segment(merged, idx, flags, use_depth, use_lpips):
         capacities.append(ttr.state.gaussians.capacity)
-        return run_segment(merged, idx, flags, use_depth)
+        return run_segment(merged, idx, flags, use_depth, use_lpips)
     ttr._run_segment = segment
     jtr.training(log_every=0)
     ttr.training(log_every=0)

@@ -1,5 +1,6 @@
 """Parity of the port's scheduler, image helpers, lambda schedule and the
-whole tiny completion unit against the JAX package on the CPU.
+whole tiny completion unit (post variant; the prob variant's denoise)
+against the JAX package on the CPU.
 
 Inputs are uniform random numpy arrays from a seed (so top-k sorts meet no
 ties) fed to both packages. Tolerances: every function and stage computes
@@ -98,6 +99,58 @@ def test_guidance_grad_tiled(h, w, mode):
     _close(got, want)
 
 
+@pytest.mark.parametrize("step_i", [0, 3, 11, 24])
+def test_step_interp_prob_uncertain(step_i):
+    """The prob variant's soft replacement step over several steps of a
+    25-step schedule: a mask with certain and uncertain pixels and
+    lambdas on both sides of the 0.4 clamp."""
+    js, ts = JS.svd_schedule(25), TS.svd_schedule(25)
+    out, sample = _u((F, 4, LH, LW), 40, -1, 1), _u((F, 4, LH, LW), 41, -1, 1)
+    cond = _u((F, 4, LH, LW), 42, -1, 1)
+    mask, lam = _u((F - 2, LH, LW), 43), _u((25, F), 44)
+    args = (out, sample, step_i, cond, mask, lam)
+    want = JS.step_interp_prob_uncertain(
+        js, *(a if isinstance(a, int) else jnp.asarray(a) for a in args))
+    got = TS.step_interp_prob_uncertain(
+        ts, *(a if isinstance(a, int) else torch.from_numpy(a)
+              for a in args))
+    _close(got[0], want[0])
+    _close(got[1], want[1])
+    x0 = got[1].numpy()
+    np.testing.assert_array_equal(x0[[0, -1]], cond[[0, -1]])
+    plain = TS.pred_original_sample(torch.from_numpy(out),
+                                    torch.from_numpy(sample),
+                                    ts.sigmas[step_i]).numpy()
+    moved = np.abs(x0[1:-1] - plain[1:-1]) > 1e-6
+    assert moved.any() and not moved.all()
+
+
+def test_undo_step_and_add_noise():
+    """add_noise against JAX's; undo_step re-noises by
+    sqrt(sigma_i^2 - sigma_{i+1}^2) x ratio with the noise of its
+    generator (JAX's draws from its own key: only the formula compares)."""
+    js, ts = JS.svd_schedule(25), TS.svd_schedule(25)
+    sample = _u((F, 4, LH, LW), 45, -1, 1)
+    noise = np.random.default_rng(46).normal(size=sample.shape).astype(
+        np.float32)
+    for i in (0, 9, 24):
+        _close(TS.add_noise(ts, torch.from_numpy(sample),
+                            torch.from_numpy(noise), i),
+               JS.add_noise(js, jnp.asarray(sample), jnp.asarray(noise), i))
+        got = TS.undo_step(ts, torch.from_numpy(sample), i,
+                           torch.Generator().manual_seed(7), ratio=0.3)
+        draw = torch.randn(sample.shape,
+                           generator=torch.Generator().manual_seed(7)).numpy()
+        s0, s1 = (float(js.sigmas[i]), float(js.sigmas[i + 1]))
+        _close(got, sample + draw * np.sqrt(s0 ** 2 - s1 ** 2) * 0.3)
+        key = jax.random.PRNGKey(7)
+        want_scale = np.asarray(JS.undo_step(js, jnp.zeros_like(sample), i,
+                                             key, ratio=0.3)) / np.asarray(
+            jax.random.normal(key, sample.shape))
+        _close(np.full_like(sample, np.sqrt(s0 ** 2 - s1 ** 2) * 0.3),
+               want_scale)
+
+
 def test_search_hypers_v2():
     for seed, steps in ((11, 40), (12, 100)):
         masks = _u((F - 2, LH, LW), seed)
@@ -188,12 +241,41 @@ def test_pipeline_stages_match_jax(pipelines):
     assert np.abs(got.numpy()[0] - got.numpy()[-1]).max() > 1e-5
 
 
+def test_prob_denoise_matches_jax(pipelines):
+    """variant="prob" (one batch-2 CFG forward a direction and step, the
+    soft replacement step) on the tiny networks: the latents after 3 steps
+    and 2 draws."""
+    jpipe, tpipe = pipelines
+    jprob = JPipeline(jpipe.m, JConfig(
+        num_inference_steps=STEPS, num_frames=F, decode_chunk_size=4,
+        compute_dtype=jnp.float32, variant="prob"))
+    tprob = GuidedSVDPipeline(tpipe.m, GuidedSVDConfig(
+        num_inference_steps=STEPS, num_frames=F, decode_chunk_size=4,
+        compute_dtype=torch.float32, variant="prob"))
+    rng = np.random.default_rng(50)
+    clip_s, clip_e = (np.concatenate([np.zeros((1, 1, 1024), np.float32),
+                                      rng.normal(size=(1, 1, 1024))
+                                      .astype(np.float32)]) for _ in "se")
+    cond = _u((F, LH, LW, 4), 51, -1, 1)
+    lat = rng.normal(size=(2, F, LH, LW, 4)).astype(np.float32)
+    mask = _u((F - 2, LH, LW), 52)
+    lam = (_u((STEPS, F), 53) > 0.4).astype(np.float32)
+    args = (lat, clip_s, clip_e, cond, mask, lam)
+    want = jprob.denoise(*(jnp.asarray(a) for a in args))
+    got = tprob.denoise(*args)
+    _close(got, want)
+    post = tpipe.denoise(*args)
+    assert np.abs(got.numpy() - post.numpy()).max() > 1e-3
+
+
 def test_deferred_options_raise():
-    for kw in ({"variant": "prob"}, {"direction_parallel": True},
+    for kw in ({"direction_parallel": True},
                {"guidance_through_unet": True},
                {"guidance_reuse_cfg_uncond": True}):
         with pytest.raises(NotImplementedError):
             GuidedSVDConfig(**kw)
+    with pytest.raises(ValueError, match="unknown variant"):
+        GuidedSVDConfig(variant="pro")
 
 
 def test_load_svd_completion_from_npz(pipelines, tmp_path, monkeypatch):

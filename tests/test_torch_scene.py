@@ -1,7 +1,10 @@
 """The port's scene loop against the JAX package on the CPU: COLMAP I/O,
 scene loading, ``DiffusionGS.densify_views`` and the structure of a
-one-cycle ``run``, the ``cli.train`` entry point end to end, and the flags
-whose paths are not ported.
+one-cycle ``run``, the DTU preset's branches (the N - 1-pair
+``interpolate_loop0_gs`` chain, ``reorg_train_views=False``, ``refine_GS``
+with ``svd_depth_warmup=1``), the ``cli.train`` entry point end to end
+(also with the DTU flags and ``--lpips_weights``), and the flags whose
+paths are not ported.
 
 Both packages get identical inputs: a tiny COLMAP scene written to
 ``tmp_path`` (PNG renders of a small Gaussian cloud by the JAX renderer)
@@ -9,8 +12,13 @@ and the same Gaussian state. Tolerances: COLMAP values exact (float64
 binary) or to 1e-12 (text); loaded images exact, intrinsics and poses
 1e-6; densify poses and frames 1e-5 absolute (float32 slerp; the renders
 behind the warp come from JAX's tiled composite and the port's plain one,
-the same formulas in another order).
+the same formulas in another order); the refine view stack exact; a
+refine with pseudo depths: the depths 1e-5 absolute but at 0.1% of the
+pixels, where a Gaussian at the 1/255 alpha cutoff passes it in one
+package only (up to 1e-2 there), then 12 steps 1e-4 relative and 1e-5
+absolute (the bound of tests/test_torch_gs_segments.py).
 """
+import dataclasses
 import os
 
 import jax.numpy as jnp
@@ -194,8 +202,9 @@ def test_load_colmap_scene_matches_jax(scene_dir, kw):
         assert got.points_xyz.shape == (500, 3)
 
 
-def _trainers(cloud, tmp_path, iterations=0):
-    """A JAX and a port trainer on the same three views and state."""
+def _trainers(cloud, tmp_path, iterations=0, **over):
+    """A JAX and a port trainer on the same three views and state;
+    ``over``: further ``TrainConfig`` fields of both."""
     gt, xyz, _ = cloud
     cams = _cameras(3)
     imgs = np.stack([np.asarray(j_render(gt, c, chunk=64, group=1).rgb)
@@ -204,7 +213,7 @@ def _trainers(cloud, tmp_path, iterations=0):
                                                                      0.5)),
                           capacity=128)
     kw = dict(iterations=iterations, densify_from_iter=10 ** 9, tile_cap=256,
-              chunk=64)
+              chunk=64, **over)
     jtr = JT.GSTrainer(JT.make_viewset(cams, imgs),
                        JT.TrainConfig(rasterizer="tiled", group=1, **kw),
                        init, model_path=str(tmp_path / "jax"))
@@ -239,6 +248,106 @@ def test_densify_views_matches_jax(cloud, tmp_path):
                                    atol=1e-5)
         np.testing.assert_allclose(got_f[pi, -1].numpy(),
                                    imgs[order[(pi + 1) % 3]], atol=1e-5)
+
+
+@pytest.mark.parametrize("densify_type,reorg", [
+    ("interpolate_loop0_gs", True), ("interpolate_gs_v2", False),
+    ("interpolate_loop0_gs", False)])
+def test_dtu_densify_branches_match_jax(cloud, tmp_path, densify_type,
+                                        reorg):
+    """The DTU preset's pair topology (the N - 1-pair chain of
+    'interpolate_loop0_gs') and train-view order (reorg_train_views=False:
+    the loaded order, no TSP): the same pairs, poses and frames as JAX."""
+    jtr, ttr, imgs = _trainers(cloud, tmp_path)
+    kw = dict(diffusion_width=W, diffusion_height=H, num_frames=5,
+              num_inference_steps=5, densify_type=densify_type,
+              reorg_train_views=reorg)
+    jrun = JO.DiffusionGS(jtr, JO.DiffusionGSConfig(**kw),
+                          save_dir=str(tmp_path / "jd"))
+    trun = TO.DiffusionGS(ttr, TO.DiffusionGSConfig(**kw),
+                          save_dir=str(tmp_path / "td"))
+    order = trun._ordered_train_indices()
+    assert order == jrun._ordered_train_indices()
+    if not reorg:
+        assert order == [0, 1, 2]
+    want_f, want_p = jrun.densify_views(0)
+    got_f, got_p = trun.densify_views(0)
+    pairs = 2 if densify_type == "interpolate_loop0_gs" else 3
+    assert got_f.shape == (pairs, 5, H, W, 3)
+    np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p), rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(got_f.numpy(), np.asarray(want_f), rtol=0,
+                               atol=1e-5)
+    for pi in range(pairs):
+        np.testing.assert_allclose(got_f[pi, -1].numpy(),
+                                   imgs[order[(pi + 1) % 3]], atol=1e-5)
+
+
+@pytest.mark.parametrize("densify_type", ["interpolate_gs_v2",
+                                          "interpolate_loop0_gs"])
+def test_refine_view_stack_matches_jax(cloud, tmp_path, densify_type):
+    """Each pair's frames[:-1]; the chain appends its last frame."""
+    jtr, ttr, _ = _trainers(cloud, tmp_path)
+    rng = np.random.default_rng(5)
+    frames = rng.uniform(0, 1, (2, 5, H, W, 3)).astype(np.float32)
+    poses = rng.normal(size=(2, 5, 4, 4)).astype(np.float32)
+    cfg = dict(densify_type=densify_type)
+    want = JO.DiffusionGS(jtr, JO.DiffusionGSConfig(**cfg),
+                          save_dir=str(tmp_path / "jd"))._refine_view_stack(
+        jnp.asarray(frames), jnp.asarray(poses))
+    got = TO.DiffusionGS(ttr, TO.DiffusionGSConfig(**cfg),
+                         save_dir=str(tmp_path / "td"))._refine_view_stack(
+        torch.from_numpy(frames), torch.from_numpy(poses))
+    n = 8 + (densify_type == "interpolate_loop0_gs")
+    for g, w in zip(got, want):
+        assert g.shape[0] == n
+        np.testing.assert_array_equal(g, np.asarray(w))
+
+
+def test_refine_gs_with_depth_warmup_matches_jax(cloud, tmp_path):
+    """refine_GS with svd_depth_warmup=1 on the same frames and poses: the
+    pseudo views at their confidence, the GS-resolution depths rendered at
+    the pseudo poses, then 12 finetune steps (pseudo picks with the depth
+    term) from the same state."""
+    over = dict(svd_depth_warmup=1, start_sample_svd_iter=2,
+                sample_svd_pseudo_interval=1)
+    jtr, ttr, imgs = _trainers(cloud, tmp_path, iterations=12, **over)
+    # anisotropic and rotated: an isotropic Gaussian's quaternion gradient
+    # is 0 up to roundoff, which Adam turns into a step of +-lr
+    rng = np.random.default_rng(6)
+    g = jtr.state.gaussians
+    g = g.replace(log_scales=g.log_scales + jnp.asarray(
+                      rng.uniform(-0.5, 0.5, g.log_scales.shape), jnp.float32),
+                  quats=jnp.asarray(rng.normal(size=g.quats.shape),
+                                    jnp.float32))
+    jtr.state = dataclasses.replace(jtr.state, gaussians=g)
+    ttr.state = dataclasses.replace(ttr.state,
+                                    gaussians=TG.gaussians_from_numpy(g))
+    kw = dict(diffusion_width=W, diffusion_height=H, num_frames=5,
+              num_inference_steps=5, pseudo_cam_sampling_rate=0.5,
+              densify_type="interpolate_loop0_gs")
+    jrun = JO.DiffusionGS(jtr, JO.DiffusionGSConfig(**kw),
+                          save_dir=str(tmp_path / "jd"))
+    trun = TO.DiffusionGS(ttr, TO.DiffusionGSConfig(**kw),
+                          save_dir=str(tmp_path / "td"))
+    frames, poses = jrun.densify_views(0)
+    want = jrun.refine_GS(frames, poses, cycle=0)
+    got = trun.refine_GS(torch.tensor(np.asarray(frames)),
+                         torch.tensor(np.asarray(poses)), cycle=0)
+    assert len(ttr.pseudo_views) == len(jtr.pseudo_views) == 2 * 4 + 1
+    # a Gaussian whose alpha sits at the 1/255 cutoff may pass it in one
+    # package and not in the other: a step of up to ~depth / 255 there
+    d = np.abs(ttr.pseudo_depths.numpy() - np.asarray(jtr.pseudo_depths))
+    assert (d > 1e-5).mean() <= 1e-3 and d.max() < 1e-2
+    assert float(ttr.pseudo_depths.max()) > 1.0
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    tol = dict(rtol=1e-4, atol=1e-5)
+    for f in TG.PARAM_FIELDS:
+        np.testing.assert_allclose(getattr(ttr.gaussians, f).numpy(),
+                                   np.asarray(getattr(jtr.gaussians, f)),
+                                   **tol, err_msg=f)
+    assert ttr.state.step == int(jtr.state.step) == 12
+    assert ttr.latest_checkpoint().endswith("refine_0_chkpnt12.npz")
 
 
 def test_run_one_cycle_structure(cloud, tmp_path):
@@ -310,11 +419,48 @@ def test_cli_train_main_on_cpu(scene_dir, tmp_path):
     assert torch.isfinite(rgb).all() and rgb.shape == (H, W, 3)
 
 
+def test_cli_train_dtu_flags_on_cpu(scene_dir, tmp_path):
+    """The DTU preset's flags with --lpips_weights (the JAX package's
+    converted VGG npz): 2 chained pairs in the loaded order, the trainer
+    holds LPIPS, and refine's segment ran with it; the prob variant is
+    what --diffusion_type 2PassProbUncertain gives load_svd_completion."""
+    from syn3r_tpu.utils.params import save_params
+    from scripts.kernel_timing import random_lpips_params
+    
+    weights = str(tmp_path / "lpips.npz")
+    save_params(random_lpips_params(0), weights)
+    out = tmp_path / "model"
+    runner = CLI.main([
+        "-s", scene_dir, "-m", str(out), "--n_views", "3",
+        "--diffusion_type", "2PassProbUncertain",
+        "--densify_type", "interpolate_loop0_gs", "--reorg_train_views", "0",
+        "--cam_confidence", "0.05", "--lambda_dssim", "0.5",
+        "--sample_svd_pseudo_interval", "1", "--refine_cycle_num", "1",
+        "--iterations", "6", "--start_sample_svd_frame", "2",
+        "--diffusion_width", str(W), "--diffusion_height", str(H),
+        "--num_frames", "5", "--num_inference_steps", "4",
+        "--tile_cap", "256", "--lpips_weights", weights, "--device", "cpu",
+        "--log_every", "0"])
+    tr = runner.trainer
+    assert runner.cfg.use_lpips_loss and tr._lpips is not None
+    assert not tr.use_lpips_loss             # on only inside refine_GS
+    assert tr._segments.key[-1] is True      # refine ran the LPIPS step
+    assert tr.cfg.lambda_dssim == 0.5
+    assert len(tr.pseudo_views) == 2 * 4 + 1
+    assert sorted(os.listdir(out / "dense_views")) == [
+        f"interpolated_dense_views_cyc0_view{p}.npz" for p in range(2)]
+    assert os.path.exists(out / "refine_0_chkpnt6.npz")
+    args = CLI.build_parser().parse_args(
+        ["-s", "x", "-m", "y", "--diffusion_type", "2PassProbUncertain"])
+    assert CLI.svd_config(args)["variant"] == "prob"
+    args.diffusion_type = "2PassProbUncertainPost"
+    assert CLI.svd_config(args)["variant"] == "post"
+
+
 @pytest.mark.parametrize("flags", [
     ["--dust3r_weights", "w.npz"], ["--gmflow_weights", "w.npz"],
-    ["--lpips_weights", "w.npz"], ["--scene_parallel", "on"],
-    ["--interp_type", "forward_warp"], ["--save_debug"],
-    ["--diffusion_type", "2PassProbUncertain"]])
+    ["--scene_parallel", "on"], ["--interp_type", "forward_warp"],
+    ["--save_debug"]])
 def test_deferred_flags_raise(tmp_path, flags):
     """Each deferred flag raises before the scene is read."""
     with pytest.raises(NotImplementedError, match="not ported"):
