@@ -67,6 +67,32 @@ Phases, one result line each; any failure raises and the exit code is not 0:
               version at the kernels phase's tolerance; both composite
               kernels against their plain versions on one 400x300 test
               view's tile lists.
+  5e. vision  DUSt3R ViT-L/512 and the public GMFlow (128 channels, 6
+              layers) at full width with random float32 weights from seeds
+              (scripts/vision_weights.py, saved as the npz the dl3dv phase
+              loads), each on the card against the same weights on the CPU:
+              one 288x512 pair (pts and conf: max-abs, rel-RMS, ms a pair,
+              TFLOP/s, a kernel profile) and one 540x960 flow (544 rows, in
+              pixels); the known-pose alignment card against CPU at a small
+              size.
+  5f. dl3dv   the DL3DV preset (cli/batch.py's flags: --n_views 9
+              --cam_confidence 0.2 --rand_pcd --images images_4
+              --num_views_for_pcd_densification 4 --fps_keyframe_sampling 1
+              ..., --lpips_weight 1) with the scene phase's cuts, through
+              cli/train.build_runner + run on a synthetic scan written as
+              COLMAP under images_4/ at 960x540 (11 images, 2 test views),
+              with --lpips_weights, --dust3r_weights and --gmflow_weights
+              (random) and the unit's post completion: 2 cycles x 9 pairs.
+              Launches exact as in the scene phase; densify_pcd in both
+              cycles (keyframes, the frames the flow gate kept, pairs and
+              edges, points fused, downsampled and kept, both ply files read
+              back), the reset (cycle 0) and the append (cycle 1), every GS
+              segment replaying a capture of its own capacity (a new capture
+              at each capacity change), all finite; the densify_pcd time
+              split into DUSt3R forwards, alignment, flow gate and outlier
+              removal. Both composite kernels against their plain versions
+              (and their skip bits) on a 960x540 test view's lists (T 255),
+              with the tiles that overflow tile_cap counted.
   6. kernels  the tile-composite forward and backward kernels against their
               plain versions at the GS main path's shapes (T 96 tiles,
               px 2048, cap 1024, K 128), on G/C/O from projecting and binning
@@ -100,7 +126,8 @@ Phases, one result line each; any failure raises and the exit code is not 0:
               segment from graph replays held bit for bit to the per-step
               path, exact composite launches; the step's replay time with
               LPIPS off and on in turns (off, on, on, off).
-The JSON kernel table takes its launches from the scene phase.
+The JSON kernel table takes its launches from the scene phase, and its
+launches_by_phase from the unit, gs, scene, dtu, dl3dv and lpips phases.
 The line before the last is the JSON kernel table, after it the
 nvidia-smi line, and the last line is {"ok": true, "device": {...}}.
 Details also go to chiprun_out/chip_smoke.json.
@@ -145,12 +172,17 @@ from syn3r_tpu_torch.pipeline.completion import search_hypers_v2
 from syn3r_tpu_torch.utils import colmap as CM
 from syn3r_tpu_torch.utils.camera import (camera_from_fov, look_at_w2c,
                                           stack_cameras)
+from syn3r_tpu_torch.utils.params import load_params
+from syn3r_tpu_torch.utils.ply import read_ply_points
+from syn3r_tpu_torch.vision import dust3r as D3
+from syn3r_tpu_torch.vision import gmflow_public as GF
 from scripts.kernel_timing import (ATTN_SHAPES, FFN_SHAPES, GN_SHAPES,
                                    GS_CAP, GS_H, GS_W, LN_SHAPES,
                                    SmiSampler, cuda_ms, gs_points,
                                    gs_replays, gs_scene, gs_tile_lists,
                                    random_lpips_params, save_params,
                                    window_iters)
+from scripts.vision_weights import random_dust3r_params, random_gmflow_params
 
 # Published dense peaks of one H100 SXM (data sheet), for bound_ms.
 PEAK_BF16_FLOPS = 989e12
@@ -248,6 +280,45 @@ DTU_PAIRS, DTU_CYCLES, DTU_TEST = 2, 2, 2
 # takes cuDNN's deterministic convolutions while LPIPS is on).
 LPIPS_STEPS = 100
 LPIPS_TOL = (1e-6, 1e-4)
+# the vision phase: DUSt3R ViT-L/512 and the public GMFlow (128 channels,
+# 6 layers) at full width with random float32 weights from seeds
+# (scripts/vision_weights.py), saved as the npz trees that the dl3dv
+# phase's --dust3r_weights / --gmflow_weights read; each network on the
+# card against the same weights on the CPU, float32 on both sides with TF32
+# off, sums in another order. DUSt3R: allclose atol 1e-4, rtol 1e-4 (its
+# outputs are O(1), 36 blocks of float32 sums). GMFlow: 1e-2 px absolute:
+# the flow is an expectation over the 8,160 cells of the 1/8 grid, up to
+# ~120 cells (x8 px) apart, so a relative error of ~1e-5 in the softmax
+# weights moves it by ~1e-3 px (and the propagation by as much again);
+# the gate's threshold is 3 px. The alignment (VISION_ALIGN: views, pixels,
+# steps) on a small input: depths and scales rtol 1e-3, as its CPU test.
+VISION_SEEDS = {"dust3r": 21, "gmflow": 22}
+DUST3R_TOL, GMFLOW_TOL_PX, ALIGN_RTOL = (1e-4, 1e-4), 1e-2, 1e-3
+DUST3R_HW, GMFLOW_HW = (288, 512), (540, 960)
+VISION_ALIGN = (4, (36, 64), 300)
+# the dl3dv phase: cli/batch.py's DL3DV preset (its flags copied here: the
+# port has no batch.py) with --lpips_weight 1 (SURVEY section 2.4,
+# batch_dl3dv_train.sh) and the scene phase's cuts, on a synthetic scan
+# written as COLMAP under images_4/ at 960x540 (the gs phase's truth from
+# DL3DV_IMAGES cameras; llffhold 8 makes images 0 and 8 the test views and
+# --n_views 9 takes the other 9), with random LPIPS, DUSt3R and GMFlow
+# weights and the unit's post completion: 2 cycles x 9 wrap-around pairs.
+DL3DV_FLAGS = ["--n_views", "9", "--diffusion_type",
+               "2PassProbUncertainPost", "--cam_confidence", "0.2",
+               "--rand_pcd", "--images", "images_4",
+               "--num_views_for_pcd_densification", "4",
+               "--fps_keyframe_sampling", "1",
+               "--sample_svd_pseudo_interval", "1", "--svd_depth_warmup", "1",
+               "--use_proximity_densify", "0",
+               "--densify_grad_threshold", "0.0002", "--percent_dense",
+               "0.001", "--refine_cycle_num", "2", "--lpips_weight", "1",
+               "--dataset", "dl3dv",
+               "--num_inference_steps", str(STEPS),
+               "--iterations", str(GS_ITERS), "--start_sample_svd_frame",
+               "100"]
+DL3DV_IMAGES, DL3DV_W, DL3DV_H = 11, 960, 540
+# 9 views, so 9 wrap-around pairs a cycle
+DL3DV_VIEWS, DL3DV_CYCLES, DL3DV_TEST = 9, 2, 2
 # elementwise operations per element, for the norm bounds (memory bounds
 # them all): stats add + fma; apply fma (+ exp, add, divide for SiLU);
 # LayerNorm add, fma, subtract, 2 multiplies, add
@@ -645,12 +716,15 @@ def composite_pairs(tl):
     return live, hit
 
 
-def skip_report(tl, keep):
+def skip_report(tl, keep, at_cut=None):
     """A composite kernel's keep bits ``keep`` (TC.keep_words_to_mask
     layout) on the tile lists ``tl``: (entry, warp rectangle) pairs with
     opacity >= 1/255, how many the kernel kept, how many it skipped though
     some pixel of the rectangle has alpha >= 1/255 (must be 0), and its
-    disagreements with the plain mirror ``TC.reach_mask``."""
+    disagreements with the plain mirror ``TC.reach_mask``. With ``at_cut``
+    ((T, cap) bool, ``cutoff_pairs``), the skipped pairs with a hit are
+    counted only on the other entries: at a cut the plain alpha may pass
+    1/255 where the exact test does not."""
     T, _, cap = tl.G.shape
     pm = TC.bwd_pixel_map(tl.P.shape[1]).to(tl.G.device).reshape(-1, 128)
     live_rect = (pm >= 0).any(1)
@@ -663,6 +737,8 @@ def skip_report(tl, keep):
                  * torch.exp(praw.clamp(max=0.0))).clamp(max=TC.ALPHA_MAX)
         hit = (alpha >= TC.ALPHA_MIN)[:, :, pm.clamp_min(0)] & (pm >= 0)
         hit = hit.any(-1).transpose(1, 2)                  # (T, n_rect, K)
+        if at_cut is not None:
+            hit &= ~at_cut[:, None, sl]
         missed += int((hit & ~keep[:, :, sl]).sum())
     mirror = TC.reach_mask(tl.P, tl.G, tl.O, tl.K)
     pairs, kept = int(opaque.sum()), int((keep & opaque).sum())
@@ -1163,22 +1239,22 @@ def run_scene(pipe, unit_launches):
     return res
 
 
-def write_dtu_scene(dev, root):
-    """A synthetic DTU scan as COLMAP: the gs phase's truth rendered at
-    400x300 from DTU_IMAGES cameras in an arc, saved at 1600x1200 (bicubic
-    upsample) with the intrinsics of that size; bench.py's points as the
-    sparse cloud; and, for the two test views, masks named as cli/render
-    names its frames: an ellipse over the middle of the view."""
+def write_colmap_scan(dev, root, n_images, width, height, scale=1,
+                      images_dir="images", fov_y=0.7):
+    """A synthetic scan as COLMAP: the gs phase's truth rendered at
+    width x height from n_images cameras in an arc (fov 0.9 x fov_y),
+    saved ``scale`` times larger (bicubic upsample) under ``images_dir``
+    with the intrinsics of that size; bench.py's points as the sparse
+    cloud."""
     from PIL import Image
     _, gt, _ = gs_truth(dev)
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(os.path.join(root, "sparse", "0"))
-    os.makedirs(os.path.join(root, "images"))
-    os.makedirs(os.path.join(root, "mask"))
-    big_w, big_h = DTU_W * DTU_SCALE, DTU_H * DTU_SCALE
+    os.makedirs(os.path.join(root, images_dir))
+    big_w, big_h = width * scale, height * scale
     images = {}
-    for i, x in enumerate(np.linspace(-0.45, 0.45, DTU_IMAGES)):
-        cam = camera_from_fov(0.9, 0.7, DTU_W, DTU_H,
+    for i, x in enumerate(np.linspace(-0.45, 0.45, n_images)):
+        cam = camera_from_fov(0.9, fov_y, width, height,
                               look_at_w2c([x, 0.03 * i, 0.0],
                                           [0.0, 0.0, 2.5]), device=dev)
         with torch.no_grad():
@@ -1186,13 +1262,14 @@ def write_dtu_scene(dev, root):
         img = Image.fromarray((rgb.clamp(0, 1) * 255).round().byte()
                               .cpu().numpy())
         name = f"{i:03d}.png"
-        img.resize((big_w, big_h), Image.BICUBIC).save(
-            os.path.join(root, "images", name), compress_level=1)
+        if scale != 1:
+            img = img.resize((big_w, big_h), Image.BICUBIC)
+        img.save(os.path.join(root, images_dir, name), compress_level=1)
         w2c = cam.w2c.cpu().numpy().astype(np.float64)
         images[i + 1] = CM.ColmapImage(
             i + 1, CM.rotmat_to_qvec(w2c[:3, :3]), w2c[:3, 3], 1, name,
             np.zeros((0, 2)), np.zeros((0,), np.int64))
-    K = cam.K.cpu().numpy().astype(np.float64) * DTU_SCALE
+    K = cam.K.cpu().numpy().astype(np.float64) * scale
     cams = {1: CM.ColmapCamera(1, "PINHOLE", big_w, big_h, np.array(
         [K[0, 0], K[1, 1], K[0, 2], K[1, 2]]))}
     xyz, rgb, _ = gs_points()
@@ -1202,6 +1279,16 @@ def write_dtu_scene(dev, root):
     CM.write_points3d_binary(CM.ColmapPoints3D(
         xyz.astype(np.float64), np.round(rgb * 255).astype(np.uint8),
         np.zeros(len(xyz))), os.path.join(sparse, "points3D.bin"))
+
+
+def write_dtu_scene(dev, root):
+    """A synthetic DTU scan (``write_colmap_scan``: DTU_IMAGES renders at
+    400x300 saved at 1600x1200) and, for the two test views, masks named
+    as cli/render names its frames: an ellipse over the middle of the
+    view."""
+    from PIL import Image
+    write_colmap_scan(dev, root, DTU_IMAGES, DTU_W, DTU_H, DTU_SCALE)
+    os.makedirs(os.path.join(root, "mask"))
     yy, xx = np.mgrid[:DTU_H, :DTU_W]
     inside = (((xx - DTU_W / 2) / (0.35 * DTU_W)) ** 2
               + ((yy - DTU_H / 2) / (0.38 * DTU_H)) ** 2) <= 1.0
@@ -1421,31 +1508,62 @@ def cutoff_pairs(tl):
     return lo_px, at_cut, n_lo, n_hi
 
 
-def check_composite_view(tr, cam):
+def tile_overflow(sg, height, width, cap, tile_h=32, tile_w=64):
+    """Tiles whose Gaussians (the 3-sigma boxes of ``RZ.bin_tiles``' hit
+    test) outnumber ``cap``, which bin_tiles truncates to the nearest
+    ``cap``, as JAX does; and the largest count."""
+    ty, tx = -(-height // tile_h), -(-width // tile_w)
+    tiles = torch.arange(ty * tx, device=sg.center.device)
+    tx0 = ((tiles % tx) * tile_w).float()[:, None]
+    ty0 = ((tiles // tx) * tile_h).float()[:, None]
+    c, r = sg.center, torch.where(sg.valid, sg.radius, 0.0)
+    ok = (sg.valid & (sg.opacity > 0))[None, :]
+    counts = (ok & (c[:, 0] + r >= tx0) & (c[:, 0] - r < tx0 + tile_w)
+              & (c[:, 1] + r >= ty0) & (c[:, 1] - r < ty0 + tile_h)).sum(1)
+    return int((counts > cap).sum()), int(counts.max())
+
+
+def check_composite_view(tr, cam, phase="dtu"):
     """Both composite kernels against their plain versions on the tile
-    lists of one 400x300 test view of the trained dtu scan, binned as the
-    trainer bins them. COMPOSITE_TOL everywhere, except where a pair lies
-    at a cut of alpha (``cutoff_pairs``; a trained scene has such pairs,
-    the gs cell's lists had none): the forward may differ at such a pixel
-    by what the pairs there can move it, each at most 2 x 1.01/255 x the
-    tile's largest |C| of the row (the pair's own weight, and the same
-    share of the weights behind it), and -log(1 - 1.01/255) on logT; the
-    gradients are held on every entry without such a pair (the gradient of
-    a random output cotangent)."""
+    lists of one test view of a trained scan (400x300 in the dtu phase,
+    960x540 in the dl3dv phase), binned as the trainer bins them.
+    COMPOSITE_TOL everywhere, except where a pair lies at a cut of alpha
+    (``cutoff_pairs``; a trained scene has such pairs, the gs cell's lists
+    had none): the forward may differ at such a pixel by what the pairs
+    there can move it, each at most 2 x 1.01/255 x the tile's largest |C|
+    of the row (the pair's own weight, and the same share of the weights
+    behind it), and -log(1 - 1.01/255) on logT; the gradients are held on
+    every entry without such a pair (the gradient of a random output
+    cotangent). Each kernel's skip bits as in the kernels phase
+    (``skip_report``: no disagreement with the plain mirror, nothing kept
+    below 1/255 opacity, no pair skipped with a hit off the cuts). Also
+    counts the tiles whose lists overflow ``tile_cap``."""
     cfg, cam = tr.cfg, cam.to(tr.device)
     with torch.no_grad():
         sg = RZ.project_gaussians(tr.gaussians, cam, sh_degree=cfg.sh_degree)
         tl = RZ.bin_tiles(sg, cam.height, cam.width, cap=cfg.tile_cap,
                           chunk=min(cfg.chunk, cfg.tile_cap))
+        overflow, most = tile_overflow(sg, cam.height, cam.width,
+                                       cfg.tile_cap)
     args = (tl.P, tl.G, tl.C, tl.O)
-    out, ltc = TC.composite_fwd(*args, tl.K)
+    out, ltc, keep_fwd = TC.composite_fwd_launch(*args, tl.K, keep_bits=True)
     out_ref, ltc_ref = TC.composite_fwd_reference(*args, tl.K)
     g = torch.Generator(device=tr.device).manual_seed(6)
     dout = torch.randn(out_ref.shape, generator=g, device=tr.device)
-    got = TC.composite_bwd(*args, ltc_ref, dout, tl.K)
+    *got, keep_bwd = TC.composite_bwd_launch(*args, ltc_ref, dout, tl.K)
     want = TC.composite_bwd_reference(*args, ltc_ref, dout, tl.K)
     torch.cuda.synchronize()
     lo_px, at_cut, n_lo, n_hi = cutoff_pairs(tl)
+    skips = {}
+    for name, keep in (("composite_fwd", keep_fwd), ("composite_bwd",
+                                                     keep_bwd)):
+        skips[name] = skip_report(tl, TC.keep_words_to_mask(keep, tl.K),
+                                  at_cut)
+        if any(skips[name][k] for k in ("skipped_with_hit",
+                                        "kept_outside_opaque",
+                                        "mirror_disagreements")):
+            raise AssertionError(f"{phase} view {name} skip test: "
+                                 f"{skips[name]}")
     a_cut = 1.01 * TC.ALPHA_MIN
     log_jump = -math.log1p(-a_cut)
     jump = torch.cat([2 * a_cut * tl.C.abs().amax(2),
@@ -1460,26 +1578,332 @@ def check_composite_view(tr, cam):
         beyond += int((err > tol).sum())
         bad = int((err > tol + lo_px[:, None, :] * j).sum())
         if bad or not bool(torch.isfinite(a).all()):
-            raise AssertionError(f"dtu view composite_fwd {n}: {bad} "
+            raise AssertionError(f"{phase} view composite_fwd {n}: {bad} "
                                  "elements beyond tolerance and the cut's "
                                  f"allowance; max_abs {err.max().item()}")
         fwd.append(err.where(off_cut, 0.0).max().item())
         at.append(err.where(~off_cut, 0.0).max().item())
     keep = ~at_cut
-    bwd = [check_grads(f"dtu view composite_bwd {n}",
+    bwd = [check_grads(f"{phase} view composite_bwd {n}",
                        a.transpose(1, 2)[keep], b.transpose(1, 2)[keep])
            for n, a, b in zip(("dG", "dC", "dO"), got, want)]
     if not all(bool(torch.isfinite(a).all()) for a in got):
-        raise AssertionError("dtu view composite_bwd: not finite")
+        raise AssertionError(f"{phase} view composite_bwd: not finite")
     T, _, cap = tl.G.shape
     res = dict(width=cam.width, height=cam.height, tiles=T,
-               px=tl.P.shape[1], cap=cap, K=tl.K, pairs_at_1_255=n_lo,
+               px=tl.P.shape[1], cap=cap, K=tl.K,
+               gaussians=tr.gaussians.num_active,
+               tiles_over_cap=overflow, most_in_a_tile=most,
+               pairs_at_1_255=n_lo,
                pairs_at_0_99=n_hi, entries_at_a_cut=int(at_cut.sum()),
                fwd_elements_beyond_tol_at_a_cut=beyond,
                fwd_max_abs_err=max(fwd), fwd_max_abs_err_at_a_cut=max(at),
                bwd_max_abs_err=max(e[0] for e in bwd),
-               bwd_rel_rms_err=max(e[1] for e in bwd))
-    say("dtu", what="composite kernels vs plain on a test view", **res)
+               bwd_rel_rms_err=max(e[1] for e in bwd),
+               skip={k: {f: v[f] for f in ("removed_fraction",
+                                           "skipped_with_hit",
+                                           "mirror_disagreements")}
+                     for k, v in skips.items()})
+    say(phase, what="composite kernels vs plain on a test view", **res)
+    return res
+
+
+def dust3r_flops(model, n):
+    """FLOPs (two a multiply-add) of one pair through ``model`` at n
+    tokens a view: the patch embedding, the encoder blocks (24 n e^2 + 4 n^2
+    e a view: projections, MLP, the two attention products), the decoder
+    embedding, the decoder blocks (32 n d^2 + 8 n^2 d a stream: self- and
+    cross-attention, MLP) and the heads."""
+    p = model.patch
+    e = model.enc_blocks[0].mlp.fc1.in_features
+    d = model.dec_blocks[0].mlp.fc1.in_features
+    enc = 24 * n * e * e + 4 * n * n * e             # a block, one view
+    dec = 32 * n * d * d + 8 * n * n * d             # a block, one stream
+    return 2 * (2 * n * 3 * p * p * e + len(model.enc_blocks) * enc
+                + 2 * n * e * d + len(model.dec_blocks) * dec
+                + 2 * n * d * 4 * p * p)
+
+
+def kernel_profile(fn, top=8):
+    """One call of ``fn`` under torch.profiler: its wall ms, the device's
+    kernel ms and idle share, and the ``top`` kernels by device ms (with
+    their launches)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    kernels = {ev.key: (ev.self_device_time_total / 1e3, ev.count)
+               for ev in prof.key_averages()
+               if ev.self_device_time_total and "CUDA" in str(ev.device_type)}
+    busy = sum(ms for ms, _ in kernels.values())
+    return dict(wall_ms=wall, kernel_ms=busy, idle_share=1 - busy / wall,
+                launches=sum(n for _, n in kernels.values()),
+                top=[dict(name=k[:90], ms=ms, launches=n) for k, (ms, n) in
+                     sorted(kernels.items(), key=lambda kv: -kv[1][0])[:top]])
+
+
+def vision_errors(name, got, want, atol, rtol):
+    """allclose(got, want) or raise; (max-abs, rel-RMS)."""
+    got, want = got.float().cpu(), want.float()
+    max_abs, rel_rms = errors(got, want)
+    if (got.shape != want.shape or not bool(torch.isfinite(got).all())
+            or not torch.allclose(got, want, rtol=rtol, atol=atol)):
+        raise AssertionError(f"vision {name}: card against CPU max_abs "
+                             f"{max_abs} rel_rms {rel_rms} beyond ({atol}, "
+                             f"{rtol}), shapes {got.shape} {want.shape}")
+    return max_abs, rel_rms
+
+
+def run_vision(dev):
+    """DUSt3R ViT-L/512 and GMFlowPublic at full width, each on the card
+    against the CPU on the same random weights (loaded on the card from
+    the npz the dl3dv phase passes to cli/train), and the known-pose
+    alignment card against CPU at a small size. Returns the results and
+    the two npz paths."""
+    root = os.path.join(BUILD_OUT, "vision")
+    os.makedirs(root, exist_ok=True)
+    gen = torch.Generator().manual_seed(23)
+    res, paths = {}, {}
+    for name, make, load in (("dust3r", random_dust3r_params, D3.load_dust3r),
+                             ("gmflow", random_gmflow_params, GF.load_gmflow)):
+        t0 = time.perf_counter()
+        params = make(VISION_SEEDS[name])
+        paths[name] = os.path.join(root, f"{name}.npz")
+        save_params(params, paths[name])
+        card = load(load_params(paths[name]), dev)
+        cpu = load(params, "cpu")
+        del params
+        n_params = sum(t.numel() for t in card.parameters())
+        h, w = DUST3R_HW if name == "dust3r" else GMFLOW_HW
+        a, b = (torch.rand((1, h, w, 3), generator=gen) for _ in range(2))
+        ad, bd = a.to(dev), b.to(dev)
+        with torch.no_grad():
+            t1 = time.perf_counter()
+            want = cpu(a, b)
+            cpu_s = time.perf_counter() - t1
+            got = card(ad, bd)
+            ms = cuda_ms(lambda: card(ad, bd), 5)
+            prof = kernel_profile(lambda: card(ad, bd))
+        torch.cuda.synchronize()
+        row = dict(params=n_params, weights_s=t1 - t0, input=[h, w],
+                   cpu_s=cpu_s, ms=ms, profile=prof)
+        if name == "dust3r":
+            row["errors"] = {k: vision_errors(k, got[k], want[k],
+                                              *DUST3R_TOL) for k in want}
+            flops = dust3r_flops(card, (h // card.patch) * (w // card.patch))
+            row.update(tflop=flops / 1e12, tflop_per_s=flops / ms / 1e9,
+                       share_of_f32_peak=flops / ms / 1e9 / (
+                           PEAK_F32_FLOPS / 1e12))
+        else:
+            # the stride-2 stages round up (540 -> 270, 135, 68): 544 rows
+            rows = h
+            for _ in range(3):
+                rows = -(-rows // 2)
+            rows *= 8
+            if got.shape != (1, rows, w, 2):
+                raise AssertionError(f"vision gmflow: flow {got.shape}, "
+                                     f"expected {rows} rows at {h}")
+            row["errors"] = {"flow_px": vision_errors(
+                "flow", got, want, GMFLOW_TOL_PX, 0.0)}
+            row["flow_shape"] = list(got.shape)
+            row["flow_abs_max"] = want.abs().max().item()
+        res[name] = row
+        say("vision", name=name, **row)
+        del card, cpu, got, want
+        torch.cuda.empty_cache()
+
+    # the alignment: V views of (H, W), every pair's two edges, STEPS
+    v, (h, w), steps = VISION_ALIGN
+    pv = [(i, i) for i, j in D3.make_pairs(v)] + [
+        (j, i) for i, j in D3.make_pairs(v)]
+    e = len(pv)
+    pts = torch.randn((e, h, w, 3), generator=gen) * 0.1 + torch.tensor(
+        [0.0, 0.0, 2.0])
+    conf = 1.0 + torch.rand((e, h, w), generator=gen)
+    c2w = torch.eye(4).repeat(v, 1, 1)
+    c2w[:, 0, 3] = torch.linspace(0.0, 0.3, v)
+    K = torch.tensor([[50.0, 0, w / 2], [0, 50.0, h / 2], [0, 0, 1]])
+    init = torch.ones((v, h, w))
+    args = (pts, conf, torch.tensor(pv), c2w, K, init)
+    want = D3.global_align_known_poses(*args, iters=steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = D3.global_align_known_poses(*(x.to(dev) for x in args),
+                                      iters=steps)
+    torch.cuda.synchronize()
+    align_s = time.perf_counter() - t0
+    errs = {}
+    for k, g, wt in zip(("depths", "scales", "loss"), got, want):
+        g = g.cpu()
+        if not torch.allclose(g, wt, rtol=ALIGN_RTOL, atol=0.0):
+            raise AssertionError(f"vision alignment {k}: card against CPU "
+                                 f"{errors(g, wt)} beyond rtol {ALIGN_RTOL}")
+        errs[k] = errors(g, wt)
+    res["align"] = dict(views=v, edges=e, pixels=[h, w], steps=steps,
+                        seconds=align_s, errors=errs,
+                        loss=float(want[2]))
+    say("vision", name="align", **res["align"])
+    return res, paths
+
+
+def run_dl3dv(pipe, unit, weights):
+    """The DL3DV preset as a user runs it: cli/train's parser with the
+    preset's flags and the three weight files, the scan loaded by
+    load_colmap_scene, build_runner with the unit's post completion, run.
+    Checks the launches as the scene phase does, densify_pcd in both
+    cycles (frames kept by the gate, pairs and edges, point counts, the
+    ply files read back), the reset (cycle 0) and append (cycle 1), that
+    every GS segment replays a capture of the capacity it runs at (a
+    capture after each capacity change), everything finite; then both
+    composite kernels against their plain versions on a 960x540 test
+    view's lists (T 255)."""
+    root = os.path.join(BUILD_OUT, "dl3dv")
+    shutil.rmtree(root, ignore_errors=True)
+    scan = os.path.join(BUILD_OUT, "dl3dv_scan")
+    t0 = time.perf_counter()
+    fov_y = 2 * math.atan(math.tan(0.45) * DL3DV_H / DL3DV_W)
+    write_colmap_scan(pipe.device, scan, DL3DV_IMAGES, DL3DV_W, DL3DV_H,
+                      images_dir="images_4", fov_y=fov_y)
+    lpips_npz = os.path.join(BUILD_OUT, "vision", "lpips_vgg.npz")
+    save_params(random_lpips_params(13), lpips_npz)
+    out = os.path.join(root, "synthetic_scene")
+    args = cli_train.build_parser().parse_args(
+        ["-s", scan, "-m", out] + DL3DV_FLAGS
+        + ["--lpips_weights", lpips_npz, "--dust3r_weights",
+           weights["dust3r"], "--gmflow_weights", weights["gmflow"]])
+    scene = load_colmap_scene(args.source_path, images_dir=args.images,
+                              resolution=args.resolution,
+                              n_views=args.n_views, llffhold=args.llffhold,
+                              rand_pcd=args.rand_pcd, seed=args.seed)
+    if (scene.train_images.shape != (DL3DV_VIEWS, DL3DV_H, DL3DV_W, 3)
+            or len(scene.test_cameras) != DL3DV_TEST):
+        raise AssertionError(f"dl3dv scan: train {scene.train_images.shape},"
+                             f" {len(scene.test_cameras)} test views")
+    units = []
+
+    def completion(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        frames = pipe(*a)
+        torch.cuda.synchronize()
+        units.append(dict(seconds=time.perf_counter() - t,
+                          finite=bool(torch.isfinite(frames).all())))
+        return frames
+
+    runner = cli_train.build_runner(args, scene, completion_fn=completion)
+    setup_s = time.perf_counter() - t0
+    tr = runner.trainer
+    segments, resets = [], []
+    run_segment, reset = tr._run_segment, tr.reset_gaussians_from_pcd
+
+    def recorded_segment(*a, **k):
+        cap = tr.state.gaussians.capacity
+        loss = run_segment(*a, **k)
+        segments.append((cap, tr._segments.key[0], tr.graph_builds["step"]))
+        return loss
+
+    def recorded_reset(xyz, rgb, append_to_old_gaussians=False):
+        before = tr.state.gaussians.capacity
+        reset(xyz, rgb, append_to_old_gaussians)
+        g = tr.state.gaussians
+        resets.append(dict(points=len(xyz), append=append_to_old_gaussians,
+                           capacity_before=before, capacity=g.capacity,
+                           active=g.num_active))
+    tr._run_segment, tr.reset_gaussians_from_pcd = (recorded_segment,
+                                                    recorded_reset)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    runner.run(log_every=0)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del tr._run_segment, tr.reset_gaussians_from_pcd
+
+    n_units = DL3DV_VIEWS * DL3DV_CYCLES
+    if len(units) != n_units or not all(u["finite"] for u in units):
+        raise AssertionError(f"dl3dv: completion units {units}")
+    want = {k: n_units * unit["launches"][k] for k in
+            ("geglu_ffn", "flash_attention", "gn_stats", "gn_apply",
+             "layer_norm")}
+    steps = GS_ITERS * (1 + DL3DV_CYCLES)
+    if any(launches[k] != v for k, v in want.items()) or \
+            launches["composite_bwd"] != steps or \
+            launches["composite_fwd"] <= steps:
+        raise AssertionError(f"dl3dv launches {launches}: expected {want}, "
+                             f"composite_bwd {steps}, composite_fwd more")
+    # densify_pcd in both cycles: the gate, the pairs, the points, the ply
+    pcd = {}
+    for c in range(DL3DV_CYCLES):
+        log = runner.pcd_logs.get(c)
+        if log is None:
+            raise AssertionError(f"dl3dv: no densify_pcd in cycle {c}")
+        xyz, rgb = read_ply_points(os.path.join(
+            runner.save_dir, f"dense_views_cyc{c}.ply"))
+        n = log["frames"]
+        if (len(log["key_idx"]) != DL3DV_VIEWS * 3 or len(xyz) != log["kept"]
+                or not 0 < log["kept"] <= log["downsampled"] <= log["fused"]
+                or not np.isfinite(xyz).all() or rgb.shape != xyz.shape):
+            raise AssertionError(f"dl3dv densify_pcd cycle {c}: {log}, ply "
+                                 f"{xyz.shape}")
+        pcd[c] = dict(keyframes=len(log["key_idx"]), frames=n,
+                      gate_kept=[i for i, k in enumerate(log["gate_keep"])
+                                 if k and not log["input_flags"][i]],
+                      gate_means=[m for m in log["gate_means"]
+                                  if m is not None],
+                      pairs=n * (n - 1) // 2, edges=n * (n - 1),
+                      fused=log["fused"], every_k=log["every_k"],
+                      downsampled=log["downsampled"], kept=log["kept"],
+                      ply_points=len(xyz))
+    if ([r["append"] for r in resets] != [False, True]
+            or [r["points"] for r in resets] != [pcd[0]["kept"],
+                                                 pcd[1]["kept"]]
+            or resets[0]["active"] != pcd[0]["kept"]):
+        raise AssertionError(f"dl3dv resets {resets}")
+    # every replay of a capture made at the capacity it runs at, and a new
+    # capture whenever the capacity changes
+    stale = [s for s in segments if s[0] != s[1]]
+    missed = [(a, b) for a, b in zip(segments, segments[1:])
+              if b[0] != a[0] and b[2] != a[2] + 1]
+    caps = {s[0] for s in segments}
+    if stale or missed or any(r["capacity"] not in caps for r in resets):
+        raise AssertionError(f"dl3dv captures: stale {stale}, no new "
+                             f"capture {missed}, resets {resets}")
+    rgb = tr.render_view(tr.train_views.cameras.at(0))["render"]
+    if not bool(torch.isfinite(rgb).all()) or not bool(
+            torch.isfinite(tr.gaussians.means).all()):
+        raise AssertionError("dl3dv: final state not finite")
+    composite_view = check_composite_view(tr, scene.test_cameras[0],
+                                          "dl3dv")
+    if composite_view["tiles"] != 255:
+        raise AssertionError(f"dl3dv view: {composite_view['tiles']} tiles")
+
+    phases = {k: v["total_s"] for k, v in runner.timer.summary().items()}
+    split = dict(dust3r_forward_s=runner.dust3r_fn.timer.totals[
+        "dust3r_forward"], dust3r_align_s=runner.dust3r_fn.timer.totals[
+        "dust3r_align"], flow_gate_s=phases.get("pcd_flow_gate", 0.0),
+        outliers_s=phases.get("pcd_outliers", 0.0))
+    n_pairs = sum(p["pairs"] for p in pcd.values())
+    res = dict(flags=" ".join(DL3DV_FLAGS),
+               cuts="num_inference_steps 2 (from 100), iterations 300 "
+                    "(from 10000), start_sample_svd_frame 100 (from 2000)",
+               setup_s=setup_s, total_s=total_s, phases_s=phases,
+               densify_pcd_split_s=split,
+               dust3r_ms_per_pair=1e3 * split["dust3r_forward_s"] / n_pairs,
+               unit_s=[u["seconds"] for u in units], pcd=pcd,
+               resets=resets, segments=len(segments),
+               captures=dict(tr.graph_builds),
+               capacities=sorted(caps), peak_mem_gb=peak_gb,
+               launches=launches, active=tr.gaussians.num_active,
+               composite_view=composite_view)
+    say("dl3dv", **res)
     return res
 
 
@@ -1889,6 +2313,8 @@ def main():
     dtu, dtu_census, dtu_shapes = run_dtu(pipe, unit, census)
     dtu_norm_rows = check_norms(dtu_census, dev)
     dtu_kernel_rows = check_unet_kernels(dtu_shapes, dev)
+    vision, weights = run_vision(dev)
+    dl3dv = run_dl3dv(pipe, unit, weights)
     del pipe                 # the GS phases measure their own peak memory
     torch.cuda.empty_cache()
     comp = check_composite(dev)
@@ -1898,6 +2324,7 @@ def main():
     by_phase = {"unit": unit["launches"],
                 "gs": {f"composite_{k}": v for k, v in gs["launches"].items()},
                 "scene": scene["launches"], "dtu": dtu["launches"],
+                "dl3dv": dl3dv["launches"],
                 "lpips": {f"composite_{k}": v
                           for k, v in lpips["launches"].items()}}
 
@@ -1943,6 +2370,7 @@ def main():
                    "composite": comp, "gs_small": gs_small, "gs": gs,
                    "scene": scene, "dtu": dtu, "dtu_norms": dtu_norm_rows,
                    "dtu_kernels": dtu_kernel_rows,
+                   "vision": vision, "dl3dv": dl3dv,
                    "lpips": lpips, "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -13,6 +13,9 @@ kernels; and the 3DGS train step (``gs.trainer.GSTrainer``), with the tile
 composite's forward and backward kernels; the per-scene loop
 (``cli.train``, ``pipeline.orchestrator``) with the GroupNorm and LayerNorm
 kernels, the post and prob completion variants and the LPIPS refine loss
-(``models.lpips``); and the evaluation protocol (``cli.render``,
-``cli.metrics``, ``cli.summarize``).
+(``models.lpips``); the evaluation protocol (``cli.render``,
+``cli.metrics``, ``cli.summarize``); and the DL3DV preset's vision branch
+(``vision.dust3r``, ``vision.gmflow_public``, ``vision.gmflow``,
+``pipeline.orchestrator.DiffusionGS.densify_pcds``, ``cli.generate_pcd``),
+in float32 outside the kernels as in JAX.
 """

@@ -6,17 +6,20 @@ Counterpart of ``syn3r_tpu/cli/train.py`` with the same flags, plus
 Loads a COLMAP scene, fits 3DGS and runs the refine-cycle loop with guided
 SVD completion (``--svd_weights``: the converted ``unet.npz``, ``vae.npz``,
 ``clip.npz`` of the JAX package; ``--diffusion_type`` picks the post or
-the prob variant) or the warp-only completion without it, and the LPIPS
+the prob variant) or the warp-only completion without it, the LPIPS
 refine loss with ``--lpips_weights`` (the JAX package's converted VGG
-``.npz``)::
+``.npz``), and the DL3DV point-cloud densification with
+``--dust3r_weights`` (the JAX package's ``Dust3R`` flax tree as a flat
+``.npz``, the network's widths and depths read from its shapes) and its
+frame-quality gate with ``--gmflow_weights`` (a ``GMFlowPublic`` tree)::
 
     python -m syn3r_tpu_torch.cli.train -s <scene> -m <out> --n_views 3
 
 ``main`` is parse -> ``load_colmap_scene`` -> ``build_runner`` -> ``run``;
 ``build_runner`` also takes an in-memory ``SceneData`` and a completion
 callable. Not ported, each raising ``NotImplementedError``:
-``--dust3r_weights``, ``--gmflow_weights``, ``--scene_parallel on``,
-``--interp_type forward_warp`` and ``--save_debug``.
+``--scene_parallel on``, ``--interp_type forward_warp`` and
+``--save_debug``.
 """
 
 from __future__ import annotations
@@ -60,8 +63,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--svd_weights", default=None,
                    help="dir with converted SVD/CLIP/VAE params (.npz); "
                         "without it the warp-only completion runs")
-    p.add_argument("--dust3r_weights", default=None)
-    p.add_argument("--gmflow_weights", default=None)
+    p.add_argument("--dust3r_weights", default=None,
+                   help="a Dust3R flax tree (.npz): the DUSt3R point-cloud "
+                        "densification")
+    p.add_argument("--gmflow_weights", default=None,
+                   help="a GMFlowPublic flax tree (.npz): the flow gate of "
+                        "that densification")
     # GS optimization
     p.add_argument("--iterations", type=int, default=10_000)
     p.add_argument("--lambda_dssim", type=float, default=0.2)
@@ -104,8 +111,6 @@ def build_parser() -> argparse.ArgumentParser:
 def _check_ported(args):
     """Raise NotImplementedError for a flag whose path is not ported."""
     deferred = {
-        "--dust3r_weights": args.dust3r_weights is not None,
-        "--gmflow_weights": args.gmflow_weights is not None,
         "--scene_parallel on": args.scene_parallel == "on",
         "--interp_type forward_warp": args.interp_type == "forward_warp",
         "--save_debug": args.save_debug,
@@ -136,6 +141,7 @@ def build_runner(args, scene, completion_fn=None):
     from ..gs.trainer import GSTrainer, TrainConfig, make_viewset
     from ..models import gaussians as G
     from ..pipeline.orchestrator import DiffusionGS, DiffusionGSConfig
+    from ..utils.params import load_params
 
     _check_ported(args)
     dev = resolve_device(args.device)
@@ -161,7 +167,6 @@ def build_runner(args, scene, completion_fn=None):
     trainer = GSTrainer(views, cfg, init, model_path=args.model_path,
                         test_views=test_views, device=dev)
     if args.lpips_weights:
-        from ..utils.params import load_params
         trainer.set_lpips(load_params(args.lpips_weights))
     if completion_fn is None and args.svd_weights:
         from ..diffusion.pipeline import load_svd_completion
@@ -184,7 +189,17 @@ def build_runner(args, scene, completion_fn=None):
         fps_keyframe_sampling=bool(args.fps_keyframe_sampling),
         reorg_train_views=bool(args.reorg_train_views),
         seed=args.seed)
-    return DiffusionGS(trainer, dcfg, completion_fn=completion_fn)
+    dust3r_fn = flow_fn = None
+    if args.dust3r_weights:
+        from ..vision.dust3r import load_dust3r, make_dust3r_fn
+        dust3r_fn = make_dust3r_fn(load_dust3r(
+            load_params(args.dust3r_weights), dev))
+    if args.gmflow_weights:
+        from ..vision.gmflow_public import load_gmflow, make_flow_fn
+        flow_fn = make_flow_fn(load_gmflow(load_params(args.gmflow_weights),
+                                           dev))
+    return DiffusionGS(trainer, dcfg, completion_fn=completion_fn,
+                       dust3r_fn=dust3r_fn, flow_fn=flow_fn)
 
 
 def main(argv=None):

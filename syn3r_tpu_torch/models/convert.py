@@ -10,10 +10,15 @@ that path is transposed back (HWIO -> OIHW, (kt,kh,kw,I,O) -> OIDHW,
 IO -> OI) and loaded. Flax names are never inverted textually:
 ``linear_1``, ``to_out_0`` and ``down_blocks_0`` look alike. LPIPS has
 its own map (``lpips_state_from_flax``): the flax module numbers its
-convolutions, the ``lpips`` package names them by slice and index.
+convolutions, the ``lpips`` package names them by slice and index. DUSt3R
+and the public GMFlow have theirs too (``dust3r_state_from_flax``,
+``gmflow_state_from_flax``): the inverses of the JAX package's converters
+from the public checkpoints, which fuse, split and permute weights.
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -149,3 +154,131 @@ def lpips_state_from_flax(params: dict) -> dict:
             raise ValueError(f"lin_{i}: kernel {w.shape}")
         state[f"lin{i}.model.1.weight"] = torch.tensor(w)
     return state
+
+
+def _tree(params: dict) -> dict:
+    return params.get("params", params)
+
+
+def _dense(node: dict, out: dict, key: str) -> None:
+    """A flax Dense (kernel (I, O)) as torch ``key.weight`` (O, I) and
+    ``key.bias`` when it has one."""
+    out[f"{key}.weight"] = np.asarray(node["kernel"]).T
+    if "bias" in node:
+        out[f"{key}.bias"] = np.asarray(node["bias"])
+
+
+def _norm(node: dict, out: dict, key: str) -> None:
+    out[f"{key}.weight"] = np.asarray(node["scale"])
+    out[f"{key}.bias"] = np.asarray(node["bias"])
+
+
+def _conv(node: dict, out: dict, key: str) -> None:
+    """A flax Conv (kernel HWIO) as torch ``key.weight`` (OIHW)."""
+    out[f"{key}.weight"] = np.asarray(node["kernel"]).transpose(3, 2, 0, 1)
+    if "bias" in node:
+        out[f"{key}.bias"] = np.asarray(node["bias"])
+
+
+def _numbered(tree: dict, prefix: str) -> int:
+    return sum(1 for k in tree if re.fullmatch(prefix + r"_\d+", k))
+
+
+def dust3r_state_from_flax(params: dict) -> dict:
+    """The JAX package's ``Dust3R`` param tree (optionally under "params")
+    as the public DUSt3R checkpoint's state dict (numpy values), the names
+    of ``vision.dust3r.Dust3R``: the inverse of ``syn3r_tpu/vision/
+    dust3r.py:convert_dust3r_torch``. q, k and v concatenate into ``qkv``;
+    the kernels transpose (the patch embedding back from HWIO); the heads'
+    output features return from flax's (p, p, 4) order to
+    ``pixel_shuffle``'s (4, p, p). The checkpoint has one ``dec_norm``
+    where the flax tree has ``head1_norm`` and ``head2_norm``: they must be
+    equal, else this raises."""
+    tree = _tree(params)
+    out: dict = {}
+    _conv(tree["patch_embed"], out, "patch_embed.proj")
+
+    def attn(node, key):
+        out[f"{key}.qkv.weight"] = np.concatenate(
+            [np.asarray(node[n]["kernel"]).T for n in "qkv"])
+        out[f"{key}.qkv.bias"] = np.concatenate(
+            [np.asarray(node[n]["bias"]) for n in "qkv"])
+        _dense(node["proj"], out, f"{key}.proj")
+
+    def mlp(node, key):
+        _dense(node["fc1"], out, f"{key}.fc1")
+        _dense(node["fc2"], out, f"{key}.fc2")
+
+    for i in range(_numbered(tree, "enc")):
+        node, key = tree[f"enc_{i}"], f"enc_blocks.{i}"
+        _norm(node["norm1"], out, f"{key}.norm1")
+        attn(node["attn"], f"{key}.attn")
+        _norm(node["norm2"], out, f"{key}.norm2")
+        mlp(node["mlp"], f"{key}.mlp")
+    _norm(tree["enc_norm"], out, "enc_norm")
+    _dense(tree["decoder_embed"], out, "decoder_embed")
+    for stream, prefix in (("dec_blocks", "dec1"), ("dec_blocks2", "dec2")):
+        for i in range(_numbered(tree, prefix)):
+            node, key = tree[f"{prefix}_{i}"], f"{stream}.{i}"
+            _norm(node["norm1"], out, f"{key}.norm1")
+            attn(node["attn"], f"{key}.attn")
+            _norm(node["norm2"], out, f"{key}.norm2")
+            _norm(node["norm_y"], out, f"{key}.norm_y")
+            for n in "qkv":
+                _dense(node["cross_attn"][n], out, f"{key}.cross_attn.proj{n}")
+            _dense(node["cross_attn"]["proj"], out, f"{key}.cross_attn.proj")
+            _norm(node["norm3"], out, f"{key}.norm3")
+            mlp(node["mlp"], f"{key}.mlp")
+    n1, n2 = tree["head1_norm"], tree["head2_norm"]
+    if not all(np.array_equal(n1[k], n2[k]) for k in ("scale", "bias")):
+        raise ValueError("head1_norm and head2_norm differ: the public "
+                         "checkpoint has one dec_norm for both heads")
+    _norm(n1, out, "dec_norm")
+    for i in (1, 2):
+        node = tree[f"head{i}_proj"]
+        kernel = np.asarray(node["kernel"])             # (D, 4 p^2)
+        p = int(round((kernel.shape[1] // 4) ** 0.5))
+        # flax feature a*4p + b*4 + c is pixel_shuffle's c*p^2 + a*p + b
+        perm = (np.arange(4)[None, None, :] * p * p
+                + np.arange(p)[:, None, None] * p
+                + np.arange(p)[None, :, None]).reshape(-1)
+        inv = np.argsort(perm)
+        out[f"downstream_head{i}.proj.weight"] = kernel.T[inv]
+        out[f"downstream_head{i}.proj.bias"] = np.asarray(node["bias"])[inv]
+    return out
+
+
+def gmflow_state_from_flax(params: dict) -> dict:
+    """The JAX package's ``GMFlowPublic`` param tree (optionally under
+    "params") as the public gmflow checkpoint's state dict (numpy values),
+    the names of ``vision.gmflow_public.GMFlowPublic``: the inverse of
+    ``syn3r_tpu/vision/gmflow_public.py:convert_gmflow_torch`` (its
+    instance norms carry no weights)."""
+    tree = _tree(params)
+    out: dict = {}
+    bb = tree["backbone"]
+    _conv(bb["conv1"], out, "backbone.conv1")
+    for stage in (1, 2, 3):
+        for blk in (0, 1):
+            node, key = bb[f"layer{stage}_{blk}"], f"backbone.layer{stage}.{blk}"
+            _conv(node["conv1"], out, f"{key}.conv1")
+            _conv(node["conv2"], out, f"{key}.conv2")
+            if "downsample" in node:
+                _conv(node["downsample"], out, f"{key}.downsample.0")
+    _conv(bb["conv2"], out, "backbone.conv2")
+    tr = tree["transformer"]
+    for i in range(_numbered(tr, "layers")):
+        for sub in ("self_attn", "cross_attn_ffn"):
+            node, key = tr[f"layers_{i}"][sub], f"transformer.layers.{i}.{sub}"
+            for n in ("q_proj", "k_proj", "v_proj", "merge"):
+                _dense(node[n], out, f"{key}.{n}")
+            _norm(node["norm1"], out, f"{key}.norm1")
+            if "norm2" in node:
+                _norm(node["norm2"], out, f"{key}.norm2")
+                _dense(node["mlp_0"], out, f"{key}.mlp.0")
+                _dense(node["mlp_2"], out, f"{key}.mlp.2")
+    for n in ("q_proj", "k_proj"):
+        _dense(tree["feature_flow_attn"][n], out, f"feature_flow_attn.{n}")
+    _conv(tree["upsampler_0"], out, "upsampler.0")
+    _conv(tree["upsampler_2"], out, "upsampler.2")
+    return out

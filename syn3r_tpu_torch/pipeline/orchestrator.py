@@ -15,6 +15,13 @@ input views (``init_GS``), then per cycle resume from the latest checkpoint
     the GS resolution (antialiased cubic) and cache the pair as
     ``interpolated_dense_views_cyc{c}_view{p}.npz`` (a cache of another
     shape is recomputed);
+  - ``densify_pcds`` (the DL3DV preset, with a ``dust3r_fn``): keyframes
+    per pair (farthest-point over covisibility or evenly spaced, the last
+    dropped), a GMFlow frame-quality gate against the GS render (with a
+    ``flow_fn``), DUSt3R on the frames resized to width 512 with the poses
+    fixed, a uniform downsample to ~1e5 points and statistical outlier
+    removal, ``dense_views_cyc{c}.ply``; ``run`` then resets the Gaussians
+    from the cloud (cycle 0) or appends it (later cycles);
   - ``refine_GS``: the pairs' frames (each pair's last frame dropped) become
     pseudo views at ``cam_confidence`` and the trainer finetunes.
 
@@ -23,9 +30,7 @@ mask, lambda_ts, generator) -> (F, H, W, 3)``: a ``GuidedSVDPipeline`` or,
 without weights, ``_warp_only_completion``.
 
 Not ported, each raising ``NotImplementedError``: ``pair_parallel``
-(multi-GPU), ``save_debug`` (``utils/debug_dump.py``), a ``dust3r_fn`` or
-``flow_fn`` (the point-cloud densification of the vision branch;
-``densify_pcds`` returns None without them, as in JAX) and
+(multi-GPU), ``save_debug`` (``utils/debug_dump.py``) and
 ``interp_type="forward_warp"``.
 """
 
@@ -40,8 +45,13 @@ import torch
 
 from ..gs.trainer import GSTrainer, order_cameras_tsp
 from ..utils.camera import Camera, make_camera
-from ..utils.image import resize_cubic_antialiased, resize_nearest
+from ..utils.image import (resize_bilinear, resize_cubic_antialiased,
+                           resize_nearest)
+from ..utils.pcd import remove_statistical_outliers
+from ..utils.ply import write_ply_points
 from ..utils.profiling import PhaseTimer
+from ..utils.se3 import se3_inverse
+from ..vision.gmflow import correspondence_mask
 from . import completion as C
 
 
@@ -98,18 +108,23 @@ class DiffusionGS:
                  save_dir: Optional[str] = None,
                  dust3r_fn: Optional[Callable] = None,
                  flow_fn: Optional[Callable] = None):
-        if dust3r_fn is not None or flow_fn is not None:
-            raise NotImplementedError(
-                "point-cloud densification (dust3r_fn, flow_fn) is not "
-                "ported: it belongs to the vision branch")
+        """completion_fn(image_start, cond_images, image_end, mask,
+        lambda_ts, generator) -> (F, H, W, 3); dust3r_fn(frames, c2w, K) ->
+        (xyz, rgb) turns on the point-cloud densification
+        (``vision.dust3r.make_dust3r_fn``); flow_fn(a, b) -> flow its
+        frame-quality gate (``vision.gmflow_public.make_flow_fn``)."""
         self.trainer = trainer
         self.cfg = config
         self.device = trainer.device
         self.completion_fn = completion_fn or self._warp_only_completion
+        self.dust3r_fn = dust3r_fn
+        self.flow_fn = flow_fn
         self.save_dir = save_dir or os.path.join(trainer.model_path,
                                                  "dense_views")
         os.makedirs(self.save_dir, exist_ok=True)
         self.timer = PhaseTimer()
+        # what densify_pcds chose and counted, by cycle
+        self.pcd_logs: dict[int, dict] = {}
 
         # GS intrinsics and resolution from camera 0, and the intrinsics
         # scaled to the diffusion resolution
@@ -269,10 +284,85 @@ class DiffusionGS:
                 torch.stack([results[pi][1] for pi in range(num_pairs)]))
 
     def densify_pcds(self, frames, poses, cycle: int):
-        """Point-cloud densification: None here (it needs the vision
-        branch's dust3r_fn, which is not ported)."""
-        del frames, poses, cycle
-        return None
+        """DUSt3R point cloud of the keyframes of the completed pairs:
+        frames (P, F, Hgs, Wgs, 3), poses (P, F, 4, 4) w2c. Returns (xyz,
+        rgb) numpy, or None without a dust3r_fn or with at most one
+        keyframe a pair."""
+        cfg = self.cfg
+        if cfg.num_views_for_pcd_densification <= 1 or self.dust3r_fn is None:
+            return None
+        p, f = frames.shape[:2]
+        poses_np = torch.as_tensor(poses).cpu().numpy()
+        # keyframes per pair, sorted, the last dropped (it is the next
+        # pair's first); frame 0 of a pair is an input view, and so is the
+        # chain's very last frame
+        key_idx, input_flags = [], []
+        for pi in range(p):
+            if cfg.fps_keyframe_sampling:
+                loc = sorted(C.fps_keyframes(
+                    poses_np[pi], cfg.num_views_for_pcd_densification))
+            else:
+                loc = list(np.linspace(0, f - 1,
+                                       cfg.num_views_for_pcd_densification,
+                                       dtype=int))
+            for i in loc[:-1]:
+                key_idx.append(pi * f + int(i))
+                input_flags.append(int(i) == 0)
+        if cfg.densify_type == "interpolate_loop0_gs":
+            key_idx.append((p - 1) * f + f - 1)
+            input_flags.append(True)
+        flat_frames = torch.as_tensor(frames, device=self.device).reshape(
+            -1, *frames.shape[2:])[key_idx]
+        flat_poses = C.pose_tensor(poses, self.device).reshape(-1, 4, 4)[
+            key_idx]
+        log = self.pcd_logs[cycle] = dict(key_idx=key_idx,
+                                          input_flags=input_flags)
+
+        # the frame-quality gate: forward-backward flow consistency against
+        # the GS render; input frames always pass, and it applies only if
+        # at least two frames pass
+        if self.flow_fn is not None:
+            with self.timer.phase("pcd_flow_gate", sync=True):
+                rendered, _ = self.render_many_gs_res(flat_poses)
+                keep, means = [], []
+                for i in range(len(key_idx)):
+                    mean = None
+                    if not input_flags[i]:
+                        mean = float(correspondence_mask(
+                            self.flow_fn, flat_frames[i], rendered[i])[2])
+                    means.append(mean)
+                    keep.append(input_flags[i]
+                                or mean > cfg.pcd_frame_quality_thresh)
+                keep = np.asarray(keep)
+                if keep.sum() >= 2:
+                    flat_frames = flat_frames[torch.as_tensor(keep)]
+                    flat_poses = flat_poses[torch.as_tensor(keep)]
+            log.update(gate_means=means, gate_keep=keep.tolist())
+
+        c2w = se3_inverse(flat_poses)
+        # DUSt3R's input: frames 512 wide, K scaled by 512 / W (both rows)
+        scale = 512.0 / self.gs_width
+        h512 = max(int(round(self.gs_height * scale)), 1)
+        K512 = self.K_gs.clone()
+        K512[:2] *= scale
+        frames512 = resize_bilinear(flat_frames, h512, 512, antialias=True)
+        xyz, rgb = self.dust3r_fn(frames512, c2w, K512)
+        # a uniform downsample to ~1e5 points, then the statistical
+        # outlier removal (20 neighbours, 3 std)
+        every_k = max(1, len(xyz) // 100_000)
+        n_fused = len(xyz)
+        xyz, rgb = xyz[::every_k], rgb[::every_k]
+        n_down = len(xyz)
+        with self.timer.phase("pcd_outliers", sync=True):
+            xyz, rgb = remove_statistical_outliers(xyz, rgb, k=20,
+                                                   std_ratio=3.0,
+                                                   device=self.device)
+        write_ply_points(os.path.join(self.save_dir,
+                                      f"dense_views_cyc{cycle}.ply"),
+                         xyz, rgb)
+        log.update(frames=len(flat_frames), fused=n_fused, every_k=every_k,
+                   downsampled=n_down, kept=len(xyz))
+        return xyz, rgb
 
     def _refine_view_stack(self, frames, poses):
         """(P, F, ...) pair stacks -> the numpy pseudo-view set: each pair's

@@ -99,15 +99,15 @@ def stack_cameras(cams: list[Camera]) -> Camera:
 
 
 def unproject(depth: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
-    """Depth map (H, W) -> camera-space points (H, W, 3), pixel centres at
-    integer coordinates: x = (u - cx) / fx * z."""
-    h, w = depth.shape
+    """Depth maps (..., H, W) -> camera-space points (..., H, W, 3), pixel
+    centres at integer coordinates: x = (u - cx) / fx * z."""
+    h, w = depth.shape[-2:]
     u = torch.arange(w, dtype=depth.dtype, device=depth.device)[None, :] \
         .expand(h, w)
     v = torch.arange(h, dtype=depth.dtype, device=depth.device)[:, None] \
         .expand(h, w)
-    x = (u - K[0, 2]) / K[0, 0]
-    y = (v - K[1, 2]) / K[1, 1]
+    x = ((u - K[0, 2]) / K[0, 0]).expand_as(depth)
+    y = ((v - K[1, 2]) / K[1, 1]).expand_as(depth)
     return torch.stack([x, y, torch.ones_like(depth)], dim=-1) \
         * depth[..., None]
 

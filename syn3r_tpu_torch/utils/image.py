@@ -2,9 +2,8 @@
 
 Counterpart of ``syn3r_tpu/utils/image.py`` (``gaussian_blur``,
 ``resize_bicubic``, ``resize_antialiased``, ``resize_cubic_antialiased``,
-``resize_nearest``, ``psnr``, ``ssim``, ``to_neg1_1``, ``to_01``; not
-``resize_bilinear``, which only the DUSt3R branch uses). Images are
-channel-last (H, W, C) float tensors.
+``resize_nearest``, ``resize_bilinear``, ``psnr``, ``ssim``, ``to_neg1_1``,
+``to_01``). Images are channel-last (H, W, C) float tensors.
 
 ``resize_antialiased`` is a Gaussian pre-blur followed by a Keys (a=-0.75)
 bicubic resize with align_corners=True, matching the reference's
@@ -93,8 +92,11 @@ def resize_antialiased(img: torch.Tensor, out_h: int,
 
 def _interpolate_hwc(img: torch.Tensor, out_h: int, out_w: int,
                      **kw) -> torch.Tensor:
-    x = img.permute(2, 0, 1)[None]
-    return F.interpolate(x, size=(out_h, out_w), **kw)[0].permute(1, 2, 0)
+    """F.interpolate of a channel-last (H, W, C) or (B, H, W, C) image."""
+    x = img.movedim(-1, -3)
+    x = F.interpolate(x if x.dim() == 4 else x[None], size=(out_h, out_w),
+                      **kw)
+    return (x if img.dim() == 4 else x[0]).movedim(-3, -1)
 
 
 def resize_cubic_antialiased(img: torch.Tensor, out_h: int,
@@ -105,6 +107,17 @@ def resize_cubic_antialiased(img: torch.Tensor, out_h: int,
     computes the same filter."""
     return _interpolate_hwc(img, out_h, out_w, mode="bicubic",
                             antialias=True, align_corners=False)
+
+
+def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int,
+                    antialias: bool = True) -> torch.Tensor:
+    """Bilinear resize of (H, W, C) or (B, H, W, C) at half-pixel centres
+    (``jax.image.resize(..., "linear", antialias=antialias)``): with
+    ``antialias`` a downscale widens the triangle filter by 1/scale, and
+    weights that fall outside the image are dropped and the rest
+    renormalized, as ``F.interpolate(antialias=True)`` does."""
+    return _interpolate_hwc(img, out_h, out_w, mode="bilinear",
+                            antialias=antialias, align_corners=False)
 
 
 def resize_nearest(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:

@@ -59,21 +59,21 @@ def cloud():
     return gt, xyz, rgb
 
 
-def _cameras(n):
-    return [camera_from_fov(0.9, 0.7, W, H, look_at_w2c(
+def _cameras(n, w=W, h=H):
+    return [camera_from_fov(0.9, 0.7, w, h, look_at_w2c(
         jnp.asarray([0.6 * (i / (n - 1) - 0.5), 0.02 * i, 0.0]),
         jnp.asarray([0.0, 0.0, 2.2]))) for i in range(n)]
 
 
-def _write_scene(root, gt, xyz, rgb):
+def _write_scene(root, gt, xyz, rgb, w=W, h=H):
     """A COLMAP scene of N_IMG PNG renders: sparse/0/{cameras,images,
     points3D}.bin and images/img_XX.png."""
     from PIL import Image
     os.makedirs(os.path.join(root, "sparse", "0"))
     os.makedirs(os.path.join(root, "images"))
-    cams = _cameras(N_IMG)
+    cams = _cameras(N_IMG, w, h)
     K = np.asarray(cams[0].K, np.float64)
-    ccam = {1: TCM.ColmapCamera(1, "PINHOLE", W, H, np.array(
+    ccam = {1: TCM.ColmapCamera(1, "PINHOLE", w, h, np.array(
         [K[0, 0], K[1, 1], K[0, 2], K[1, 2]]))}
     imgs = {}
     for i, cam in enumerate(cams):
@@ -202,11 +202,11 @@ def test_load_colmap_scene_matches_jax(scene_dir, kw):
         assert got.points_xyz.shape == (500, 3)
 
 
-def _trainers(cloud, tmp_path, iterations=0, **over):
-    """A JAX and a port trainer on the same three views and state;
-    ``over``: further ``TrainConfig`` fields of both."""
+def _trainers(cloud, tmp_path, iterations=0, size=(W, H), **over):
+    """A JAX and a port trainer on the same three views (of ``size``) and
+    state; ``over``: further ``TrainConfig`` fields of both."""
     gt, xyz, _ = cloud
-    cams = _cameras(3)
+    cams = _cameras(3, *size)
     imgs = np.stack([np.asarray(j_render(gt, c, chunk=64, group=1).rgb)
                      for c in cams])
     init = JG.from_points(jnp.asarray(xyz), jnp.asarray(np.full_like(xyz,
@@ -458,7 +458,6 @@ def test_cli_train_dtu_flags_on_cpu(scene_dir, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--dust3r_weights", "w.npz"], ["--gmflow_weights", "w.npz"],
     ["--scene_parallel", "on"], ["--interp_type", "forward_warp"],
     ["--save_debug"]])
 def test_deferred_flags_raise(tmp_path, flags):
@@ -474,9 +473,12 @@ def test_deferred_options_raise(cloud, tmp_path):
                dict(interp_type="forward_warp")):
         with pytest.raises(NotImplementedError):
             TO.DiffusionGSConfig(**kw)
-    with pytest.raises(NotImplementedError):
-        TO.DiffusionGS(ttr, TO.DiffusionGSConfig(),
-                       dust3r_fn=lambda *a: None)
     runner = TO.DiffusionGS(ttr, TO.DiffusionGSConfig(),
                             save_dir=str(tmp_path / "d"))
     assert runner.densify_pcds(None, None, 0) is None
+    # a dust3r_fn with one keyframe a pair (the LLFF setting) runs nothing
+    runner = TO.DiffusionGS(
+        ttr, TO.DiffusionGSConfig(num_views_for_pcd_densification=1),
+        save_dir=str(tmp_path / "d"), dust3r_fn=lambda *a: 1 / 0)
+    assert runner.densify_pcds(None, None, 0) is None
+
