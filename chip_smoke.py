@@ -30,6 +30,28 @@ Phases, one result line each; any failure raises and the exit code is not 0:
               The UNet's LayerNorm and GroupNorm calls must be LN_SHAPES
               and GN_SHAPES of scripts/kernel_timing.py (GroupNorm with its
               SiLU count), bf16 with bf16 weights.
+  5a. guided  the grad-through-UNet guidance (GuidedSVDConfig(
+              guidance_through_unet=True)) on the unit's networks, in three
+              parts. (1) At each grad-pass shape (B 25 frames; H 5, 10, 20;
+              S 9216, 2304, 576): the forward kernel's lse against
+              attention_lse_reference (LSE_TOL), dq, dk and dv of the dkv
+              and dq kernels against flash_attention_bwd_reference and
+              against autograd through attention_chunked (b = 0 only at
+              S 9216) at BWD_TOL, two backward calls bit for bit, the whole
+              backward timed in turns against the backward of
+              F.scaled_dot_product_attention (with the SM clock and power),
+              each kernel alone against its bound, the forward with and
+              without lse. (2) The small UNet with its blocks checkpointed:
+              d guidance_loss / d sample, bf16 on the card through the
+              kernels against float32 on the CPU (SMALL_GRAD_TOL), flash
+              forward, dkv and dq launched. (3) The full-width unit with the
+              option: 25 frames at 576x1024, post, 2 steps. Exact launches
+              per step and direction (the checkpoint's recompute runs every
+              block's GEGLU, flash and norms twice, conv_norm_out once; one
+              dkv and one dq launch per flash call; then the batch-2 CFG
+              forward), s per denoise step beside the default variant's on
+              the same inputs in the same phase, peak memory, finite
+              latents apart from the default's and frames in [0, 1].
   5b. kernels the GroupNorm (stats and apply) and LayerNorm kernels against
               their plain versions at every shape of the census (UNet and
               CLIP in bf16, the VAE encode in float32, its decode in bf16;
@@ -126,8 +148,10 @@ Phases, one result line each; any failure raises and the exit code is not 0:
               segment from graph replays held bit for bit to the per-step
               path, exact composite launches; the step's replay time with
               LPIPS off and on in turns (off, on, on, off).
-The JSON kernel table takes its launches from the scene phase, and its
-launches_by_phase from the unit, gs, scene, dtu, dl3dv and lpips phases.
+The JSON kernel table takes its launches from the scene phase (the two
+backward kernels', which only the guided option runs, from the guided
+phase), and its launches_by_phase from the unit, guided, gs, scene, dtu,
+dl3dv and lpips phases.
 The line before the last is the JSON kernel table, after it the
 nvidia-smi line, and the last line is {"ok": true, "device": {...}}.
 Details also go to chiprun_out/chip_smoke.json.
@@ -150,6 +174,7 @@ from syn3r_tpu_torch.cli import render as cli_render
 from syn3r_tpu_torch.cli import summarize as cli_summarize
 from syn3r_tpu_torch.cli import train as cli_train
 from syn3r_tpu_torch.device import resolve_device
+from syn3r_tpu_torch.diffusion import scheduler as SCH
 from syn3r_tpu_torch.diffusion.pipeline import (GuidedSVDConfig,
                                                 GuidedSVDPipeline,
                                                 init_random_weights_,
@@ -177,7 +202,8 @@ from syn3r_tpu_torch.utils.ply import read_ply_points
 from syn3r_tpu_torch.vision import dust3r as D3
 from syn3r_tpu_torch.vision import gmflow_public as GF
 from scripts.kernel_timing import (ATTN_SHAPES, FFN_SHAPES, GN_SHAPES,
-                                   GS_CAP, GS_H, GS_W, LN_SHAPES,
+                                   GRAD_ATTN_SHAPES, GS_CAP, GS_H, GS_W,
+                                   LN_SHAPES,
                                    SmiSampler, cuda_ms, gs_points,
                                    gs_replays, gs_scene, gs_tile_lists,
                                    random_lpips_params, save_params,
@@ -203,6 +229,21 @@ FFN_SMALL_SHAPES = [(15 * 1024, 64), (15 * 256, 128)]
 # Attention: the kernel rounds exp(s - running max) to bf16 before the
 # rescale, the plain version the normalized probabilities.
 TOL = {"geglu_ffn": (5e-2, 1e-2), "flash_attention": (2e-2, 1e-2)}
+# The guided phase. The forward's lse against the plain logsumexp, absolute:
+# both f32 (the kernel's exp2.approx terms, relative error ~2^-22, summed in
+# another order), on logits of O(10). The backward kernels against the plain
+# version (f32 formulas on the same bf16 inputs, out and lse) and against
+# autograd through attention_chunked: max-abs over max |want| and rel-RMS.
+# The kernels round P and dS to bf16 before their products (2^-9 relative
+# each) and their outputs to bf16, as the forward rounds P: the forward's
+# (2e-2, 1e-2), with the max-abs relative to the gradient's scale (dq, dk
+# and dv of O(1)-O(10) on these inputs).
+LSE_TOL = 1e-4
+BWD_TOL = (2e-2, 1e-2)
+# The small UNet's gradient, bf16 on the card against float32 on the CPU,
+# rel-RMS: the forward alone is held to 5e-2 (check_small_unet), and the
+# backward rounds each of its products to bf16 once more.
+SMALL_GRAD_TOL = 1e-1
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "chiprun_out")
 # trainer checkpoints of the GS phases (not brought back)
@@ -323,6 +364,11 @@ DL3DV_VIEWS, DL3DV_CYCLES, DL3DV_TEST = 9, 2, 2
 # them all): stats add + fma; apply fma (+ exp, add, divide for SiLU);
 # LayerNorm add, fma, subtract, 2 multiplies, add
 NORM_OPS = {"stats": 3, "apply": 2, "apply_silu": 5, "layer_norm": 6}
+# the completion unit's kernels: the scene, dtu and dl3dv phases launch
+# each n_units times as often as the unit phase (the backward none)
+UNIT_KERNELS = ("geglu_ffn", "flash_attention", "flash_attention_bwd_dkv",
+                "flash_attention_bwd_dq", "gn_stats", "gn_apply",
+                "layer_norm")
 
 
 def say(phase, **kv):
@@ -334,6 +380,8 @@ def launch_counts():
     """Every kernel wrapper's launch count."""
     return {"geglu_ffn": geglu_ffn.launches,
             "flash_attention": A.flash_attention.launches,
+            "flash_attention_bwd_dkv": A.flash_attention_bwd.launches["dkv"],
+            "flash_attention_bwd_dq": A.flash_attention_bwd.launches["dq"],
             "composite_fwd": TC.composite_tiles.launches["fwd"],
             "composite_bwd": TC.composite_tiles.launches["bwd"],
             "gn_stats": N.group_norm.launches["stats"],
@@ -344,6 +392,7 @@ def launch_counts():
 def zero_counts():
     geglu_ffn.launches = 0
     A.flash_attention.launches = 0
+    A.flash_attention_bwd.launches.update(dkv=0, dq=0)
     TC.composite_tiles.launches.update(fwd=0, bwd=0)
     N.group_norm.launches.update(stats=0, apply=0)
     N.layer_norm.launches = 0
@@ -510,13 +559,7 @@ def check_attention(gen, dev, smi):
 def check_small_unet(dev):
     """A small UNet through the kernels (bf16, card) against the plain path
     (float32, CPU): the kernels as the modules call them."""
-    kw = dict(block_out_channels=(64, 128), num_attention_heads=(1, 2),
-              layers_per_block=1, addition_time_embed_dim=32)
-    cpu = UNetSpatioTemporalConditionModel(**kw).eval()
-    init_random_weights_(cpu, torch.Generator().manual_seed(1))
-    card = UNetSpatioTemporalConditionModel(**kw).eval()
-    card.load_state_dict(cpu.state_dict())
-    card = card.to(dev, torch.bfloat16)
+    cpu, card = small_unet_pair(dev)
     g = torch.Generator().manual_seed(2)
     sample = torch.randn((3, 5, 32, 32, 8), generator=g)
     ehs = torch.randn((3, 1, 1024), generator=g)
@@ -624,6 +667,7 @@ def run_unit(dev):
                              f"expected GN_SHAPES in bf16: {GN_SHAPES}")
     calls = census.totals()
     want = {"geglu_ffn": 48 * forwards, "flash_attention": 15 * forwards,
+            "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
             "composite_fwd": 0, "composite_bwd": 0,
             "gn_stats": calls["group_norm"], "gn_apply": calls["group_norm"],
             "layer_norm": calls["layer_norm"]}
@@ -652,6 +696,288 @@ def run_unit(dev):
                unet_norms_per_forward=[n_gn, n_ln], forwards=forwards,
                norm_input_copies=norm_copies)
     return res, pipe, census.calls
+
+
+def check_rel(name, got, want, tol=BWD_TOL):
+    """max-abs over max |want| and rel-RMS within ``tol``; returns (max_abs,
+    rel_rms, max_abs relative)."""
+    max_abs, rel_rms = errors(got, want)
+    rel = max_abs / max(want.float().abs().max().item(), 1e-30)
+    if not (np.isfinite(max_abs) and rel <= tol[0] and rel_rms <= tol[1]):
+        raise AssertionError(f"{name}: max_abs {max_abs} ({rel} of max "
+                             f"|want|) rel_rms {rel_rms} beyond {tol}")
+    return max_abs, rel_rms, rel
+
+
+def check_attention_bwd(gen, dev, smi):
+    """The guided phase's kernels at each grad-pass shape (B 25 frames):
+    the forward's lse against attention_lse_reference; dq, dk and dv
+    against flash_attention_bwd_reference (fed the kernel's out and lse)
+    and against autograd through attention_chunked (on b = 0 at the top
+    level, whose plain autograd would keep ~60 GB of probabilities); two
+    backward calls bit for bit; the whole backward in turns against
+    F.scaled_dot_product_attention's backward (autograd.grad of its
+    output, its forward not timed); each kernel alone, the plain version
+    and the forward with and without lse."""
+    names = ("dq", "dk", "dv")
+    rows = []
+    for b, h, s, calls in GRAD_ATTN_SHAPES:
+        scale, bh = 0.125, b * h
+        # (B, S, H, D) projections viewed as (B, H, S, D), as the UNet does
+        q, k, v, dout = (torch.randn((b, s, h, 64), generator=gen,
+                                     device=dev).to(torch.bfloat16)
+                         .transpose(1, 2) for _ in range(4))
+        out, lse = A._flash_forward(q, k, v, scale, with_lse=True)
+        lse_err = (lse - A.attention_lse_reference(q, k, scale)).abs().max()
+        fwd_err = check("flash_attention", out,
+                        A.attention_chunked(q, k, v, scale))
+        if not float(lse_err) <= LSE_TOL:
+            raise AssertionError(f"flash lse at {(b, h, s)}: max_abs "
+                                 f"{float(lse_err)} > {LSE_TOL}")
+        got = A.flash_attention_bwd(q, k, v, out, lse, dout, scale)
+        again = A.flash_attention_bwd(q, k, v, out, lse, dout, scale)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"flash backward at {(b, h, s)}: two "
+                                 "calls differ")
+        del again
+        want = A.flash_attention_bwd_reference(q, k, v, out, lse, dout,
+                                               scale)
+        err = {n: check_rel(f"flash bwd {n} at {(b, h, s)}", g, w)
+               for n, g, w in zip(names, got, want)}
+        del want
+        rows_b = slice(0, 1) if s > 4096 else slice(None)
+        leaves = [t[rows_b].detach().requires_grad_(True) for t in (q, k, v)]
+        auto = torch.autograd.grad(A.attention_chunked(*leaves, scale),
+                                   leaves, dout[rows_b])
+        auto_err = {n: check_rel(f"flash bwd {n} vs autograd at "
+                                 f"{(b, h, s)}", g[rows_b], w)
+                    for n, g, w in zip(names, got, auto)}
+        del auto, leaves, got
+        torch.cuda.empty_cache()
+
+        delta = (dout.float() * out.float()).sum(-1)
+        outs = {"dkv": (A.like_projection(k), A.like_projection(v)),
+                "dq": (A.like_projection(q),)}
+        part_ms = {n: cuda_ms(lambda n=n: A.flash_bwd_launch(
+            n, q, k, v, dout, lse, delta, outs[n], scale), 5)
+            for n in outs}
+        fwd_ms = {str(w): cuda_ms(lambda w=w: A._flash_forward(
+            q, k, v, scale, w), 5) for w in (False, True)}
+        qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+        o_sdpa = F.scaled_dot_product_attention(qs, ks, vs, scale=scale)
+        turns = timed_turns(
+            lambda: A.flash_attention_bwd(q, k, v, out, lse, dout, scale),
+            lambda: torch.autograd.grad(o_sdpa, (qs, ks, vs), dout,
+                                        retain_graph=True), smi)
+        plain = cuda_ms(lambda: A.flash_attention_bwd_reference(
+            q, k, v, out, lse, dout, scale), 1)
+        unit = bh * s * s * 64          # one (S x S x 64) product: 2 x this
+        row_bytes = bh * s * 64 * 2     # one bf16 (B, H, S, 64) tensor
+        # dkv: S^T, dV, dP^T, dK; dq: S, dP, dQ. Each reads q, k, v, dout,
+        # lse and D and writes its outputs.
+        bounds = {n: bound_ms(2 * unit * prods,
+                              (4 + n_out) * row_bytes + 2 * bh * s * 4)
+                  for n, prods, n_out in (("dkv", 4, 2), ("dq", 3, 1))}
+        # the whole backward: five products, q, k, v, out, dout and lse
+        # read, dq, dk, dv written
+        fn_bound = bound_ms(10 * unit, 8 * row_bytes + bh * s * 4)
+        row = dict(b=b, h=h, tokens=s, calls_per_grad_pass=calls,
+                   lse_max_abs_err=float(lse_err),
+                   fwd_max_abs_err=fwd_err[0],
+                   errors={n: dict(zip(("max_abs", "rel_rms", "rel_max"),
+                                       e)) for n, e in err.items()},
+                   autograd_errors={n: dict(zip(("max_abs", "rel_rms",
+                                                 "rel_max"), e))
+                                    for n, e in auto_err.items()},
+                   autograd_rows="b = 0" if s > 4096 else "all",
+                   plain_ms=plain, bound_ms=fn_bound[0],
+                   bound_by=fn_bound[1], exps_per_kernel=bh * s * s,
+                   exp_ms_per_kernel=1e3 * bh * s * s / PEAK_MUFU_EXPS,
+                   fwd_ms_without_lse=fwd_ms["False"],
+                   fwd_ms_with_lse=fwd_ms["True"], **turns_row(turns))
+        for n in outs:
+            row[n] = dict(ms=part_ms[n], bound_ms=bounds[n][0],
+                          bound_by=bounds[n][1],
+                          tflops=2 * unit * (4 if n == "dkv" else 3)
+                          / part_ms[n] / 1e9)
+        row["tflops"] = 10 * unit / row["ms"] / 1e9
+        say("guided", what="flash backward kernels", **row)
+        rows.append(row)
+        del q, k, v, dout, out, lse, delta, outs, qs, ks, vs, o_sdpa
+        torch.cuda.empty_cache()
+    return rows
+
+
+def small_unet_pair(dev):
+    """check_small_unet's UNet: float32 on the CPU and bf16 on the card,
+    the same weights, frozen."""
+    kw = dict(block_out_channels=(64, 128), num_attention_heads=(1, 2),
+              layers_per_block=1, addition_time_embed_dim=32)
+    cpu = UNetSpatioTemporalConditionModel(**kw).eval()
+    init_random_weights_(cpu, torch.Generator().manual_seed(1))
+    card = UNetSpatioTemporalConditionModel(**kw).eval()
+    card.load_state_dict(cpu.state_dict())
+    return (cpu.requires_grad_(False),
+            card.to(dev, torch.bfloat16).requires_grad_(False))
+
+
+def check_small_unet_grad(dev):
+    """d guidance_loss / d sample through the small UNet with its blocks
+    checkpointed: bf16 on the card through the kernels (flash forward at
+    S = 1024 and its backward) against float32 autograd on the CPU through
+    the plain path, with the CPU's top-k masks on both sides."""
+    cpu, card = small_unet_pair(dev)
+    g = torch.Generator().manual_seed(4)
+    sample = torch.randn((1, 5, 32, 32, 8), generator=g)
+    cond = torch.randn((5, 4, 32, 32), generator=g) * 0.5
+    mask = torch.rand((3, 32, 32), generator=g)
+    lam = (torch.rand((5,), generator=g) > 0.4).float()
+    tids = torch.tensor([[6.0, 127.0, 0.02]])
+    sigma = torch.tensor(2.0)
+
+    def grad(net, x, dtype, masks=None):
+        d = x.device
+        x = x.clone().requires_grad_(True)
+        eps = net(x.to(dtype), torch.tensor(1.3),
+                  torch.zeros((1, 1, 1024), dtype=dtype, device=d),
+                  tids.to(d), remat_blocks=True)[0].float()
+        x0 = SCH.pred_original_sample(eps, x[0, ..., :4],
+                                      sigma.to(d)).permute(0, 3, 1, 2)
+        if masks is None:
+            masks = SCH.top_k_masks(x0.detach(), cond, mask, lam)
+        loss = SCH.guidance_loss(x0, cond.to(d), masks.to(d))
+        return torch.autograd.grad(loss, x)[0], masks
+
+    want, masks = grad(cpu, sample, torch.float32)
+    zero_counts()
+    got, _ = grad(card, sample.to(dev), torch.bfloat16, masks)
+    torch.cuda.synchronize()
+    used = launch_counts()
+    max_abs, rel_rms = errors(got.cpu(), want)
+    say("guided", what="small UNet d loss/d sample, bf16 card vs f32 CPU",
+        max_abs=max_abs, rel_rms=rel_rms, launches=used)
+    # one flash call a transformer at the 1024-token level, run twice (the
+    # checkpoint's recompute), one backward each
+    if not (rel_rms < SMALL_GRAD_TOL and used["flash_attention_bwd_dkv"] > 0
+            and used["flash_attention"] == 2 * used["flash_attention_bwd_dkv"]
+            and used["flash_attention_bwd_dq"]
+            == used["flash_attention_bwd_dkv"] and used["geglu_ffn"] > 0):
+        raise AssertionError(f"small UNet gradient: rel_rms {rel_rms}, "
+                             f"launches {used}")
+    return dict(max_abs=max_abs, rel_rms=rel_rms, launches=used)
+
+
+def run_guided(pipe, unit):
+    """The full-width unit with guidance_through_unet=True on the unit
+    phase's networks and inputs: 2 steps, post. Launch counts exact per
+    step and direction: the batch-1 grad pass runs each block's forward
+    twice (the checkpoint's recompute; conv_norm_out is in no block and
+    runs once) and one flash backward per flash call, then the batch-2 CFG
+    forward. Its s per denoise step beside the default variant's, run in
+    this phase on the same inputs; the frames finite and apart from the
+    default's."""
+    dev = pipe.device
+    guided = GuidedSVDPipeline(pipe.m, GuidedSVDConfig(
+        num_inference_steps=STEPS, guidance_through_unet=True))
+    g = torch.Generator(device=dev).manual_seed(3)
+    imgs = torch.rand((FRAMES, HEIGHT, WIDTH, 3), generator=g, device=dev)
+    mask = torch.rand((FRAMES - 2, HEIGHT // 8, WIDTH // 8), generator=g,
+                      device=dev)
+    lam = search_hypers_v2(mask, STEPS)
+    clip_s, clip_e, cond, _, _ = guided.encode_conditioning(
+        imgs[0], list(imgs[1:-1]), imgs[-1], g)
+    latents = torch.randn((1, FRAMES, HEIGHT // 8, WIDTH // 8, 4),
+                          generator=g, device=dev)
+    args = (latents, clip_s, clip_e, cond, mask, lam)
+    out, seconds = {}, {}
+    for name, p in (("default", pipe), ("guided", guided)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        out[name] = p.denoise(*args)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        if name == "guided":
+            launches = launch_counts()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    frames = guided.decode(out["guided"])
+    torch.cuda.synchronize()
+
+    unet = pipe.m.unet
+    blocks = (*unet.down_blocks, unet.mid_block, *unet.up_blocks)
+    n_gn, n_ln = norm_modules(unet)
+    gn_out = n_gn - sum(norm_modules(blk)[0] for blk in blocks)
+    ln_out = n_ln - sum(norm_modules(blk)[1] for blk in blocks)
+    per = {"geglu_ffn": 3 * 48, "flash_attention": 3 * 15,
+           "flash_attention_bwd_dkv": 15, "flash_attention_bwd_dq": 15,
+           "gn_stats": 3 * n_gn - gn_out, "gn_apply": 3 * n_gn - gn_out,
+           "layer_norm": 3 * n_ln - ln_out, "composite_fwd": 0,
+           "composite_bwd": 0}
+    want = {k: 2 * STEPS * v for k, v in per.items()}
+    diff = (out["guided"] - out["default"]).abs().max().item()
+    lo, hi = frames.min().item(), frames.max().item()
+    if (launches != want or not bool(torch.isfinite(out["guided"]).all())
+            or not bool(torch.isfinite(frames).all()) or lo < 0 or hi > 1
+            or not diff > 1e-3):
+        raise AssertionError(f"guided unit: launches {launches} (expected "
+                             f"{want}), latents apart from default by "
+                             f"{diff}, frames in [{lo}, {hi}]")
+    res = dict(launches=launches, per_step_and_direction=per,
+               norms_outside_blocks=[gn_out, ln_out],
+               s_per_denoise_step=seconds["guided"] / STEPS,
+               default_s_per_denoise_step=seconds["default"] / STEPS,
+               unit_phase_s_per_denoise_step=unit["s_per_denoise_step"],
+               peak_mem_gb=peak_gb, latents_max_abs_diff_from_default=diff,
+               frame_range=[lo, hi])
+    say("guided", **res)
+    return res
+
+
+def run_guided_phase(pipe, unit, dev):
+    """The guided phase: the backward kernels, the small UNet's gradient,
+    the full-width guided unit."""
+    smi = SmiSampler()
+    try:
+        rows = check_attention_bwd(torch.Generator(device=dev).manual_seed(5),
+                                   dev, smi)
+    finally:
+        smi.close()
+    small = check_small_unet_grad(dev)
+    return dict(attention_bwd=rows, small_unet_grad=small,
+                unit=run_guided(pipe, unit))
+
+
+def bwd_entries(guided, launches):
+    """Kernel-line entries of the two backward kernels: sums over one
+    batch-1 grad pass's 15 calls. plain_ms and library_ms are the whole
+    backward's (dq, dk and dv: flash_attention_bwd_reference and SDPA's
+    backward), the ms of both kernels summed set beside them."""
+    rows = guided["attention_bwd"]
+    out = []
+    for name, part, line, errs in (
+            ("flash_attention_bwd_dkv", "dkv", 1121, ("dk", "dv")),
+            ("flash_attention_bwd_dq", "dq", 1456, ("dq",))):
+        def tot(get):
+            return sum(get(r) * r["calls_per_grad_pass"] for r in rows)
+        by = max(rows, key=lambda r: r[part]["bound_ms"])
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "syn3r_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "syn3r_tpu/models/layers.py:185 (jax/experimental/"
+                        f"pallas/ops/tpu/flash_attention.py:{line})",
+            "launches": launches[name],
+            "max_abs_err": max(r["errors"][e]["max_abs"] for r in rows
+                               for e in errs),
+            "ms": tot(lambda r: r[part]["ms"]),
+            "plain_ms": tot(lambda r: r["plain_ms"]),
+            "bound_ms": tot(lambda r: r[part]["bound_ms"]),
+            "bound_by": by[part]["bound_by"],
+            "library_ms": tot(lambda r: r["library_ms"]),
+            "per": "one batch-1 grad pass (15 calls); plain_ms and "
+                   "library_ms: the whole backward"})
+    return out
 
 
 def check_close(name, got, want, atol, rtol):
@@ -1208,9 +1534,7 @@ def run_scene(pipe, unit_launches):
                         f"{GS_ITERS}.npz")
     if not os.path.exists(ckpt):
         raise AssertionError(f"scene: no checkpoint {ckpt}")
-    want = {k: n_units * unit_launches[k] for k in
-            ("geglu_ffn", "flash_attention", "gn_stats", "gn_apply",
-             "layer_norm")}
+    want = {k: n_units * unit_launches[k] for k in UNIT_KERNELS}
     steps = GS_ITERS * (1 + SCENE_CYCLES)
     if any(launches[k] != v for k, v in want.items()) or \
             launches["composite_bwd"] != steps or \
@@ -1400,9 +1724,7 @@ def run_dtu(pipe, unit, unit_census):
     unit_per_forward = {k: unit["launches"][k] / unit["forwards"]
                         for k in per_forward}
     norm_calls = census.totals("unet_prob")
-    want = {k: n_units * unit["launches"][k] for k in
-            ("geglu_ffn", "flash_attention", "gn_stats", "gn_apply",
-             "layer_norm")}
+    want = {k: n_units * unit["launches"][k] for k in UNIT_KERNELS}
     steps = GS_ITERS * (1 + DTU_CYCLES)
     if (per_forward != unit_per_forward
             or norm_calls != {"group_norm": n_gn * forwards,
@@ -1830,9 +2152,7 @@ def run_dl3dv(pipe, unit, weights):
     n_units = DL3DV_VIEWS * DL3DV_CYCLES
     if len(units) != n_units or not all(u["finite"] for u in units):
         raise AssertionError(f"dl3dv: completion units {units}")
-    want = {k: n_units * unit["launches"][k] for k in
-            ("geglu_ffn", "flash_attention", "gn_stats", "gn_apply",
-             "layer_norm")}
+    want = {k: n_units * unit["launches"][k] for k in UNIT_KERNELS}
     steps = GS_ITERS * (1 + DL3DV_CYCLES)
     if any(launches[k] != v for k, v in want.items()) or \
             launches["composite_bwd"] != steps or \
@@ -2308,6 +2628,7 @@ def main():
         smi_sampler.close()
     small = check_small_unet(dev)
     unit, pipe, census = run_unit(dev)
+    guided = run_guided_phase(pipe, unit, dev)
     norm_rows = check_norms(census, dev)
     scene = run_scene(pipe, unit["launches"])
     dtu, dtu_census, dtu_shapes = run_dtu(pipe, unit, census)
@@ -2322,6 +2643,7 @@ def main():
     gs = run_gs(dev)
     lpips = run_lpips(dev)
     by_phase = {"unit": unit["launches"],
+                "guided": guided["unit"]["launches"],
                 "gs": {f"composite_{k}": v for k, v in gs["launches"].items()},
                 "scene": scene["launches"], "dtu": dtu["launches"],
                 "dl3dv": dl3dv["launches"],
@@ -2355,6 +2677,7 @@ def main():
         k["max_abs_err"] = max([k["max_abs_err"]] + [
             r["max_abs_err"] for r in dtu_kernel_rows
             if r["name"] == k["name"]])
+    kernels += bwd_entries(guided, guided["unit"]["launches"])
     kernels += norm_entries(norm_rows + dtu_norm_rows, unit["forwards"],
                             scene["launches"])
     for k in kernels:
@@ -2366,7 +2689,8 @@ def main():
                    "hgmma_in_sass": hgmma,
                    "geglu_ffn": ffn_rows, "geglu_ffn_small": ffn_small,
                    "flash_attention": attn_rows,
-                   "small_unet": small, "unit": unit, "norms": norm_rows,
+                   "small_unet": small, "unit": unit, "guided": guided,
+                   "norms": norm_rows,
                    "composite": comp, "gs_small": gs_small, "gs": gs,
                    "scene": scene, "dtu": dtu, "dtu_norms": dtu_norm_rows,
                    "dtu_kernels": dtu_kernel_rows,

@@ -24,6 +24,10 @@ FFN_SHAPES = [(75 * 9216, 320, 15), (75 * 2304, 640, 15),
 # (batch*heads, tokens, calls per forward): spatial self-attention at the
 # three levels with >= 512 tokens, 5 transformers each.
 ATTN_SHAPES = [(75 * 5, 9216, 5), (75 * 10, 2304, 5), (75 * 20, 576, 5)]
+# (B, H, tokens, calls per grad pass) of the grad-through-UNet guidance's
+# batch-1 forward (B = 25 frames): the same 15 spatial self-attention calls,
+# each with a backward.
+GRAD_ATTN_SHAPES = [(25, 5, 9216, 5), (25, 10, 2304, 5), (25, 20, 576, 5)]
 # (rows, C, calls per forward) of the UNet's LayerNorms (bf16, bf16
 # weights): 5 transformers a level (2 down, 3 up; 1 in the mid block), 7
 # LayerNorms each (3 in the spatial block, 4 in the temporal one) = 112.

@@ -2,14 +2,21 @@
 """Where the time of one guided-denoise UNet forward goes on the card.
 
     PYTHONPATH=. python3 scripts/profile_torch_unet_step.py [--forwards 2]
+        [--grad]
 
 Runs the port's SVD-XT UNet (random bf16 weights from a seed) at the
 completion unit's fused batch-3 shape (3 x 25 frames x 72x128 latents,
 batch_groups (1, 2)), warms up once, then traces ``--forwards`` forwards
-with torch.profiler. Prints the wall time per forward, the device busy
-share (kernel time over wall time: one stream, kernels do not overlap),
-the kernel time by category and the top kernels, and writes them to
-chiprun_out/profile_torch_unet_step.json. Needs a CUDA device.
+with torch.profiler. With ``--grad`` each traced call is instead one grad
+pass of the ``guidance_through_unet`` opt-in: a batch-1 forward with its
+blocks checkpointed (``remat_blocks=True``, zero CLIP context) and the
+gradient of a scalar of its output with respect to the sample (the
+recompute and the backward, flash's dkv and dq kernels among them).
+Prints the wall time per call, the device busy share (kernel time over
+wall time: one stream, kernels do not overlap), the kernel time by
+category and the top kernels, and writes them to
+chiprun_out/profile_torch_unet_step.json (``_grad.json`` with
+``--grad``). Needs a CUDA device.
 """
 
 import argparse
@@ -32,6 +39,7 @@ from syn3r_tpu_torch.models.svd_unet import \
 
 # kernel-name fragments -> category, first match wins
 CATEGORIES = [
+    ("flash_attention backward kernels", ("flash_bwd_",)),
     ("geglu_ffn kernel", ("ffn_wgmma_kernel",)),
     ("flash_attention kernel", ("flash_wgmma_kernel",)),
     ("group_norm kernels", ("gn_stats_kernel", "gn_apply_kernel")),
@@ -60,6 +68,8 @@ def category(name: str) -> str:
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--forwards", type=int, default=2)
+    ap.add_argument("--grad", action="store_true",
+                    help="trace grad passes of guidance_through_unet")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -71,16 +81,21 @@ def main():
     with torch.device(dev):
         unet = UNetSpatioTemporalConditionModel()
     init_random_weights_(unet, torch.Generator(device=dev).manual_seed(0))
-    unet = unet.to(torch.bfloat16).eval()
+    unet = unet.to(torch.bfloat16).eval().requires_grad_(False)
+    batch = 1 if args.grad else 3
     g = torch.Generator(device=dev).manual_seed(1)
-    x = torch.randn((3, 25, 72, 128, 8), generator=g, device=dev,
+    x = torch.randn((batch, 25, 72, 128, 8), generator=g, device=dev,
                     dtype=torch.bfloat16)
-    ehs = torch.randn((3, 1, 1024), generator=g, device=dev,
+    ehs = torch.randn((batch, 1, 1024), generator=g, device=dev,
                       dtype=torch.bfloat16)
-    tids = torch.tensor([[6.0, 127.0, 0.02]], device=dev).repeat(3, 1)
+    tids = torch.tensor([[6.0, 127.0, 0.02]], device=dev).repeat(batch, 1)
     t = torch.tensor(1.3, device=dev)
 
     def forward():
+        if args.grad:
+            xs = x.detach().requires_grad_(True)
+            out = unet(xs, t, torch.zeros_like(ehs), tids, remat_blocks=True)
+            return torch.autograd.grad(out.float().square().sum(), xs)[0]
         with torch.no_grad():
             return unet(x, t, ehs, tids, (1, 2))
 
@@ -124,21 +139,23 @@ def main():
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:20]
 
     print(f"device: {smi}  torch {torch.__version__}")
-    print(f"batch-3 UNet forward, 25 x 72x128 latents, bf16: wall "
+    what = ("grad pass (batch-1 forward, recompute, backward)" if args.grad
+            else "batch-3 UNet forward")
+    print(f"{what}, 25 x 72x128 latents, bf16: wall "
           f"{wall_untraced * 1e3:.1f} ms untraced, {wall_traced * 1e3:.1f} "
           f"ms traced; kernel time {busy_ms:.1f} ms; device idle share "
           f"{1 - busy_ms / (wall_traced * 1e3):.3f}")
     for c, (ms, n) in sorted(by_cat.items(), key=lambda kv: -kv[1][0]):
         print(f"  {ms:9.2f} ms  {ms / busy_ms:6.1%}  {n:6d} launches  {c}")
-    print("top kernels (ms per forward, launches per forward):")
+    print("top kernels (ms per call, launches per call):")
     for name, (ms, n) in top:
         print(f"  {ms:9.2f} ms  {n:5d}  {name[:110]}")
     out_dir = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile_torch_unet_step.json"),
-              "w") as f:
-        json.dump({"device": smi, "torch": torch.__version__,
+    name = "profile_torch_unet_step" + ("_grad" if args.grad else "")
+    with open(os.path.join(out_dir, f"{name}.json"), "w") as f:
+        json.dump({"device": smi, "torch": torch.__version__, "what": what,
                    "wall_ms_untraced": wall_untraced * 1e3,
                    "wall_ms_traced": wall_traced * 1e3,
                    "kernel_ms": busy_ms,

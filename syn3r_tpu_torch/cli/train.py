@@ -17,9 +17,13 @@ frame-quality gate with ``--gmflow_weights`` (a ``GMFlowPublic`` tree)::
 
 ``main`` is parse -> ``load_colmap_scene`` -> ``build_runner`` -> ``run``;
 ``build_runner`` also takes an in-memory ``SceneData`` and a completion
-callable. Not ported, each raising ``NotImplementedError``:
-``--scene_parallel on``, ``--interp_type forward_warp`` and
-``--save_debug``.
+callable. ``--num_frames`` sets the frames of a pair (poses, warps, the
+warp-only completion), but the ``--svd_weights`` completion is built for
+25 frames whatever it says, as in the JAX package: with another count its
+first denoise raises ``ValueError`` (JAX's raises one too, from a shape
+mismatch inside its jitted loop). Not ported, each raising
+``NotImplementedError``: ``--scene_parallel on``, ``--interp_type
+forward_warp`` and ``--save_debug``.
 """
 
 from __future__ import annotations
@@ -122,10 +126,11 @@ def _check_ported(args):
 
 
 def svd_config(args) -> dict:
-    """The ``GuidedSVDConfig`` fields the flags set."""
+    """The ``GuidedSVDConfig`` fields the flags set, as JAX's
+    ``_load_svd_completion`` sets them: ``--num_frames`` is not one of
+    them, so the completion is the 25-frame pipeline."""
     return dict(
         num_inference_steps=args.num_inference_steps,
-        num_frames=args.num_frames,
         variant=("post" if args.diffusion_type == "2PassProbUncertainPost"
                  else "prob"),
         guidance_reuse_cfg_uncond=bool(args.guidance_reuse_cfg_uncond))

@@ -37,6 +37,12 @@
 // them, and a zero key would still get logit 0); query rows >= S are
 // zero-filled on load and never stored.
 //
+// Where a gradient will be taken the kernel also writes each query row's
+// log-sum-exp, lse = scale * max + ln(sum), as f32 (B, H, S): the backward
+// kernels (flash_attention_bwd.cu) recompute P = exp(scale q k - lse) from
+// it, as the library's backward does from the forward's residuals l and m.
+// Without a gradient lse is null and nothing more is written.
+//
 // Layout: each of q, k, v has its own 4-D tensor map (64, S, H, B) or
 // (64, H, S, B), the two middle axes in order of their strides, over a
 // (B, H, S, 64) view with a contiguous head dimension, so the UNet's
@@ -139,7 +145,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v, int sd_q,
-                       int sd_k, int sd_v, bf16* __restrict__ o, int H, int S,
+                       int sd_k, int sd_v, bf16* __restrict__ o,
+                       float* __restrict__ lse, int H, int S,
                        int BH, long long osb, long long osh, long long oss,
                        float scale_log2) {
   extern __shared__ uint8_t smem_raw[];
@@ -294,6 +301,9 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int row = qt * BQ + cw * 64 + warp * 16 + g + 8 * r;
         if (row >= S) continue;
         const float inv = 1.0f / l_i[r];
+        if (lse != nullptr && q == 0)
+          lse[(size_t)bh * S + row] =
+              (m_i[r] * scale_log2 + log2f(l_i[r])) * 0.6931471805599453f;
         bf16* orow = o + (size_t)b * osb + (size_t)h * osh + (size_t)row * oss;
 #pragma unroll
         for (int c = 0; c < 8; ++c)
@@ -313,10 +323,11 @@ __global__ void __launch_bounds__(THREADS, 1)
 // its byte strides of X, Y and B, its box (64 and BQ rows of S for q, BKV
 // for k and v) and the axis (1 or 2) that holds S. o is
 // written through element strides (osb, osh, oss) with a contiguous last
-// axis. grid is the persistent grid (min(items, SMs)). Returns a
+// axis. lse, if not null, receives the f32 (B, H, S) log-sum-exp of each
+// row. grid is the persistent grid (min(items, SMs)). Returns a
 // cudaError_t (0 on success).
 extern "C" int syn3r_flash_attention(const void* q, const void* k,
-                                     const void* v, void* o,
+                                     const void* v, void* o, float* lse,
                                      const long long* geom, int B, int H,
                                      int S, long long osb, long long osh,
                                      long long oss, float scale, int grid,
@@ -352,7 +363,7 @@ extern "C" int syn3r_flash_attention(const void* q, const void* k,
   }
   flash_wgmma_kernel<<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
       maps[0], maps[1], maps[2], s_dims[0], s_dims[1], s_dims[2],
-      static_cast<bf16*>(o), H, S, B * H, osb, osh, oss,
+      static_cast<bf16*>(o), lse, H, S, B * H, osb, osh, oss,
       scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }

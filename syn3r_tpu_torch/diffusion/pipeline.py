@@ -14,8 +14,12 @@ a lambda schedule, and returns the completed frames.
     with batch_groups (1, 2) gives the uncond guidance pass and the CFG
     pair at the pre-grad latents; the closed-form 4-tile guidance gradient
     moves the latents, and the Euler step starts from the post-grad
-    latents. Prob (``variant="prob"``, ``--diffusion_type
-    2PassProbUncertain``): no guidance pass; one batch-2 CFG forward, then
+    latents. With ``guidance_through_unet`` the gradient is instead
+    autograd's, of ``guidance_loss`` through a batch-1 uncond forward with
+    each UNet block checkpointed (the only place grad is enabled), then a
+    batch-2 CFG forward at the pre-grad latents. Prob
+    (``variant="prob"``, ``--diffusion_type 2PassProbUncertain``): no
+    guidance pass; one batch-2 CFG forward, then
     the soft latent replacement step
     (``scheduler.step_interp_prob_uncertain``). Directions merge with
     w = linspace(1, 0, F); ``latent_num`` draws are averaged.
@@ -72,22 +76,30 @@ class GuidedSVDConfig:
     guidance_tile_mode: str = "auto"
     compute_dtype: torch.dtype = torch.bfloat16
     variant: str = "post"           # "post" or "prob"
+    # Post variant opt-in (a documented divergence from the reference, ~2-3x
+    # the cost): the guidance gradient taken THROUGH the UNet (autograd of
+    # the masked MSE through a per-block-checkpointed batch-1 forward)
+    # instead of the detached closed form. Forces direction_parallel off.
+    guidance_through_unet: bool = False
     # Not ported yet; each raises NotImplementedError when set.
     direction_parallel: bool = False
-    guidance_through_unet: bool = False
     guidance_reuse_cfg_uncond: bool = False
 
     def __post_init__(self):
         if self.variant not in ("post", "prob"):
             raise ValueError(f"unknown variant {self.variant!r}")
-        for name in ("direction_parallel", "guidance_through_unet",
-                     "guidance_reuse_cfg_uncond"):
+        if self.guidance_through_unet:
+            self.direction_parallel = False
+        for name in ("direction_parallel", "guidance_reuse_cfg_uncond"):
             if getattr(self, name):
                 raise NotImplementedError(f"{name}=True is not ported")
 
 
 class GuidedSVDPipeline:
     def __init__(self, models: SVDModels, config: GuidedSVDConfig):
+        # frozen: a gradient through the UNet is only ever taken w.r.t. the
+        # latents
+        models.unet.requires_grad_(False)
         self.m = models
         self.cfg = config
         self.device = next(models.unet.parameters()).device
@@ -152,6 +164,45 @@ class GuidedSVDPipeline:
             mode = "reference" if hl >= 25 and wl >= 57 else "scaled"
         return mode
 
+    def _cfg_eps(self, scaled, t, clip_emb, img_lat, guidance):
+        """One batch-2 CFG forward (uncond, cond) and its guided eps."""
+        dt = self.cfg.compute_dtype
+        inp2 = torch.stack([
+            torch.cat([scaled, torch.zeros_like(img_lat)], dim=-1),
+            torch.cat([scaled, img_lat], dim=-1)])
+        eps2 = self.m.unet(inp2.to(dt), t, clip_emb.to(dt),
+                           self._added_time_ids(2)).float()
+        return eps2[0] + guidance * (eps2[1] - eps2[0])
+
+    def _unet_remat(self, sample, t, ehs, tids):
+        """The UNet with each block checkpointed, for the gradient pass:
+        live activations stay one block's, so the full-resolution
+        (25 x 72x128) guided step fits the card."""
+        dt = self.cfg.compute_dtype
+        return self.m.unet(sample.to(dt), t, ehs.to(dt), tids,
+                           remat_blocks=True).float()
+
+    def _unet_guidance_grad(self, latents, step_i, clip_emb, cond, msk, lam,
+                            img_lat):
+        """d guidance_loss / d latents through one batch-1 uncond forward
+        (zero CLIP context, zero image latents), normalized: JAX's
+        ``jax.grad(gloss)(latents)``. Grad is enabled here only, on a
+        detached copy of the latents; the networks take none."""
+        sch = self.schedule
+        t, sigma = sch.timesteps[step_i], sch.sigmas[step_i]
+        lat = latents.detach().requires_grad_(True)
+        with torch.enable_grad():
+            scaled = S.scale_model_input(sch, lat, step_i)
+            inp = torch.cat([scaled, torch.zeros_like(img_lat)], dim=-1)
+            eps = self._unet_remat(inp[None], t, torch.zeros_like(
+                clip_emb[:1]), self._added_time_ids(1))[0]
+            x0 = S.pred_original_sample(eps, lat, sigma).permute(0, 3, 1, 2)
+            cond_c = cond.permute(0, 3, 1, 2)
+            tm = S.top_k_masks(x0.detach(), cond_c, msk, lam[step_i])
+            (grad,) = torch.autograd.grad(S.guidance_loss(x0, cond_c, tm),
+                                          lat)
+        return S.normalize_guidance_grad(grad, sigma, lr=self.cfg.guidance_lr)
+
     def _direction_step(self, latents, step_i, clip_emb, cond, msk, lam,
                         img_lat, guidance):
         cfg, sch = self.cfg, self.schedule
@@ -162,16 +213,19 @@ class GuidedSVDPipeline:
         if cfg.variant == "prob":
             # one batch-2 CFG forward, no guidance pass; the soft
             # replacement step runs in (F, C, h, w)
-            inp2 = torch.stack([
-                torch.cat([scaled, torch.zeros_like(img_lat)], dim=-1),
-                torch.cat([scaled, img_lat], dim=-1)])
-            eps2 = self.m.unet(inp2.to(dt), t, clip_emb.to(dt),
-                               self._added_time_ids(2)).float()
-            eps = eps2[0] + guidance * (eps2[1] - eps2[0])
+            eps = self._cfg_eps(scaled, t, clip_emb, img_lat, guidance)
             prev, _ = S.step_interp_prob_uncertain(
                 sch, eps.permute(0, 3, 1, 2), latents.permute(0, 3, 1, 2),
                 step_i, cond.permute(0, 3, 1, 2), msk, lam)
             return prev.permute(0, 2, 3, 1)
+        if cfg.guidance_through_unet:
+            # the gradient through the UNet moves the latents; the CFG
+            # pair evaluates the PRE-grad latents, the Euler step starts
+            # from the POST-grad ones
+            grad = self._unet_guidance_grad(latents, step_i, clip_emb, cond,
+                                            msk, lam, img_lat)
+            eps = self._cfg_eps(scaled, t, clip_emb, img_lat, guidance)
+            return S.step_interp(sch, eps, latents - grad, step_i)[0]
         # The guidance pass (batch 1, uncond) and the CFG pair (batch 2)
         # evaluate the same PRE-grad latents as one batch-3 forward; the
         # Euler step then starts from the POST-grad latents.
@@ -201,6 +255,12 @@ class GuidedSVDPipeline:
         noise_latents, clip_start, clip_end, cond, mask, lambda_ts = (
             self._tensor(a) for a in (noise_latents, clip_start, clip_end,
                                       cond_latents, mask, lambda_ts))
+        if cond.shape[0] != f:
+            raise ValueError(
+                f"this completion pipeline runs {f} frames "
+                f"(GuidedSVDConfig.num_frames) but got {cond.shape[0]} "
+                "conditioning frames; the --svd_weights completion is the "
+                "25-frame pipeline whatever --num_frames says")
         guidance = torch.linspace(cfg.min_guidance_scale,
                                   cfg.max_guidance_scale, f,
                                   device=self.device)[:, None, None, None]

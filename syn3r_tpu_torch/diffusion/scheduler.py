@@ -4,11 +4,12 @@ Counterpart of ``syn3r_tpu/diffusion/scheduler.py`` (the reference's
 modified ``scheduling_euler_discrete.py``): the Karras sigma schedule with
 continuous timesteps, the v-prediction Euler step, the per-frame top-k
 latent masks, the reference's closed-form, detached, 4-tile guidance
-gradient (the post variant) and the soft latent replacement step of the
-prob variant (``step_interp_prob_uncertain``). The reference quirks the
-JAX package keeps are kept here too: the ``num_zero`` count over (h, w)
-only and the sort-cutoff indexing (``_frame_top_masks``), and the
-absolute tile bounds.
+gradient (the post variant), the masked MSE ``guidance_loss`` that the
+grad-through-UNet opt-in differentiates and the soft latent replacement
+step of the prob variant (``step_interp_prob_uncertain``). The reference
+quirks the JAX package keeps are kept here too: the ``num_zero`` count
+over (h, w) only and the sort-cutoff indexing (``_frame_top_masks``), and
+the absolute tile bounds.
 
 Latent tensors in this module are (T, C, H, W) float32.
 """
@@ -94,6 +95,15 @@ def top_k_masks(pred_x0, cond_latents, mask, lambda_row,
                                lambda_row[1:-1], clamp_lo)
     ones = torch.ones_like(pred_x0[:1], dtype=torch.bool)
     return torch.cat([ones, tops, ones], dim=0)
+
+
+def guidance_loss(pred_x0, cond_latents, top_masks):
+    """Masked MSE over the top-k agreement region (reference :782-786), the
+    loss the grad-through-UNet guidance differentiates; ``top_masks`` is
+    boolean, so no gradient flows through it."""
+    sq = (pred_x0 - cond_latents) ** 2
+    m = top_masks.to(sq.dtype)
+    return (sq * m).sum() / m.sum()
 
 
 def normalize_guidance_grad(grad, sigma, lr: float = 0.02):

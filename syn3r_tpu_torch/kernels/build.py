@@ -30,10 +30,19 @@ SIGNATURES = {
     # x, w1, b1, w2, b2, h, y; rows, C; GEMM-2 N tile, grids; stream
     "geglu_ffn": {"syn3r_geglu_ffn":
                   [_P] * 7 + [_LL, _I, _I, _I, _I, _P]},
-    # q, k, v, o; 3 x 12 map values; B, H, S; o strides; scale; grid; stream
+    # q, k, v, o, lse (or null); 3 x 12 map values; B, H, S; o strides;
+    # scale; grid; stream
     "flash_attention": {"syn3r_flash_attention":
-                        [_P] * 4 + [ctypes.POINTER(_LL), _I, _I, _I, _LL,
+                        [_P] * 5 + [ctypes.POINTER(_LL), _I, _I, _I, _LL,
                                     _LL, _LL, _F, _I, _P]},
+    "flash_attention_bwd": {
+        # q, k, v, dout, lse, D, dk, dv; 6 x (sb, sh, ss); B, H, S; scale;
+        # stream
+        "syn3r_flash_bwd_dkv": [_P] * 8 + [ctypes.POINTER(_LL), _I, _I, _I,
+                                           _F, _P],
+        # q, k, v, dout, lse, D, dq; 5 x (sb, sh, ss); B, H, S; scale; stream
+        "syn3r_flash_bwd_dq": [_P] * 7 + [ctypes.POINTER(_LL), _I, _I, _I,
+                                          _F, _P]},
     # P, G, C, O, out, ltc, keep (or null); T, px, cap, K; stream
     "composite_fwd": {"syn3r_composite_fwd": [_P] * 7 + [_I] * 4 + [_P]},
     # P, G, C, O, ltc, dout, tot, keep, part, dG, dC, dO; T, px, cap, K;

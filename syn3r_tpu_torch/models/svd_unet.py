@@ -17,6 +17,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .layers import (AlphaBlender, Attention, Conv2d, Downsample2D,
                      FeedForward, GroupNorm, LayerNorm, Linear, ResnetBlock2D,
@@ -302,7 +303,18 @@ class UNetSpatioTemporalConditionModel(nn.Module):
 
     def forward(self, sample, timestep, encoder_hidden_states,
                 added_time_ids,
-                batch_groups: Optional[Tuple[int, ...]] = None):
+                batch_groups: Optional[Tuple[int, ...]] = None,
+                remat_blocks: bool = False):
+        """``remat_blocks``: checkpoint each down, mid and up block (the
+        blocks JAX wraps in ``nn.remat``), so a gradient through the UNet
+        keeps one block's activations at a time and recomputes the block's
+        forward in the backward; the values are the same."""
+        def run(block, *args):
+            if remat_blocks:
+                return checkpoint(block, *args, use_reentrant=False,
+                                  preserve_rng_state=False)
+            return block(*args)
+
         b, f, h, w, c = sample.shape
         dt = sample.dtype
         ts = torch.as_tensor(timestep, dtype=torch.float32,
@@ -320,17 +332,19 @@ class UNetSpatioTemporalConditionModel(nn.Module):
         res_stack = [x]
         for block in self.down_blocks:
             if isinstance(block, CrossAttnDownBlockSpatioTemporal):
-                x, outs = block(x, emb, context, f, batch_groups)
+                x, outs = run(block, x, emb, context, f, batch_groups)
             else:
-                x, outs = block(x, emb, f)
+                x, outs = run(block, x, emb, f)
             res_stack.extend(outs)
 
-        x = self.mid_block(x, emb, context, f, batch_groups)
+        x = run(self.mid_block, x, emb, context, f, batch_groups)
 
         for block in self.up_blocks:
             n_lay = len(block.resnets)
             res = [res_stack.pop() for _ in range(n_lay)][::-1]
-            x = block(x, res, emb, context, f, batch_groups)
+            # the block pops its skips: a fresh list for each (re)run
+            x = run(lambda x, *r, block=block: block(
+                x, list(r), emb, context, f, batch_groups), x, *res)
 
         x = self.conv_out(self.conv_norm_out(x))
         return x.reshape(b, f, h, w, -1)

@@ -5,9 +5,11 @@ Counterpart of ``syn3r_tpu/ops/pallas_ffn.py``: ``[a|g] = x W1 + b1``
 ``geglu_ffn`` launches the hand-written kernel pair in
 ``csrc/geglu_ffn.cu`` (persistent wgmma GEMMs fed by TMA: the first with a
 GEGLU epilogue, so the 8C pre-activation never reaches device memory, the
-second with a bias epilogue); on a CPU tensor it runs
-``geglu_ffn_reference``. A CUDA tensor never falls back: the wrapper
-launches or raises. ``geglu_plan`` is the launch geometry, in plain Python.
+second with a bias epilogue) through an autograd Function whose backward
+recomputes through the plain version, as JAX's ``_ffn_bwd`` does; on a
+CPU tensor it runs ``geglu_ffn_reference``. A CUDA tensor never falls
+back: the wrapper launches or raises. ``geglu_plan`` is the launch
+geometry, in plain Python.
 
 Weights use torch's Linear layout: ``w1`` (8C, C), ``w2`` (C, 4C).
 """
@@ -79,14 +81,8 @@ def check_geglu_args(x2: torch.Tensor, w1, b1, w2, b2) -> tuple[int, int]:
     return r, c
 
 
-def geglu_ffn(x2: torch.Tensor, w1, b1, w2, b2) -> torch.Tensor:
-    """GEGLU FF on (R, C): the CUDA kernel for a CUDA tensor, the plain
-    version for a CPU tensor. ``geglu_ffn.launches`` counts kernel
-    launches (one per call, which runs both GEMMs)."""
-    if x2.device.type == "cpu":
-        return geglu_ffn_reference(x2, w1, b1, w2, b2)
-    if x2.device.type != "cuda":
-        raise ValueError(f"geglu_ffn: unsupported device {x2.device}")
+def _geglu_launch(x2: torch.Tensor, w1, b1, w2, b2) -> torch.Tensor:
+    """One launch of the kernel pair on CUDA tensors."""
     r, c = check_geglu_args(x2, w1, b1, w2, b2)
     args = [aligned16(t.to(torch.bfloat16)) for t in (x2, w1, b1, w2, b2)]
     plan = geglu_plan(r, c, _num_sms(x2.device))
@@ -100,6 +96,40 @@ def geglu_ffn(x2: torch.Tensor, w1, b1, w2, b2) -> torch.Tensor:
         raise RuntimeError(f"geglu_ffn kernel launch failed: cudaError {err}")
     geglu_ffn.launches += 1
     return y
+
+
+class _GegluFFN(torch.autograd.Function):
+    """The kernel forward; the backward recomputes through
+    ``geglu_ffn_reference`` with autograd, as JAX's ``_ffn_bwd`` takes the
+    vjp of its reference (there is no GEGLU backward kernel)."""
+
+    @staticmethod
+    def forward(ctx, x2, w1, b1, w2, b2):
+        ctx.save_for_backward(x2, w1, b1, w2, b2)
+        return _geglu_launch(x2, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, gy):
+        args = [t.detach().requires_grad_(need)
+                for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in args if t.requires_grad]
+        with torch.enable_grad():
+            y = geglu_ffn_reference(*args)
+            got = iter(torch.autograd.grad(y, wanted, gy))
+        return tuple(next(got) if t.requires_grad else None for t in args)
+
+
+def geglu_ffn(x2: torch.Tensor, w1, b1, w2, b2) -> torch.Tensor:
+    """GEGLU FF on (R, C): the CUDA kernel for a CUDA tensor, through the
+    autograd Function ``_GegluFFN`` (the backward recomputes through the
+    plain version); the plain version for a CPU tensor.
+    ``geglu_ffn.launches`` counts kernel launches (one per call, which
+    runs both GEMMs)."""
+    if x2.device.type == "cpu":
+        return geglu_ffn_reference(x2, w1, b1, w2, b2)
+    if x2.device.type != "cuda":
+        raise ValueError(f"geglu_ffn: unsupported device {x2.device}")
+    return _GegluFFN.apply(x2, w1, b1, w2, b2)
 
 
 geglu_ffn.launches = 0

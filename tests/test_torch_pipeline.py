@@ -270,7 +270,6 @@ def test_prob_denoise_matches_jax(pipelines):
 
 def test_deferred_options_raise():
     for kw in ({"direction_parallel": True},
-               {"guidance_through_unet": True},
                {"guidance_reuse_cfg_uncond": True}):
         with pytest.raises(NotImplementedError):
             GuidedSVDConfig(**kw)
@@ -317,3 +316,66 @@ def test_load_svd_completion_from_npz(pipelines, tmp_path, monkeypatch):
             assert val.dtype == dtype, key
             torch.testing.assert_close(val, want[key].to(dtype), rtol=0,
                                        atol=0)
+
+
+def test_svd_weights_completion_is_25_frames(pipelines, tmp_path,
+                                            monkeypatch):
+    """--svd_weights with --num_frames 5: JAX's _load_svd_completion builds
+    its config without num_frames (the 25-frame pipeline), and its denoise
+    of 5-frame conditioning raises ValueError (a shape mismatch in the
+    guidance tiles). The port's cli.train.svd_config builds the same
+    config, and its denoise raises ValueError naming the 25-frame
+    pipeline."""
+    import argparse
+    import functools
+
+    from syn3r_tpu.cli import train as JT
+    from syn3r_tpu.models import clip as JC, svd_unet as JSU, vae as JV
+    from syn3r_tpu.utils.params import save_params
+    from syn3r_tpu_torch.cli import train as CLI
+    from syn3r_tpu_torch.diffusion import pipeline as P
+
+    jpipe, _ = pipelines
+    for name, params in (("unet", jpipe.m.unet_params),
+                         ("vae", jpipe.m.vae_params),
+                         ("clip", jpipe.m.clip_params)):
+        save_params(params, str(tmp_path / f"{name}.npz"))
+    ukw = dict(block_out_channels=(32, 64), num_attention_heads=(2, 4),
+               layers_per_block=1, addition_time_embed_dim=32)
+    vkw = dict(block_out_channels=(32, 32, 32), layers_per_block=1)
+    ckw = dict(hidden=64, layers=2, heads=4, mlp_dim=128, patch=32,
+               image_size=224, projection_dim=1024)
+    for mod, attr, kw in ((JSU, "UNetSpatioTemporalConditionModel", ukw),
+                          (JV, "AutoencoderKLTemporalDecoder", vkw),
+                          (JC, "CLIPVisionModelWithProjection", ckw),
+                          (P, "UNetSpatioTemporalConditionModel", ukw),
+                          (P, "AutoencoderKLTemporalDecoder", vkw),
+                          (P, "CLIPVisionModelWithProjection", ckw)):
+        monkeypatch.setattr(mod, attr, functools.partial(getattr(mod, attr),
+                                                         **kw))
+    args = CLI.build_parser().parse_args(
+        ["-s", str(tmp_path), "-m", str(tmp_path), "--svd_weights",
+         str(tmp_path), "--num_frames", str(F), "--num_inference_steps",
+         str(STEPS)])
+    jargs = argparse.Namespace(
+        svd_weights=args.svd_weights, num_frames=args.num_frames,
+        num_inference_steps=STEPS, diffusion_type=args.diffusion_type,
+        guidance_reuse_cfg_uncond=0)
+    jp = JT._load_svd_completion(jargs)
+    tp = P.load_svd_completion(args.svd_weights, device="cpu",
+                               **CLI.svd_config(args))
+    assert jp.cfg.num_frames == tp.cfg.num_frames == 25
+    assert tp.cfg.num_inference_steps == STEPS
+
+    # as __call__ hands them to denoise: noise latents of the config's 25
+    # frames, conditioning of the pair's 5
+    rng = np.random.default_rng(70)
+    inputs = (rng.normal(size=(1, 25, LH, LW, 4)).astype(np.float32),
+              np.zeros((2, 1, 1024), np.float32),
+              np.zeros((2, 1, 1024), np.float32),
+              _u((F, LH, LW, 4), 71, -1, 1), _u((F - 2, LH, LW), 72),
+              np.ones((STEPS, F), np.float32))
+    with pytest.raises(ValueError):
+        jp.denoise(*(jnp.asarray(a) for a in inputs))
+    with pytest.raises(ValueError, match="25-frame pipeline"):
+        tp.denoise(*inputs)
