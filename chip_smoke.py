@@ -7,7 +7,8 @@ Phases, one result line each; any failure raises and the exit code is not 0:
   1. device   the card's name and power limit (nvidia-smi), torch version.
   2. build    nvcc builds every kernel of the path from csrc/ (in parallel);
               ptxas registers and spills, and the HGMMA (wgmma) count in
-              the SASS of the GEGLU and flash libraries (cuobjdump).
+              the SASS of the GEGLU, flash and flash backward libraries
+              (cuobjdump), none of which may be 0.
   3. kernels  each kernel's wrapper against its plain torch version at the
               main path's shapes, in bf16: max-abs and rel-RMS error, plain
               time, and the kernel and its library call (one PyTorch call)
@@ -37,11 +38,16 @@ Phases, one result line each; any failure raises and the exit code is not 0:
               attention_lse_reference (LSE_TOL), dq, dk and dv of the dkv
               and dq kernels against flash_attention_bwd_reference and
               against autograd through attention_chunked (b = 0 only at
-              S 9216) at BWD_TOL, two backward calls bit for bit, the whole
-              backward timed in turns against the backward of
+              S 9216) at BWD_TOL, the D that the dq kernel writes against
+              the torch reduction (D_TOL), two backward calls bit for bit,
+              the whole backward timed in turns against the backward of
               F.scaled_dot_product_attention (with the SM clock and power),
-              each kernel alone against its bound, the forward with and
-              without lse. (2) The small UNet with its blocks checkpointed:
+              each kernel alone against its bound, the torch reduction of D
+              alone, the forward with and without lse; then the backward
+              off those shapes (BWD_LAYOUTS: ragged S 200 and 1000 at small
+              B*H, a contiguous input, a misaligned view that the wrapper
+              copies) against the plain version, one dq and one dkv launch
+              a call. (2) The small UNet with its blocks checkpointed:
               d guidance_loss / d sample, bf16 on the card through the
               kernels against float32 on the CPU (SMALL_GRAD_TOL), flash
               forward, dkv and dq launched. (3) The full-width unit with the
@@ -240,6 +246,16 @@ TOL = {"geglu_ffn": (5e-2, 1e-2), "flash_attention": (2e-2, 1e-2)}
 # and dv of O(1)-O(10) on these inputs).
 LSE_TOL = 1e-4
 BWD_TOL = (2e-2, 1e-2)
+# D = rowsum(dO o O) as the dq kernel writes it against the torch reduction:
+# f32 sums of the same 64 products of bf16 values in another order (max-abs
+# over max |want| and rel-RMS).
+D_TOL = 1e-5
+# (B, H, S, layout) of the backward checked off the grad pass's shapes:
+# ragged S (200: 1.56 tiles of 128, 3.1 stages of 64; 1000: 7.8 and 15.6)
+# at small B*H, a contiguous input, a misaligned view (copied by the
+# wrapper).
+BWD_LAYOUTS = [(2, 3, 200, "projection"), (1, 2, 1000, "projection"),
+               (2, 4, 576, "contiguous"), (2, 2, 640, "misaligned")]
 # The small UNet's gradient, bf16 on the card against float32 on the CPU,
 # rel-RMS: the forward alone is held to 5e-2 (check_small_unet), and the
 # backward rounds each of its products to bf16 once more.
@@ -709,16 +725,34 @@ def check_rel(name, got, want, tol=BWD_TOL):
     return max_abs, rel_rms, rel
 
 
+def bwd_parts(q, k, v, out, lse, dout, scale):
+    """The backward's operands as ``flash_attention_bwd`` prepares them,
+    and a launch of each kernel alone (dq first: it writes the D that dkv
+    reads), for timing them one by one."""
+    b, h, s, _ = q.shape
+    plan = A.flash_bwd_plan(b, h, s, torch.cuda.get_device_properties(
+        q.device).multi_processor_count)
+    views, lse_p, delta = A.flash_bwd_operands(q, k, v, out, dout, lse,
+                                               plan["ld"])
+    outs = {"dq": (A.like_projection(q),),
+            "dkv": (A.like_projection(k), A.like_projection(v))}
+    launch = {n: (lambda n=n: A.flash_bwd_launch(
+        n, plan, views, lse_p, delta, outs[n], scale)) for n in outs}
+    return plan, delta, launch
+
+
 def check_attention_bwd(gen, dev, smi):
     """The guided phase's kernels at each grad-pass shape (B 25 frames):
     the forward's lse against attention_lse_reference; dq, dk and dv
     against flash_attention_bwd_reference (fed the kernel's out and lse)
     and against autograd through attention_chunked (on b = 0 at the top
-    level, whose plain autograd would keep ~60 GB of probabilities); two
+    level, whose plain autograd would keep ~60 GB of probabilities); the D
+    that the dq kernel writes against the torch reduction (D_TOL); two
     backward calls bit for bit; the whole backward in turns against
     F.scaled_dot_product_attention's backward (autograd.grad of its
-    output, its forward not timed); each kernel alone, the plain version
-    and the forward with and without lse."""
+    output, its forward not timed); each kernel alone, the torch reduction
+    of D alone (delta_ms, the pass the dq kernel's prologue replaces), the
+    plain version and the forward with and without lse."""
     names = ("dq", "dk", "dv")
     rows = []
     for b, h, s, calls in GRAD_ATTN_SHAPES:
@@ -756,12 +790,15 @@ def check_attention_bwd(gen, dev, smi):
         del auto, leaves, got
         torch.cuda.empty_cache()
 
-        delta = (dout.float() * out.float()).sum(-1)
-        outs = {"dkv": (A.like_projection(k), A.like_projection(v)),
-                "dq": (A.like_projection(q),)}
-        part_ms = {n: cuda_ms(lambda n=n: A.flash_bwd_launch(
-            n, q, k, v, dout, lse, delta, outs[n], scale), 5)
-            for n in outs}
+        plan, delta, launch = bwd_parts(q, k, v, out, lse, dout, scale)
+        launch["dq"]()
+        torch.cuda.synchronize()
+        delta_err = check_rel(f"flash bwd D at {(b, h, s)}",
+                              delta[..., :s],
+                              (dout.float() * out.float()).sum(-1),
+                              (D_TOL, D_TOL))
+        part_ms = {n: cuda_ms(launch[n], 5) for n in ("dq", "dkv")}
+        delta_ms = cuda_ms(lambda: (dout.float() * out.float()).sum(-1), 5)
         fwd_ms = {str(w): cuda_ms(lambda w=w: A._flash_forward(
             q, k, v, scale, w), 5) for w in (False, True)}
         qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
@@ -774,11 +811,12 @@ def check_attention_bwd(gen, dev, smi):
             q, k, v, out, lse, dout, scale), 1)
         unit = bh * s * s * 64          # one (S x S x 64) product: 2 x this
         row_bytes = bh * s * 64 * 2     # one bf16 (B, H, S, 64) tensor
-        # dkv: S^T, dV, dP^T, dK; dq: S, dP, dQ. Each reads q, k, v, dout,
-        # lse and D and writes its outputs.
+        # dkv: S^T, dP^T, dV, dK; reads q, k, v, dout, lse and D, writes dk
+        # and dv. dq: S, dP, dQ; reads q, k, v, dout, out and lse, writes dq
+        # and D.
         bounds = {n: bound_ms(2 * unit * prods,
-                              (4 + n_out) * row_bytes + 2 * bh * s * 4)
-                  for n, prods, n_out in (("dkv", 4, 2), ("dq", 3, 1))}
+                              n_rows * row_bytes + 2 * bh * s * 4)
+                  for n, prods, n_rows in (("dkv", 4, 6), ("dq", 3, 6))}
         # the whole backward: five products, q, k, v, out, dout and lse
         # read, dq, dk, dv written
         fn_bound = bound_ms(10 * unit, 8 * row_bytes + bh * s * 4)
@@ -791,12 +829,16 @@ def check_attention_bwd(gen, dev, smi):
                                                  "rel_max"), e))
                                     for n, e in auto_err.items()},
                    autograd_rows="b = 0" if s > 4096 else "all",
+                   delta_errors=dict(zip(("max_abs", "rel_rms", "rel_max"),
+                                         delta_err)),
                    plain_ms=plain, bound_ms=fn_bound[0],
                    bound_by=fn_bound[1], exps_per_kernel=bh * s * s,
                    exp_ms_per_kernel=1e3 * bh * s * s / PEAK_MUFU_EXPS,
+                   delta_ms=delta_ms, plan={n: {x: plan[n][x] for x in (
+                       "grid", "smem", "stages")} for n in ("dkv", "dq")},
                    fwd_ms_without_lse=fwd_ms["False"],
                    fwd_ms_with_lse=fwd_ms["True"], **turns_row(turns))
-        for n in outs:
+        for n in ("dkv", "dq"):
             row[n] = dict(ms=part_ms[n], bound_ms=bounds[n][0],
                           bound_by=bounds[n][1],
                           tflops=2 * unit * (4 if n == "dkv" else 3)
@@ -804,8 +846,58 @@ def check_attention_bwd(gen, dev, smi):
         row["tflops"] = 10 * unit / row["ms"] / 1e9
         say("guided", what="flash backward kernels", **row)
         rows.append(row)
-        del q, k, v, dout, out, lse, delta, outs, qs, ks, vs, o_sdpa
+        del q, k, v, dout, out, lse, delta, launch, qs, ks, vs, o_sdpa
         torch.cuda.empty_cache()
+    return rows
+
+
+def bwd_layout_inputs(gen, dev, b, h, s, layout):
+    """q, k, v, dout (B, H, S, 64) bf16 in ``layout``: "projection" (views
+    of (B, S, H, 64) tensors, as the UNet's), "contiguous" ((B, H, S, 64)
+    tensors) or "misaligned" (views of (B, S, H, 66) tensors sliced to 64:
+    rows 132 bytes apart, which TMA cannot read, so the wrapper copies
+    them)."""
+    def one():
+        if layout == "contiguous":
+            return torch.randn((b, h, s, 64), generator=gen,
+                               device=dev).to(torch.bfloat16)
+        width = 66 if layout == "misaligned" else 64
+        return (torch.randn((b, s, h, width), generator=gen, device=dev)
+                .to(torch.bfloat16)[..., :64].transpose(1, 2))
+    return [one() for _ in range(4)]
+
+
+def check_bwd_layouts(gen, dev):
+    """The backward kernels off the grad pass's shapes, against
+    flash_attention_bwd_reference at BWD_TOL (each with the forward
+    kernel's out and lse): ragged S at small B*H (the last 128-row tile
+    and, at 200 and 1000, the last 64-row stage part filled), a contiguous
+    (B, H, S, 64) input and a misaligned view that the wrapper copies.
+    Launches are counted: one dq and one dkv a call."""
+    rows = []
+    for b, h, s, layout in BWD_LAYOUTS:
+        q, k, v, dout = bwd_layout_inputs(gen, dev, b, h, s, layout)
+        if layout == "misaligned" and A.flash_tensor_map(
+                q.shape, q.stride(), q.data_ptr(), A.FLASH_BWD_ROWS):
+            raise AssertionError("misaligned backward input maps as it is")
+        out, lse = A._flash_forward(q, k, v, 0.125, with_lse=True)
+        before = dict(A.flash_attention_bwd.launches)
+        got = A.flash_attention_bwd(q, k, v, out, lse, dout, 0.125)
+        torch.cuda.synchronize()
+        launched = {n: A.flash_attention_bwd.launches[n] - before[n]
+                    for n in before}
+        want = A.flash_attention_bwd_reference(q, k, v, out, lse, dout,
+                                               0.125)
+        err = {n: check_rel(f"flash bwd {n} at {(b, h, s)} {layout}", g, w)
+               for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+        if launched != {"dkv": 1, "dq": 1}:
+            raise AssertionError(f"flash bwd at {(b, h, s)} {layout}: "
+                                 f"launches {launched}")
+        row = dict(b=b, h=h, tokens=s, layout=layout,
+                   errors={n: dict(zip(("max_abs", "rel_rms", "rel_max"), e))
+                           for n, e in err.items()})
+        say("guided", what="flash backward off the grad pass", **row)
+        rows.append(row)
     return rows
 
 
@@ -944,9 +1036,11 @@ def run_guided_phase(pipe, unit, dev):
                                    dev, smi)
     finally:
         smi.close()
+    layouts = check_bwd_layouts(torch.Generator(device=dev).manual_seed(6),
+                                dev)
     small = check_small_unet_grad(dev)
-    return dict(attention_bwd=rows, small_unet_grad=small,
-                unit=run_guided(pipe, unit))
+    return dict(attention_bwd=rows, attention_bwd_layouts=layouts,
+                small_unet_grad=small, unit=run_guided(pipe, unit))
 
 
 def bwd_entries(guided, launches):
@@ -2612,7 +2706,8 @@ def main():
                 say("build", kernel=name, ptxas=repr(line.strip()))
     say("build", seconds=time.perf_counter() - t0, built=sorted(logs))
     hgmma = {name: sass_count(name, "HGMMA")
-             for name in ("geglu_ffn", "flash_attention")}
+             for name in ("geglu_ffn", "flash_attention",
+                          "flash_attention_bwd")}
     say("build", hgmma_in_sass={k: "not available" if v is None else v
                                 for k, v in hgmma.items()})
     if any(v == 0 for v in hgmma.values()):

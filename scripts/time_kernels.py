@@ -18,14 +18,20 @@ inputs made from seeds:
     forward's proportion; each also as device time alone (``graph_ms``:
     calls replayed from a CUDA graph, without the host's issue time that
     bounds the windows' times at the small shapes);
+  * ``flash_attention_bwd`` (the whole backward, from the forward's out
+    and lse; its kernels' launches as the wrapper makes them) at the grad
+    pass's shapes (GRAD_ATTN_SHAPES, the UNet's (B, S, H, 64) projection
+    views), with the backward of F.scaled_dot_product_attention beside it
+    as the control that no checkout changes;
   * ``composite_fwd`` and ``composite_bwd`` on the GS main path's tile
     lists (``gs_tile_lists``: T 96, px 2048, cap 1024, K 128, projected
     and binned by DIR's code).
 Each in a window of at least ~0.25 s; nvidia-smi samples the SM clock and
 power draw every 20 ms and each row carries their medians over its window.
-Prints one JSON line: per row ms, MHz and W, and the sums over one batch-3
-UNet forward. Run it as parent, change, change, parent in one call to
-compare two checkouts. Needs a CUDA device.
+Prints one JSON line: per row ms, MHz and W, the sums over one batch-3
+UNet forward, and the backward's over one grad pass. Run it as parent,
+change, change, parent in one call to compare two checkouts. Needs a CUDA
+device.
 """
 
 import argparse
@@ -36,8 +42,9 @@ import sys
 
 import torch
 
-from kernel_timing import (ATTN_SHAPES, FFN_SHAPES, GN_SHAPES, LN_SHAPES,
-                           SmiSampler, graph_ms, gs_tile_lists, window_iters)
+from kernel_timing import (ATTN_SHAPES, FFN_SHAPES, GN_SHAPES,
+                           GRAD_ATTN_SHAPES, LN_SHAPES, SmiSampler, graph_ms,
+                           gs_tile_lists, window_iters)
 
 
 def main():
@@ -51,6 +58,7 @@ def main():
         return 2
     sys.path.insert(0, os.path.abspath(args.root))
     from syn3r_tpu_torch.ops import composite as TC
+    from syn3r_tpu_torch.ops import attention as A
     from syn3r_tpu_torch.ops.attention import flash_attention
     from syn3r_tpu_torch.ops.geglu_ffn import geglu_ffn
     from syn3r_tpu_torch.ops import norm as N
@@ -94,6 +102,27 @@ def main():
                              tflops=4 * bh * s * s * 64 / row["ms"] / 1e9))
             per_forward["flash_attention"] += calls * row["ms"]
             del q, k, v
+        per_grad_pass = {"flash_attention_bwd": 0.0, "sdpa_bwd": 0.0}
+        for b, h, s, calls in GRAD_ATTN_SHAPES:
+            q, k, v, dout = (torch.randn((b, s, h, 64), generator=gen,
+                                         device=dev).to(torch.bfloat16)
+                             .transpose(1, 2) for _ in range(4))
+            out, lse = A._flash_forward(q, k, v, 0.125, with_lse=True)
+            qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+            o_sdpa = torch.nn.functional.scaled_dot_product_attention(
+                qs, ks, vs, scale=0.125)
+            for key, fn in (
+                    ("flash_attention_bwd", lambda: A.flash_attention_bwd(
+                        q, k, v, out, lse, dout, 0.125)),
+                    ("sdpa_bwd", lambda: torch.autograd.grad(
+                        o_sdpa, (qs, ks, vs), dout, retain_graph=True))):
+                row = timed(fn)
+                rows.append(dict(kernel=key, b=b, h=h, tokens=s, **row,
+                                 tflops=10 * b * h * s * s * 64 / row["ms"]
+                                 / 1e9))
+                per_grad_pass[key] += calls * row["ms"]
+            del q, k, v, dout, out, lse, qs, ks, vs, o_sdpa
+            torch.cuda.empty_cache()
         for r, c, calls in LN_SHAPES:
             x = rnd(r, c, std=1.5)
             w32 = rnd(c, std=0.3, dtype=torch.float32) + 1.0
@@ -150,7 +179,7 @@ def main():
         capture_output=True, text=True).stdout.strip()
     print(json.dumps({"label": args.label, "root": args.root,
                       "device": device, "per_forward_ms": per_forward,
-                      "rows": rows}))
+                      "per_grad_pass_ms": per_grad_pass, "rows": rows}))
     return 0
 
 

@@ -305,6 +305,51 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_mn(float* d, const uint32_t* 
         "r"(scale_d));
 }
 
+// d (64 x 64, f32) (+)= A (64 x 16, registers, as above) * B (64 x 16,
+// smem, K-major)^T.
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float* d, const uint32_t* a,
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// The register A operand of a warp's 16 rows (row0 .. row0 + 15, 64
+// columns, 4 k16 steps) read by ldmatrix from a 128-byte-swizzled shared
+// tile at `tile` (1024-byte aligned, rows of 64 bf16): the 16-byte chunk c
+// of row r lies at chunk c ^ (r % 8). Lanes 0-15 address rows 0-15 of the
+// step's first 8 columns, lanes 16-31 of its last 8, so the four 8x8
+// matrices land as the A fragment's a0..a3.
+__device__ __forceinline__ void ldsm_a_sw128(uint32_t (&a)[4][4], uint32_t tile,
+                                             int row0, int lane) {
+  const int r = row0 + (lane & 15);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int c = 2 * kk + (lane >> 4);
+    const uint32_t addr = tile + r * 128 + ((c ^ (r & 7)) << 4);
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(a[kk][0]), "=r"(a[kk][1]), "=r"(a[kk][2]), "=r"(a[kk][3])
+        : "r"(addr)
+        : "memory");
+  }
+}
+
 // ---- warp specialisation ------------------------------------------------
 
 __device__ __forceinline__ void named_bar_sync(int id, int threads) {
@@ -384,6 +429,26 @@ inline cudaError_t make_map_bf16(CUtensorMap* map, const void* base, int rank,
                   reinterpret_cast<const cuuint32_t*>(box), elem,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// An f32 tensor map of `rows` rows of `n` values each, `ld` values apart
+// (ld % 4 == 0), loaded `box` values of one row at a time, unswizzled, with
+// zero fill past n.
+inline cudaError_t make_map_f32_rows(CUtensorMap* map, const void* base,
+                                     uint64_t n, uint64_t rows, uint64_t ld,
+                                     uint32_t box) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {n, rows};
+  const cuuint64_t strides[1] = {ld * 4};
+  const cuuint32_t boxes[2] = {box, 1};
+  const cuuint32_t elem[2] = {1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                  const_cast<void*>(base), dims, strides, boxes, elem,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                  CU_TENSOR_MAP_L2_PROMOTION_NONE,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -36,13 +36,14 @@ SIGNATURES = {
                         [_P] * 5 + [ctypes.POINTER(_LL), _I, _I, _I, _LL,
                                     _LL, _LL, _F, _I, _P]},
     "flash_attention_bwd": {
-        # q, k, v, dout, lse, D, dk, dv; 6 x (sb, sh, ss); B, H, S; scale;
-        # stream
-        "syn3r_flash_bwd_dkv": [_P] * 8 + [ctypes.POINTER(_LL), _I, _I, _I,
-                                           _F, _P],
-        # q, k, v, dout, lse, D, dq; 5 x (sb, sh, ss); B, H, S; scale; stream
-        "syn3r_flash_bwd_dq": [_P] * 7 + [ctypes.POINTER(_LL), _I, _I, _I,
-                                          _F, _P]},
+        # q, k, v, dout, lse, D, dk, dv; 4 x 12 map values; dk and dv
+        # (sb, sh, ss); B, H, S, ld; scale; grid; stream
+        "syn3r_flash_bwd_dkv": [_P] * 8 + [ctypes.POINTER(_LL)] * 2
+        + [_I] * 4 + [_F, _I, _P],
+        # q, k, v, dout, out, lse, D (written), dq; 5 x 12 map values; dq
+        # (sb, sh, ss); B, H, S, ld; scale; grid; stream
+        "syn3r_flash_bwd_dq": [_P] * 8 + [ctypes.POINTER(_LL)] * 2
+        + [_I] * 4 + [_F, _I, _P]},
     # P, G, C, O, out, ltc, keep (or null); T, px, cap, K; stream
     "composite_fwd": {"syn3r_composite_fwd": [_P] * 7 + [_I] * 4 + [_P]},
     # P, G, C, O, ltc, dout, tot, keep, part, dG, dC, dO; T, px, cap, K;

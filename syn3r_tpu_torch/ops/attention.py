@@ -10,7 +10,7 @@ product, as in the JAX package.
 Where the JAX package takes the Pallas TPU flash attention, the port takes
 ``flash_attention``: on a CUDA tensor the hand-written forward kernel of
 ``csrc/flash_attention.cu`` and, where a gradient is taken (the guidance
-pass through the UNet), the dkv and dq kernels of
+pass through the UNet), the dq and dkv kernels of
 ``csrc/flash_attention_bwd.cu``, both through one autograd Function; on a
 CPU tensor the exact chunked version, whose gradient is autograd's (as
 JAX differentiates ``_attention_chunked`` off the TPU). A CUDA tensor
@@ -30,6 +30,14 @@ from ..kernels import build
 
 # Query rows of the kernel's work item, keys of its K/V stage, head dim.
 FLASH_BQ, FLASH_BKV, FLASH_D = 128, 192, 64
+# The backward kernels: rows of a work item (its resident tiles, 64 a
+# consumer warpgroup), rows of a streamed stage, stages in the ring.
+FLASH_BWD_ROWS, FLASH_BWD_STAGE_ROWS, FLASH_BWD_STAGES = 128, 64, 6
+# bf16 inputs of each backward kernel, in its argument order
+FLASH_BWD_INPUTS = {"dkv": ("q", "k", "v", "dout"),
+                    "dq": ("q", "k", "v", "dout", "out")}
+# dynamic shared memory a block may use on an H100 (227 KB)
+SMEM_BYTES = 232448
 
 
 def attention_dense(q, k, v, scale: float) -> torch.Tensor:
@@ -160,18 +168,6 @@ def _flash_forward(q, k, v, scale: float, with_lse: bool):
     return out, lse
 
 
-def row_aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` (B, H, S, 64) as the backward kernels read it (contiguous head
-    dim, element strides multiple of 8, 16-byte aligned start), copied once
-    into a contiguous tensor where it is not."""
-    if (t.stride(3) != 1 or t.data_ptr() % 16
-            or any(st % 8 for st in t.stride()[:3])):
-        t = t.contiguous()
-        if t.data_ptr() % 16:
-            t = t.clone()
-    return t
-
-
 def like_projection(t: torch.Tensor) -> torch.Tensor:
     """An empty (B, H, S, D) view of a (B, S, H, D) tensor, the layout of
     the UNet's projections (so their gradients need no copy)."""
@@ -180,20 +176,93 @@ def like_projection(t: torch.Tensor) -> torch.Tensor:
                        device=t.device).permute(0, 2, 1, 3)
 
 
-def flash_bwd_launch(name: str, q, k, v, dout, lse, delta, outs,
+def flash_bwd_plan(b: int, h: int, s: int, num_sms: int,
+                   d: int = FLASH_D) -> dict:
+    """Launch plan of the backward kernels of ``csrc/flash_attention_bwd.cu``
+    for (B, H, S, d) on a card of ``num_sms`` SMs: per kernel ("dkv", "dq")
+    the rows of a work item and of a streamed stage, the stages, the
+    dynamic shared bytes, the TMA box rows of each tensor (resident tiles
+    128, streamed 64; dkv's lse and D rows 64) and the persistent grid; and
+    ``ld``, the row length of lse and D (S rounded up to 4, so that each
+    row starts 16-byte aligned for TMA). Raises ValueError on what the
+    kernels do not take."""
+    if d != FLASH_D:
+        raise ValueError(f"flash backward kernels take d = 64, got {d}")
+    if min(b, h, s) <= 0 or num_sms <= 0:
+        raise ValueError(f"flash backward kernels need B, H, S and SMs > 0, "
+                         f"got {(b, h, s, num_sms)}")
+    rows, stage_rows, stages = (FLASH_BWD_ROWS, FLASH_BWD_STAGE_ROWS,
+                                FLASH_BWD_STAGES)
+    items = b * h * -(-s // rows)
+    if b * h * -(-s // stage_rows) >= 2 ** 31:
+        raise ValueError(f"flash backward kernels: {b * h} heads of {s} "
+                         "rows pass the kernels' 32-bit tile indices")
+    tile_r, tile_s = rows * d * 2, stage_rows * d * 2
+    bars = (2 + 2 * stages) * 8
+    plan = {"ld": -(-s // 4) * 4, "items": items}
+    for name, resident, streamed, stage_bytes in (
+            ("dkv", ("k", "v"), ("q", "dout"), 2 * tile_s + 1024),
+            ("dq", ("q", "dout", "out"), ("k", "v"), 2 * tile_s)):
+        smem = 1024 + len(resident) * tile_r + stages * stage_bytes + bars
+        if smem > SMEM_BYTES:
+            raise ValueError(f"flash backward {name} kernel: {smem} bytes of "
+                             f"shared memory, over the {SMEM_BYTES} a block "
+                             "may use")
+        boxes = {t: rows for t in resident}
+        boxes.update({t: stage_rows for t in streamed})
+        plan[name] = {"rows": rows, "stage_rows": stage_rows,
+                      "stages": stages, "smem": smem, "boxes": boxes,
+                      "grid": min(items, num_sms)}
+    plan["dkv"]["boxes"].update(lse=stage_rows, delta=stage_rows)
+    return plan
+
+
+def flash_bwd_operands(q, k, v, out, dout, lse, ld: int):
+    """The backward kernels' inputs: ({"q", "k", "v", "out", "dout"}: each
+    view as it is where TMA can read it, else one aligned copy (``mapped``),
+    lse as f32 (B, H, ld) rows (a zero-padded copy where ld != S), and an
+    empty f32 (B, H, ld) for D, which the dq kernel writes)."""
+    views = {n: mapped(t, FLASH_BWD_ROWS)[0]
+             for n, t in (("q", q), ("k", k), ("v", v), ("out", out),
+                          ("dout", dout))}
+    lse = lse.contiguous()
+    if lse.shape[-1] != ld:
+        lse = torch.nn.functional.pad(lse, (0, ld - lse.shape[-1]))
+    return views, lse, torch.empty_like(lse)
+
+
+def flash_bwd_maps(name: str, views: dict, plan: dict) -> list:
+    """The tensor maps of kernel ``name``'s bf16 inputs in its argument
+    order (``FLASH_BWD_INPUTS``), each with the plan's box rows."""
+    boxes = plan[name]["boxes"]
+    maps = [flash_tensor_map(views[n].shape, views[n].stride(),
+                             views[n].data_ptr(), boxes[n])
+            for n in FLASH_BWD_INPUTS[name]]
+    if any(m is None for m in maps):
+        raise ValueError(f"flash backward {name}: an input TMA cannot read "
+                         "(pass it through flash_bwd_operands)")
+    return maps
+
+
+def flash_bwd_launch(name: str, plan: dict, views: dict, lse, delta, outs,
                      scale: float) -> None:
-    """One launch of the backward kernel ``name``: "dkv" writes outs =
-    (dk, dv), "dq" writes outs = (dq,). Arguments as ``flash_attention_bwd``
-    prepares them (``row_aligned`` views, contiguous f32 lse and D)."""
-    b, h, s, _ = q.shape
-    views = (q, k, v, dout) + tuple(outs)
-    strides = (ctypes.c_longlong * (3 * len(views)))(
-        *(st for t in views for st in t.stride()[:3]))
+    """One launch of the backward kernel ``name`` on the inputs of
+    ``flash_bwd_operands``: "dq" reads q, k, v, dout, out and lse and writes
+    outs = (dq,) and D into ``delta``; "dkv" reads q, k, v, dout, lse and
+    that D and writes outs = (dk, dv). The outputs are (B, H, S, 64) views
+    with a contiguous last axis (``like_projection``)."""
+    b, h, s, _ = views["q"].shape
+    maps = flash_bwd_maps(name, views, plan)
+    geom = (ctypes.c_longlong * (12 * len(maps)))(*(
+        x for m in maps
+        for x in (*m["dims"], *m["strides"], *m["box"], m["s_dim"])))
+    ostr = (ctypes.c_longlong * (3 * len(outs)))(
+        *(st for t in outs for st in t.stride()[:3]))
     err = build.entry("flash_attention_bwd", f"syn3r_flash_bwd_{name}")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        *(views[n].data_ptr() for n in FLASH_BWD_INPUTS[name]),
         lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
-        strides, b, h, s, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        geom, ostr, b, h, s, plan["ld"], float(scale), plan[name]["grid"],
+        torch.cuda.current_stream(views["q"].device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd {name} kernel launch "
                            f"failed: cudaError {err}")
@@ -201,25 +270,30 @@ def flash_bwd_launch(name: str, q, k, v, dout, lse, delta, outs,
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, scale: float):
-    """(dq, dk, dv) of exact attention on CUDA tensors: D = rowsum(dout *
-    out) in torch, then the dkv and the dq kernels of
-    ``csrc/flash_attention_bwd.cu``. ``flash_attention_bwd.launches``
-    counts each kernel's launches."""
+    """(dq, dk, dv) of exact attention on CUDA tensors: the dq kernel of
+    ``csrc/flash_attention_bwd.cu`` (which also forms D = rowsum(dout *
+    out)), then its dkv kernel. q, k, v, out and dout are bf16 (B, H, S, 64)
+    views, lse the forward's f32 (B, H, S); the gradients are views of
+    (B, S, H, 64) tensors. ``flash_attention_bwd.launches`` counts each
+    kernel's launches."""
     check_flash_args(q, k, v)
     if (dout.shape != q.shape or dout.dtype != q.dtype
-            or out.shape != q.shape or lse.shape != q.shape[:3]
-            or lse.dtype != torch.float32):
+            or out.shape != q.shape or out.dtype != q.dtype
+            or lse.shape != q.shape[:3] or lse.dtype != torch.float32):
         raise ValueError("flash_attention_bwd: out and dout must be like q "
-                         f"{tuple(q.shape)}, lse f32 (B, H, S); got "
-                         f"{tuple(out.shape)} {tuple(dout.shape)} "
-                         f"{dout.dtype} {tuple(lse.shape)} {lse.dtype}")
+                         f"{tuple(q.shape)} {q.dtype}, lse f32 (B, H, S); "
+                         f"got {tuple(out.shape)} {out.dtype} "
+                         f"{tuple(dout.shape)} {dout.dtype} "
+                         f"{tuple(lse.shape)} {lse.dtype}")
     check_cuda(q)
-    q, k, v, dout = (row_aligned(t) for t in (q, k, v, dout))
-    delta = (dout.float() * out.float()).sum(-1).contiguous()
-    lse = lse.contiguous()
+    b, h, s, d = q.shape
+    plan = flash_bwd_plan(b, h, s, torch.cuda.get_device_properties(
+        q.device).multi_processor_count, d)
+    views, lse, delta = flash_bwd_operands(q, k, v, out, dout, lse,
+                                           plan["ld"])
     dq, dk, dv = like_projection(q), like_projection(k), like_projection(v)
-    flash_bwd_launch("dkv", q, k, v, dout, lse, delta, (dk, dv), scale)
-    flash_bwd_launch("dq", q, k, v, dout, lse, delta, (dq,), scale)
+    flash_bwd_launch("dq", plan, views, lse, delta, (dq,), scale)
+    flash_bwd_launch("dkv", plan, views, lse, delta, (dk, dv), scale)
     return dq, dk, dv
 
 

@@ -129,6 +129,15 @@ def test_kernel_route_takes_only_cuda_tensors():
         A.flash_attention_bwd(q, q, q, q, lse, q.float(), 0.125)
     with pytest.raises(ValueError, match="must be like q"):
         A.flash_attention_bwd(q, q, q, q, lse[:, :1], q, 0.125)
+    # the dq kernel reads out (for D) by TMA as bf16, like q
+    with pytest.raises(ValueError, match="must be like q"):
+        A.flash_attention_bwd(q, q, q, q.float(), lse, q, 0.125)
+    with pytest.raises(ValueError, match="must be like q"):
+        A.flash_attention_bwd(q, q, q, q[:, :, :32], lse, q, 0.125)
+    # the launch plan refuses a head dim the kernels do not take, before
+    # any device is asked
+    with pytest.raises(ValueError, match="d = 64"):
+        A.flash_bwd_plan(1, 2, 64, 132, d=32)
     with pytest.raises(ValueError, match="CUDA tensors"):
         A._FlashAttention.apply(q.clone().requires_grad_(True), q, q, 0.125)
     # the CPU route of the public wrapper stays the plain version, with

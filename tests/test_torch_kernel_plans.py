@@ -111,6 +111,167 @@ def test_flash_misaligned_views_are_copied_once():
     assert t is not view and t.data_ptr() % 16 == 0 and m is not None
 
 
+BWD_SHAPES = [(25, 5, 9216), (25, 10, 2304), (25, 20, 576), (2, 3, 200),
+              (1, 2, 1000)]
+
+
+@pytest.mark.parametrize("b, h, s", BWD_SHAPES)
+def test_flash_bwd_plan(b, h, s):
+    """Work items of 128 rows (dkv: keys, dq: queries) over a persistent
+    grid of at most one block per SM; resident tiles in 128-row boxes,
+    streamed stages in 64-row ones; lse and D rows padded to 4 values."""
+    plan = A.flash_bwd_plan(b, h, s, H100_SMS)
+    items = b * h * math.ceil(s / 128)
+    assert plan["items"] == items
+    assert plan["ld"] % 4 == 0 and s <= plan["ld"] < s + 4
+    assert plan["dkv"]["boxes"] == {"k": 128, "v": 128, "q": 64,
+                                    "dout": 64, "lse": 64, "delta": 64}
+    assert plan["dq"]["boxes"] == {"q": 128, "dout": 128, "out": 128,
+                                   "k": 64, "v": 64}
+    for name, resident, stage in (("dkv", 2, 2 * 8192 + 1024),
+                                  ("dq", 3, 2 * 8192)):
+        p = plan[name]
+        assert (p["rows"], p["stage_rows"]) == (128, 64)
+        assert p["grid"] == min(items, H100_SMS)
+        assert p["smem"] == (1024 + resident * 16384 + p["stages"] * stage
+                             + (2 + 2 * p["stages"]) * 8)
+        assert p["smem"] <= A.SMEM_BYTES
+    # the grad pass fills every SM; the small ragged shapes take one block
+    # per item: 2 x 3 heads x 2 tiles, 2 heads x 8 tiles
+    if b == 25:
+        assert plan["dq"]["grid"] == H100_SMS
+    else:
+        assert plan["dq"]["grid"] == {200: 12, 1000: 16}[s]
+
+
+@pytest.mark.parametrize("b, h, s", BWD_SHAPES)
+def test_flash_bwd_maps_of_unet_views(b, h, s):
+    """The UNet's q, k, v (and dout, out) are (B, S, H, 64) tensors viewed
+    as (B, H, S, 64): each kernel maps them as they lie, with its own box
+    rows; a contiguous (B, H, S, 64) input maps with S the inner axis."""
+    plan = A.flash_bwd_plan(b, h, s, H100_SMS)
+    proj = (s * h * 64, 64, h * 64, 1)
+    cont = (h * s * 64, s * 64, 64, 1)
+    for name, order in A.FLASH_BWD_INPUTS.items():
+        for strides, dims, st, s_dim in (
+                (proj, (64, h, s, b), (128, h * 128, s * h * 128), 2),
+                (cont, (64, s, h, b), (128, s * 128, h * s * 128), 1)):
+            views = {n: _meta_view((b, h, s, 64), strides) for n in order}
+            maps = A.flash_bwd_maps(name, views, plan)
+            for n, m in zip(order, maps):
+                rows = plan[name]["boxes"][n]
+                box = (64, rows, 1, 1) if s_dim == 1 else (64, 1, rows, 1)
+                assert m == {"dims": dims, "strides": st, "box": box,
+                             "s_dim": s_dim}
+
+
+def _meta_view(shape, strides):
+    """A bf16 view with the given element strides over a meta buffer (no
+    memory), its start 16-byte aligned."""
+    size = 1 + sum((n - 1) * st for n, st in zip(shape, strides))
+    return torch.empty(size, dtype=torch.bfloat16,
+                       device="meta").as_strided(shape, strides)
+
+
+def test_flash_bwd_operands_of_real_views():
+    """Views TMA can read (the UNet's projections, a contiguous tensor, the
+    forward's like_projection output) go to the kernels as they are; lse
+    keeps its storage where S is a multiple of 4 and D is a fresh f32
+    (B, H, ld) buffer."""
+    b, h, s = 2, 3, 200
+    q, k = (torch.zeros((b, s, h, 64), dtype=torch.bfloat16).transpose(1, 2)
+            for _ in range(2))
+    v = torch.zeros((b, h, s, 64), dtype=torch.bfloat16)
+    out, dout = A.like_projection(q), A.like_projection(q)
+    lse = torch.zeros((b, h, s))
+    plan = A.flash_bwd_plan(b, h, s, H100_SMS)
+    views, lse_k, delta = A.flash_bwd_operands(q, k, v, out, dout, lse,
+                                               plan["ld"])
+    for n, t in (("q", q), ("k", k), ("v", v), ("out", out),
+                 ("dout", dout)):
+        assert views[n] is t
+    assert lse_k.data_ptr() == lse.data_ptr()
+    assert delta.shape == (b, h, 200) and delta.dtype == torch.float32
+    for name in ("dkv", "dq"):
+        assert len(A.flash_bwd_maps(name, views, plan)) == (
+            4 if name == "dkv" else 5)
+    # the gradients the backward returns: (B, H, S, 64) views of (B, S, H,
+    # 64) tensors, written through element strides with a contiguous last
+    # axis and 16-byte rows
+    g = A.like_projection(k)
+    assert g.stride() == (s * h * 64, 64, h * 64, 1)
+    assert g.data_ptr() % 16 == 0
+
+
+def test_flash_bwd_pads_lse_rows_to_four():
+    b, h, s = 1, 2, 201
+    q = torch.zeros((b, h, s, 64), dtype=torch.bfloat16)
+    lse = torch.arange(b * h * s, dtype=torch.float32).view(b, h, s)
+    plan = A.flash_bwd_plan(b, h, s, H100_SMS)
+    assert plan["ld"] == 204
+    _, lse_k, delta = A.flash_bwd_operands(q, q, q, q, q, lse, plan["ld"])
+    assert lse_k.shape == delta.shape == (b, h, 204)
+    assert torch.equal(lse_k[..., :s], lse)
+    assert not lse_k[..., s:].any()
+
+
+def test_flash_bwd_misaligned_views_are_copied_once(monkeypatch):
+    """A view TMA cannot read (rows 132 bytes apart, or a start off 16-byte
+    alignment) is copied once for both kernels, though they map it with
+    other box rows; the others are not copied."""
+    def wide():             # a 66-wide buffer sliced to 64, as (B, H, S, 64)
+        return (torch.randn((2, 576, 3, 66)).to(torch.bfloat16)[..., :64]
+                .transpose(1, 2))
+    q, dout = wide(), wide()
+    flat = torch.zeros(2 * 3 * 576 * 64 + 1, dtype=torch.bfloat16)[1:]
+    k = flat.view(2, 3, 576, 64)
+    v, out = (torch.zeros((2, 576, 3, 64), dtype=torch.bfloat16)
+              .transpose(1, 2) for _ in range(2))
+    lse = torch.zeros((2, 3, 576))
+    plan = A.flash_bwd_plan(2, 3, 576, H100_SMS)
+    copied = []
+    real_clone = torch.Tensor.clone
+
+    def counting_clone(t, *a, **kw):
+        copied.append(t.data_ptr())
+        return real_clone(t, *a, **kw)
+
+    monkeypatch.setattr(torch.Tensor, "clone", counting_clone)
+    views, _, _ = A.flash_bwd_operands(q, k, v, out, dout, lse, plan["ld"])
+    monkeypatch.undo()
+    assert sorted(copied) == sorted(t.data_ptr() for t in (q, k, dout))
+    for n, t in (("q", q), ("k", k), ("dout", dout)):
+        assert views[n] is not t and torch.equal(views[n], t)
+        assert views[n].is_contiguous() and views[n].data_ptr() % 16 == 0
+    assert views["v"] is v and views["out"] is out
+    for name in ("dkv", "dq"):
+        A.flash_bwd_maps(name, views, plan)     # all mapped, no raise
+    # a view handed to the kernels without the copy is refused
+    with pytest.raises(ValueError, match="TMA cannot read"):
+        A.flash_bwd_maps("dq", dict(views, out=q), plan)
+
+
+@pytest.mark.parametrize("args, match", [
+    ((1, 1, 64, H100_SMS, 128), "d = 64"),
+    ((1, 1, 64, H100_SMS, 32), "d = 64"),
+    ((0, 1, 64, H100_SMS), "> 0"),
+    ((1, 1, 64, 0), "> 0"),
+    ((2 ** 20, 2 ** 10, 2 ** 20, H100_SMS), "32-bit"),
+])
+def test_flash_bwd_plan_refuses(args, match):
+    with pytest.raises(ValueError, match=match):
+        A.flash_bwd_plan(*args)
+
+
+def test_flash_bwd_plan_refuses_shared_memory_over_227_kb(monkeypatch):
+    """The plan holds the kernels' ring to the 227 KB a block may use:
+    twelve stages would pass it."""
+    assert A.flash_bwd_plan(1, 1, 64, H100_SMS)["dq"]["smem"] < A.SMEM_BYTES
+    monkeypatch.setattr(A, "FLASH_BWD_STAGES", 12)
+    with pytest.raises(ValueError, match="shared memory"):
+        A.flash_bwd_plan(1, 1, 64, H100_SMS)
+
+
 def test_geglu_operands_aligned_or_copied():
     x = torch.zeros((64, 32), dtype=torch.bfloat16)
     assert G.aligned16(x) is x
@@ -304,6 +465,7 @@ def test_plans_decide_nothing_about_a_card():
     """The plans are plain arithmetic: they run where torch has no CUDA."""
     assert G.geglu_plan(10, 8, 1)["grid1"] == 1
     assert A.flash_grid(1, 1, 1, 1) == 1
+    assert A.flash_bwd_plan(1, 1, 1, 1)["dkv"]["grid"] == 1
     assert TC.composite_bwd_plan(1, 1, 1, 1)["grid"] == (1, 1, 1)
     assert N.layer_norm_plan(1, 8, torch.bfloat16, 1)["grid"] == 1
     assert N.group_norm_plan(1, 1, 8, torch.bfloat16, 1, 1,
