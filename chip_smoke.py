@@ -121,6 +121,31 @@ Phases, one result line each; any failure raises and the exit code is not 0:
               removal. Both composite kernels against their plain versions
               (and their skip bits) on a 960x540 test view's lists (T 255),
               with the tiles that overflow tile_cap counted.
+  5g. optins  the unit's forward-only opt-ins on the unit's networks and
+              inputs (2 steps each): direction_parallel (post: one batch-6
+              forward a step, batch_groups (1, 2, 1, 2); prob: one batch-4
+              (2, 2)), guidance_reuse_cfg_uncond (one batch-2 forward a
+              direction and step) and fused_guidance_cfg=False (a batch-1
+              and a batch-2 one). Exact launches; s per denoise step, the
+              parallel step in turns with the default (default, parallel,
+              parallel, default) and its peak memory (under 80 GB); the
+              latents of each opt-in held to the path it must equal
+              (OPTIN_TOL), the reuse step with random CLIP embeddings
+              apart from the default (and, beside it, how far apart
+              with zero embeddings). Every new GEGLU and flash shape (B up to
+              150, the plain version on a first and a last slice of at most
+              SLICE_ROWS rows / SLICE_B entries) and every new norm shape
+              against its plain version, as in the dtu phase. The
+              forward-warp conditioning of one 25-frame pair at 576x1024,
+              card against CPU (FW_TOL).
+  5h. slice   this slice through cli/train.build_runner + run:
+              --interp_type forward_warp --save_debug
+              --guidance_reuse_cfg_uncond 1 (the reuse unit on the unit's
+              networks as completion_fn) on the scene phase's scene with
+              its cuts and --refine_cycle_num 1: 3 pairs, each pair's debug
+              set on disk (23 cond and 23 uncertainty PNGs, 25 generated,
+              the endpoints, the lambda heatmap, the GIF), binary latent
+              masks, every kernel of the path launched.
   6. kernels  the tile-composite forward and backward kernels against their
               plain versions at the GS main path's shapes (T 96 tiles,
               px 2048, cap 1024, K 128), on G/C/O from projecting and binning
@@ -154,10 +179,20 @@ Phases, one result line each; any failure raises and the exit code is not 0:
               segment from graph replays held bit for bit to the per-step
               path, exact composite launches; the step's replay time with
               LPIPS off and on in turns (off, on, on, off).
+  10. mono    the gs phase's trainer with a fixed depth estimator installed:
+              100 iterations with sample_pseudo_interval 5, the graph
+              segments held bit for bit to the per-step path, the
+              composite kernels launched in each pseudo step; the pseudo
+              step's ms.
+  11. fleet   cli/batch.py --dataset llff --parallel 1 --eval on a
+              synthetic COLMAP scan with the warp-only completion and the
+              scene cuts: the worker subprocess pinned by
+              CUDA_VISIBLE_DEVICES exits 0, every checkpoint rendered,
+              PSNR and SSIM of the summary finite.
 The JSON kernel table takes its launches from the scene phase (the two
 backward kernels', which only the guided option runs, from the guided
 phase), and its launches_by_phase from the unit, guided, gs, scene, dtu,
-dl3dv and lpips phases.
+dl3dv, lpips, optins, slice and mono phases.
 The line before the last is the JSON kernel table, after it the
 nvidia-smi line, and the last line is {"ok": true, "device": {...}}.
 Details also go to chiprun_out/chip_smoke.json.
@@ -175,6 +210,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from syn3r_tpu_torch.cli import batch as cli_batch
 from syn3r_tpu_torch.cli import metrics as cli_metrics
 from syn3r_tpu_torch.cli import render as cli_render
 from syn3r_tpu_torch.cli import summarize as cli_summarize
@@ -199,11 +235,12 @@ from syn3r_tpu_torch.ops import norm as N
 from syn3r_tpu_torch.ops import rasterize as RZ
 from syn3r_tpu_torch.ops.geglu_ffn import (geglu_ffn, geglu_ffn_reference,
                                           geglu_plan)
+from syn3r_tpu_torch.pipeline import completion as TCP
 from syn3r_tpu_torch.pipeline.completion import search_hypers_v2
 from syn3r_tpu_torch.utils import colmap as CM
 from syn3r_tpu_torch.utils.camera import (camera_from_fov, look_at_w2c,
                                           stack_cameras)
-from syn3r_tpu_torch.utils.params import load_params
+from syn3r_tpu_torch.utils.params import load_params, save_params
 from syn3r_tpu_torch.utils.ply import read_ply_points
 from syn3r_tpu_torch.vision import dust3r as D3
 from syn3r_tpu_torch.vision import gmflow_public as GF
@@ -212,7 +249,7 @@ from scripts.kernel_timing import (ATTN_SHAPES, FFN_SHAPES, GN_SHAPES,
                                    LN_SHAPES,
                                    SmiSampler, cuda_ms, gs_points,
                                    gs_replays, gs_scene, gs_tile_lists,
-                                   random_lpips_params, save_params,
+                                   random_lpips_params,
                                    window_iters)
 from scripts.vision_weights import random_dust3r_params, random_gmflow_params
 
@@ -277,11 +314,15 @@ GS_ITERS = 300
 # twice must agree bit for bit too. The batched render against
 # render_view: bit for bit (the same forward kernels).
 GS_SEGMENT, GS_TIMED_STEPS = 50, 30
-# the scene phase: the README's LLFF command with the cuts of the docstring
-SCENE_FLAGS = ["--n_views", "3", "--refine_cycle_num", "2",
-               "--num_inference_steps", str(STEPS),
-               "--iterations", str(GS_ITERS),
-               "--start_sample_svd_frame", "100"]
+# the cuts of every scene-level run (the scene, dtu, dl3dv and slice
+# phases and the fleet step): 2 denoise steps (from 100), 300 GS
+# iterations (from 10,000), pseudo views sampled from iteration 100 (from
+# 2000, so that the refine samples them)
+SCENE_CUTS = ["--num_inference_steps", str(STEPS),
+              "--iterations", str(GS_ITERS), "--start_sample_svd_frame",
+              "100"]
+# the scene phase: the README's LLFF command with the cuts
+SCENE_FLAGS = ["--n_views", "3", "--refine_cycle_num", "2"] + SCENE_CUTS
 SCENE_PAIRS, SCENE_CYCLES = 3, 2
 # The cached frames pass the antialiased Keys cubic (a = -0.5) resize back
 # to the GS resolution, which is not clamped (as in JAX): its negative
@@ -322,12 +363,7 @@ AFFINE_TOL = (1e-5, 1e-4)
 # a synthetic scan written as COLMAP: 10 images of 1600x1200 (DTU's size),
 # loaded at --resolution 4 (400x300); llffhold 8 makes images 0 and 8 the
 # test views, and --n_views 3 takes 3 of the other 8
-DTU_FLAGS = ["--n_views", "3", "--diffusion_type", "2PassProbUncertain",
-             "--densify_type", "interpolate_loop0_gs", "--cam_confidence",
-             "0.05", "--lambda_dssim", "0.5", "--sample_svd_pseudo_interval",
-             "1", "--resolution", "4", "--refine_cycle_num", "2",
-             "--num_inference_steps", str(STEPS),
-             "--iterations", str(GS_ITERS), "--start_sample_svd_frame", "100"]
+DTU_FLAGS = cli_batch.PRESETS["dtu"] + SCENE_CUTS
 DTU_IMAGES, DTU_W, DTU_H, DTU_SCALE = 10, 400, 300, 4
 DTU_PAIRS, DTU_CYCLES, DTU_TEST = 2, 2, 2
 # the lpips phase: one segment of the gs phase's trainer with the LPIPS
@@ -337,6 +373,41 @@ DTU_PAIRS, DTU_CYCLES, DTU_TEST = 2, 2, 2
 # takes cuDNN's deterministic convolutions while LPIPS is on).
 LPIPS_STEPS = 100
 LPIPS_TOL = (1e-6, 1e-4)
+# The optins phase. An opt-in's latents against the path it must equal
+# (direction_parallel against the sequential directions, the unfused post
+# step against the fused one, the reuse step with zero CLIP embeddings
+# against the default): bf16 on both sides, but batches of another size,
+# so other cuBLAS and cuDNN algorithms and GroupNorm fold orders (last-bit
+# differences), which 2 steps of per-tile top-k masks and std
+# normalization amplify: max-abs over max |want| 1e-1, rel-RMS 2e-2.
+OPTIN_TOL = (1e-1, 2e-2)
+# The forward-warp conditioning on the card against the CPU. The splat's
+# float atomics sum in another order and the projection rounds
+# differently (~6e-5 px at 1024 px): cond values move by less than 1e-3,
+# except where a source position is integral on one side only. There the
+# kept ceil quirk (ceil == floor) gives that source 2x its weight per
+# axis, a jump of up to the colour difference it mixes with; per
+# coordinate such a position occurs with a chance of ~6e-5 (float32's
+# spacing there), and a source feeds 4 pixels: at most 2e-3 of the pixels
+# without a hole may move by more than 1e-3 ("cond_moved"). A pixel
+# reached only by a sliver of a source's weight may be a hole on one side
+# only: at most 1e-4 of the pixels, and 1e-3 of the binary latent mask
+# entries.
+FW_TOL = {"cond": 1e-3, "cond_moved": 2e-3, "holes": 1e-4,
+          "latent_masks": 1e-3}
+# the slice phase: the training entry point with this slice's flags on
+# the scene phase's scene and cuts, one refine cycle
+SLICE_FLAGS = (["--n_views", "3", "--refine_cycle_num", "1"] + SCENE_CUTS
+               + ["--interp_type", "forward_warp", "--save_debug",
+                  "--guidance_reuse_cfg_uncond", "1"])
+# the mono phase: iterations and sample_pseudo_interval
+MONO_ITERS, MONO_INTERVAL = 100, 5
+# the fleet step's scan: images at 504x378 (llffhold 8: 2 test views)
+FLEET_IMAGES = 10
+# the plain versions of GEGLU and flash run on at most this many rows (the
+# dtu phase's batch-2 rows, 50 x 9216) or batch entries (its B = 50) of a
+# shape; a larger shape is held on its first and its last such slice
+SLICE_ROWS, SLICE_B = 50 * 9216, 50
 # the vision phase: DUSt3R ViT-L/512 and the public GMFlow (128 channels,
 # 6 layers) at full width with random float32 weights from seeds
 # (scripts/vision_weights.py), saved as the npz trees that the dl3dv
@@ -353,26 +424,15 @@ VISION_SEEDS = {"dust3r": 21, "gmflow": 22}
 DUST3R_TOL, GMFLOW_TOL_PX, ALIGN_RTOL = (1e-4, 1e-4), 1e-2, 1e-3
 DUST3R_HW, GMFLOW_HW = (288, 512), (540, 960)
 VISION_ALIGN = (4, (36, 64), 300)
-# the dl3dv phase: cli/batch.py's DL3DV preset (its flags copied here: the
-# port has no batch.py) with --lpips_weight 1 (SURVEY section 2.4,
-# batch_dl3dv_train.sh) and the scene phase's cuts, on a synthetic scan
+# the dl3dv phase: cli/batch.py's DL3DV preset with --lpips_weight 1
+# (SURVEY section 2.4, batch_dl3dv_train.sh) and the scene phase's cuts,
+# on a synthetic scan
 # written as COLMAP under images_4/ at 960x540 (the gs phase's truth from
 # DL3DV_IMAGES cameras; llffhold 8 makes images 0 and 8 the test views and
 # --n_views 9 takes the other 9), with random LPIPS, DUSt3R and GMFlow
 # weights and the unit's post completion: 2 cycles x 9 wrap-around pairs.
-DL3DV_FLAGS = ["--n_views", "9", "--diffusion_type",
-               "2PassProbUncertainPost", "--cam_confidence", "0.2",
-               "--rand_pcd", "--images", "images_4",
-               "--num_views_for_pcd_densification", "4",
-               "--fps_keyframe_sampling", "1",
-               "--sample_svd_pseudo_interval", "1", "--svd_depth_warmup", "1",
-               "--use_proximity_densify", "0",
-               "--densify_grad_threshold", "0.0002", "--percent_dense",
-               "0.001", "--refine_cycle_num", "2", "--lpips_weight", "1",
-               "--dataset", "dl3dv",
-               "--num_inference_steps", str(STEPS),
-               "--iterations", str(GS_ITERS), "--start_sample_svd_frame",
-               "100"]
+DL3DV_FLAGS = (cli_batch.PRESETS["dl3dv"]
+               + ["--lpips_weight", "1", "--dataset", "dl3dv"] + SCENE_CUTS)
 DL3DV_IMAGES, DL3DV_W, DL3DV_H = 11, 960, 540
 # 9 views, so 9 wrap-around pairs a cycle
 DL3DV_VIEWS, DL3DV_CYCLES, DL3DV_TEST = 9, 2, 2
@@ -385,6 +445,10 @@ NORM_OPS = {"stats": 3, "apply": 2, "apply_silu": 5, "layer_norm": 6}
 UNIT_KERNELS = ("geglu_ffn", "flash_attention", "flash_attention_bwd_dkv",
                 "flash_attention_bwd_dq", "gn_stats", "gn_apply",
                 "layer_norm")
+# the kernels of a scene run's path (the flash backward runs only with
+# guidance_through_unet)
+PATH_KERNELS = ("geglu_ffn", "flash_attention", "gn_stats", "gn_apply",
+                "layer_norm", "composite_fwd", "composite_bwd")
 
 
 def say(phase, **kv):
@@ -2321,10 +2385,12 @@ def run_dl3dv(pipe, unit, weights):
     return res
 
 
-def check_unet_kernels(shapes, dev):
+def check_unet_kernels(shapes, dev, phase="dtu"):
     """GEGLU and flash against their plain versions (TOL) at every shape
-    of ``shapes`` (KernelShapes.calls of the dtu phase), with the kernel's
-    ms a call."""
+    of ``shapes`` (KernelShapes.calls of a phase), with the kernel's ms a
+    call. The kernel runs on the whole shape; the plain version on at most
+    SLICE_ROWS rows (GEGLU) or SLICE_B batch entries (flash), the first and
+    the last such slice where the shape holds more."""
     gen = torch.Generator(device=dev).manual_seed(9)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
@@ -2333,6 +2399,7 @@ def check_unet_kernels(shapes, dev):
             args = geglu_inputs(gen, dev, *shape)
             fn, plain = geglu_ffn, geglu_ffn_reference
             extra = dict(plan=geglu_plan(*shape, sms))
+            n = SLICE_ROWS
         else:
             b, h, s, d = shape
             # (B, S, H, D) projections viewed as (B, H, S, D), as the UNet
@@ -2341,14 +2408,25 @@ def check_unet_kernels(shapes, dev):
                          .transpose(1, 2) for _ in range(3)) + (d ** -0.5,)
             fn, plain = A.flash_attention, A.attention_chunked
             extra = {}
-        got, want = fn(*args), plain(*args)
-        torch.cuda.synchronize()
-        max_abs, rel_rms = check(name, got, want)
-        del got, want
+            n = SLICE_B
+        got = fn(*args)
+        slices = ([slice(None)] if shape[0] <= n
+                  else [slice(0, n), slice(shape[0] - n, shape[0])])
+        errs = []
+        for sl in slices:
+            want = plain(args[0][sl], *args[1:]) if name == "geglu_ffn" \
+                else plain(*(a[sl] for a in args[:3]), args[3])
+            torch.cuda.synchronize()
+            errs.append(check(name, got[sl], want))
+            del want
+        del got
         row = dict(name=name, shape=list(shape), calls=calls,
-                   max_abs_err=max_abs, rel_rms_err=rel_rms,
+                   plain_rows=[[sl.start or 0, sl.stop or shape[0]]
+                               for sl in slices],
+                   max_abs_err=max(e[0] for e in errs),
+                   rel_rms_err=max(e[1] for e in errs),
                    ms=cuda_ms(lambda: fn(*args), 5), **extra)
-        say("dtu", what="kernel vs plain at a prob-unit shape", **row)
+        say(phase, what="kernel vs plain at a new shape", **row)
         rows.append(row)
         del args
         torch.cuda.empty_cache()
@@ -2424,6 +2502,396 @@ def run_lpips(dev):
                                 for k, i in (("off", 0), ("on", 1))},
                captures=dict(tr.graph_builds))
     say("lpips", **res)
+    return res
+
+
+def optin_inputs(pipe, seed=3):
+    """The unit phase's inputs (its seed): the denoise arguments of one
+    pair at 576x1024, and the images."""
+    dev = pipe.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    imgs = torch.rand((FRAMES, HEIGHT, WIDTH, 3), generator=g, device=dev)
+    mask = torch.rand((FRAMES - 2, HEIGHT // 8, WIDTH // 8), generator=g,
+                      device=dev)
+    lam = search_hypers_v2(mask, STEPS)
+    clip_s, clip_e, cond, _, _ = pipe.encode_conditioning(
+        imgs[0], list(imgs[1:-1]), imgs[-1], g)
+    latents = torch.randn((1, FRAMES, HEIGHT // 8, WIDTH // 8, 4),
+                          generator=g, device=dev)
+    return (latents, clip_s, clip_e, cond, mask, lam), imgs
+
+
+def run_optins(pipe, unit, args, known_shapes, known_norms):
+    """The unit's forward-only opt-ins on its networks and inputs, 2 steps
+    each: direction_parallel (post: one batch-6 forward a step; prob: one
+    batch-4), guidance_reuse_cfg_uncond (one batch-2 forward a direction
+    and step) and fused_guidance_cfg=False (a batch-1 and a batch-2 one).
+    Launch counts exact (GEGLU and flash per forward as the unit's, the
+    norms one a module call); each opt-in's latents held to the path it
+    must equal (OPTIN_TOL); s per denoise step, the parallel step in turns
+    with the default (default, parallel, parallel, default), with its peak
+    memory. ``args``: the denoise inputs (``optin_inputs``). Every GEGLU
+    and flash call recorded by shape and every UNet norm call by the
+    census; returns the results, and the GEGLU/flash shapes and norm calls
+    that neither the default's forwards nor ``known_shapes`` /
+    ``known_norms`` (the dtu phase's, and the unit's census keys without
+    their module name) hold."""
+    zero = torch.zeros_like(args[1])
+    zero_args = (args[0], zero, zero) + args[3:]
+    n_gn, n_ln = unit["unet_norms_per_forward"]
+
+    def make(**kw):
+        return GuidedSVDPipeline(pipe.m, GuidedSVDConfig(
+            num_inference_steps=STEPS, **kw))
+    pipes = {"default": pipe, "parallel": make(direction_parallel=True),
+             "prob": make(variant="prob"),
+             "prob_parallel": make(variant="prob", direction_parallel=True),
+             "reuse": make(guidance_reuse_cfg_uncond=True),
+             "unfused": make(fused_guidance_cfg=False)}
+    # UNet forwards of one denoise
+    forwards = {"default": 2 * STEPS, "parallel": STEPS, "prob": 2 * STEPS,
+                "prob_parallel": STEPS, "reuse": 2 * STEPS,
+                "unfused": 4 * STEPS}
+    runs = [("default", args), ("parallel", args), ("parallel", args),
+            ("default", args), ("prob", args), ("prob_parallel", args),
+            ("reuse", args), ("unfused", args),
+            ("default_zero_clip", zero_args), ("reuse_zero_clip", zero_args)]
+    census = NormCensus()
+    census.watch(pipe.m.unet, "unet_optins")
+    out, seconds, launches, peak = {}, {}, {}, {}
+    with KernelShapes() as shapes:
+        for name, a in runs:
+            p = pipes[name.replace("_zero_clip", "")]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            t0 = time.perf_counter()
+            out[name] = p.denoise(*a)
+            torch.cuda.synchronize()
+            seconds.setdefault(name, []).append(time.perf_counter() - t0)
+            launches[name] = launch_counts()
+            peak[name] = torch.cuda.max_memory_allocated() / 1e9
+            if len(out) == 1:        # the default's batch-3 shapes
+                known_shapes = set(known_shapes) | set(shapes.calls)
+    census.close()
+
+    # GEGLU and flash a forward as the unit's (48 and 15), the norms one
+    # launch of each kernel a module
+    per = {k: unit["launches"][k] // unit["forwards"]
+           for k in ("geglu_ffn", "flash_attention")}
+    for name, n in forwards.items():
+        want = {"geglu_ffn": per["geglu_ffn"] * n,
+                "flash_attention": per["flash_attention"] * n,
+                "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
+                "composite_fwd": 0, "composite_bwd": 0,
+                "gn_stats": n_gn * n, "gn_apply": n_gn * n,
+                "layer_norm": n_ln * n}
+        if launches[name] != want:
+            raise AssertionError(f"optins {name}: launches "
+                                 f"{launches[name]}, expected {want}")
+    if peak["parallel"] >= 80.0:
+        raise AssertionError(f"optins: batch-6 peak {peak['parallel']} GB")
+    # every opt-in against the path it must equal; the reuse step with
+    # random CLIP embeddings must differ from the default (the documented
+    # divergence, by more than 1e-3 as the guided phase holds its option)
+    # and stay finite. Beside it, how far the two are apart with zero
+    # embeddings, where only the batch size parts them (bf16 noise).
+    held = {}
+    for got, want in (("parallel", "default"), ("prob_parallel", "prob"),
+                      ("unfused", "default"),
+                      ("reuse_zero_clip", "default_zero_clip")):
+        held[f"{got} vs {want}"] = check_rel(
+            f"optins {got} vs {want}", out[got], out[want], OPTIN_TOL)
+    reuse_diff = errors(out["reuse"], out["default"])
+    noise = held["reuse_zero_clip vs default_zero_clip"]
+    if not (bool(torch.isfinite(out["reuse"]).all())
+            and reuse_diff[0] > 1e-3):
+        raise AssertionError(f"optins reuse: latents apart from default by "
+                             f"{reuse_diff} (max-abs, rel-RMS)")
+    new_shapes = {k: n for k, n in shapes.calls.items()
+                  if k not in known_shapes}
+    new_norms = {k: n for k, n in census.calls.items()
+                 if (k[0],) + k[2:] not in known_norms}
+    shape_calls = shapes.totals()
+    total = {k: sum(launches[n][k] for n, _ in runs) for k in shape_calls}
+    if shape_calls != total or not new_shapes or not new_norms:
+        raise AssertionError(f"optins: GEGLU/flash shapes {shapes.calls} "
+                             f"against launches {total}")
+    per_step = {name: [t / STEPS for t in ts]
+                for name, ts in seconds.items()}
+    res = dict(s_per_denoise_step=per_step,
+               s_per_denoise_step_mean={k: float(np.mean(v))
+                                        for k, v in per_step.items()},
+               turns_default_parallel=[per_step["default"][0],
+                                       per_step["parallel"][0],
+                                       per_step["parallel"][1],
+                                       per_step["default"][1]],
+               forwards_per_denoise=forwards, peak_mem_gb=peak,
+               launches={k: launches[k] for k in forwards},
+               held={k: dict(max_abs=v[0], rel_rms=v[1], max_abs_rel=v[2])
+                     for k, v in held.items()},
+               tolerance=dict(max_abs_rel=OPTIN_TOL[0],
+                              rel_rms=OPTIN_TOL[1]),
+               reuse_vs_default=dict(max_abs=reuse_diff[0],
+                                     rel_rms=reuse_diff[1]),
+               reuse_vs_default_zero_clip=dict(max_abs=noise[0],
+                                               rel_rms=noise[1]),
+               kernel_shapes={f"{k} {list(sh)}": n
+                              for (k, sh), n in sorted(shapes.calls.items())})
+    say("optins", **res)
+    launches_all = {k: sum(launches[n][k] for n, _ in runs)
+                    for k in launches["default"]}
+    res["launches_all"] = launches_all
+    return res, new_norms, new_shapes
+
+
+def check_forward_warp(imgs):
+    """The forward-warp conditioning of one pair at 576x1024 on the card
+    against the CPU: the unit's endpoint images ``imgs`` (on the card),
+    smooth depths, 25 poses interpolated between two cameras. Tolerance
+    FW_TOL."""
+    dev = imgs.device
+    yy, xx = torch.meshgrid(torch.linspace(0, 1, HEIGHT, device=dev),
+                            torch.linspace(0, 1, WIDTH, device=dev),
+                            indexing="ij")
+    depth_l = 2.0 + 0.8 * yy + 0.3 * torch.sin(6.0 * xx)
+    depth_r = 2.2 + 0.6 * xx + 0.2 * torch.cos(5.0 * yy)
+    K = torch.tensor([[900.0, 0.0, WIDTH / 2], [0.0, 900.0, HEIGHT / 2],
+                      [0.0, 0.0, 1.0]], device=dev)
+    poses = TCP.interpolate_pair_poses(
+        look_at_w2c([-0.25, 0.0, 0.0], [0.0, 0.0, 2.5]).numpy(),
+        look_at_w2c([0.25, 0.05, 0.0], [0.0, 0.0, 2.5]).numpy(), FRAMES)
+    inputs = (K, poses, imgs[0], depth_l, imgs[-1], depth_r)
+    t0 = time.perf_counter()
+    card = TCP.prepare_pair_conditioning(None, *inputs, num_steps=STEPS,
+                                         warp_mode="forward_warp")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    cpu = TCP.prepare_pair_conditioning(
+        None, *(x.cpu() if isinstance(x, torch.Tensor) else x
+                for x in inputs), num_steps=STEPS, warp_mode="forward_warp")
+    hole_card = (card.cond_images == 0).all(-1).cpu()
+    hole_cpu = (cpu.cond_images == 0).all(-1)
+    hole_diff = float((hole_card != hole_cpu).float().mean())
+    both = ~(hole_card | hole_cpu)
+    diff = (card.cond_images.cpu() - cpu.cond_images).abs().amax(-1)[both]
+    cond_err = float(diff.max())
+    moved = float((diff > FW_TOL["cond"]).float().mean())
+    mask_diff = float((card.masks.cpu() != cpu.masks).float().mean())
+    binary = bool(((card.masks == 0) | (card.masks == 1)).all())
+    res = dict(frames=FRAMES - 2, hole_fraction=float(hole_cpu.float().mean()),
+               hole_pixels_differing=hole_diff, cond_max_abs=cond_err,
+               cond_moved_beyond_tol=moved,
+               latent_masks_differing=mask_diff, binary_masks=binary,
+               lambda_equal=bool(torch.equal(card.lambda_ts.cpu(),
+                                             cpu.lambda_ts)),
+               card_s=card_s, tolerance=FW_TOL)
+    if (not binary or hole_diff > FW_TOL["holes"]
+            or mask_diff > FW_TOL["latent_masks"]
+            or not moved <= FW_TOL["cond_moved"]):
+        raise AssertionError(f"forward warp card vs cpu: {res}")
+    say("optins", what="forward-warp conditioning card vs cpu", **res)
+    return res
+
+
+def run_slice(pipe, unit):
+    """This slice through the training entry point: cli/train's parser and
+    build_runner with --interp_type forward_warp --save_debug and
+    --guidance_reuse_cfg_uncond 1 (the unit configured by svd_config, on
+    the unit's networks, as completion_fn) on the scene phase's in-memory
+    scene with its cuts and --refine_cycle_num 1, then run: 3 pairs, each
+    pair's debug set on disk, binary latent masks, every kernel of the
+    path launched (the completion's exactly as the unit's)."""
+    out = os.path.join(BUILD_OUT, "slice")
+    shutil.rmtree(out, ignore_errors=True)
+    args = cli_train.build_parser().parse_args(
+        ["-s", "(in memory)", "-m", out] + SLICE_FLAGS)
+    reuse = GuidedSVDPipeline(pipe.m, GuidedSVDConfig(
+        **cli_train.svd_config(args)))
+    if not reuse.cfg.guidance_reuse_cfg_uncond:
+        raise AssertionError("slice: the unit is not the reuse one")
+    units, masks = [], []
+
+    def completion(*a):
+        masks.append(a[3])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames = reuse(*a)
+        torch.cuda.synchronize()
+        units.append(dict(seconds=time.perf_counter() - t0,
+                          lo=frames.min().item(), hi=frames.max().item(),
+                          finite=bool(torch.isfinite(frames).all())))
+        return frames
+
+    runner = cli_train.build_runner(args, scene_data(args.device),
+                                    completion_fn=completion)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    runner.run(log_every=0)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    if len(units) != SCENE_PAIRS or not all(
+            u["finite"] and u["lo"] >= 0.0 and u["hi"] <= 1.0 for u in units):
+        raise AssertionError(f"slice: completion units {units}")
+    binary = all(bool(((m == 0) | (m == 1)).all()) for m in masks)
+    debug = os.path.join(runner.save_dir, "debug")
+    want_files = ({"endpoint_start.png", "endpoint_end.png",
+                   "lambda_ts.png", "completion.gif"}
+                  | {f"cond_{i:02d}.png" for i in range(FRAMES - 2)}
+                  | {f"uncertainty_{i:02d}.png" for i in range(FRAMES - 2)}
+                  | {f"generated_{i:02d}.png" for i in range(FRAMES)})
+    pairs = sorted(os.listdir(debug))
+    files_ok = pairs == [f"cyc0_pair{p}" for p in range(SCENE_PAIRS)] and \
+        all(set(os.listdir(os.path.join(debug, d))) == want_files
+            for d in pairs)
+    want = {k: SCENE_PAIRS * unit["launches"][k] for k in UNIT_KERNELS}
+    steps = 2 * GS_ITERS
+    if (not binary or not files_ok
+            or any(launches[k] != v for k, v in want.items())
+            or launches["composite_bwd"] != steps
+            or launches["composite_fwd"] <= steps
+            or not all(launches[k] for k in PATH_KERNELS)):
+        raise AssertionError(
+            f"slice: binary masks {binary}, debug sets {pairs} complete "
+            f"{files_ok}; launches {launches}, expected {want}, "
+            f"composite_bwd {steps}, composite_fwd more")
+    res = dict(flags=" ".join(SLICE_FLAGS), total_s=total_s,
+               phases_s={k: v["total_s"] for k, v in
+                         runner.timer.summary().items()},
+               unit_s=[u["seconds"] for u in units],
+               debug_files_per_pair=len(want_files),
+               binary_latent_masks=binary, peak_mem_gb=peak_gb,
+               launches=launches, captures=dict(runner.trainer.graph_builds))
+    say("slice", **res)
+    return res
+
+
+def run_mono(dev):
+    """The gs phase's trainer with a fixed depth estimator installed (a
+    ramp, 2.0 to 3.0 down the rows): MONO_ITERS iterations with
+    sample_pseudo_interval MONO_INTERVAL, the segments from graph replays
+    against the per-step path from the same state and picks (bit for
+    bit; the composite forward twice and the backward once more in each
+    pseudo step: the estimate's render, the loss's render and its
+    gradient); then the pseudo step's ms (render, estimate, step)."""
+    state, cams, targets = gs_views(dev)
+    cfg = TrainConfig(iterations=MONO_ITERS, tile_cap=GS_CAP,
+                      densify_from_iter=10 ** 9,
+                      sample_pseudo_interval=MONO_INTERVAL,
+                      start_sample_pseudo=0)
+    tr = GSTrainer(make_viewset(cams, targets), cfg, state,
+                   model_path=os.path.join(BUILD_OUT, "mono"), device=dev)
+    ramp = (2.0 + torch.linspace(0, 1, GS_H, device=dev)[:, None]
+            .expand(GS_H, GS_W)).contiguous()
+    calls = []
+
+    def estimator(rgb):
+        calls.append(tuple(rgb.shape))
+        return ramp
+    tr.set_mono_depth_fn(estimator)
+    s0 = tr.state
+    runs = {}
+    for name, per_step in (("graph", False), ("eager", True)):
+        from_start(tr, s0, per_step)
+        calls.clear()
+        TC.composite_tiles.launches.update(fwd=0, bwd=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = tr._run_loop(0, MONO_ITERS, densify=False,
+                            log_every=MONO_ITERS)
+        torch.cuda.synchronize()
+        runs[name] = dict(state=tr.state, loss=loss,
+                          seconds=time.perf_counter() - t0,
+                          launches=dict(TC.composite_tiles.launches),
+                          pseudo_steps=len(calls))
+    tr.__dict__.pop("_merged_views", None)
+    n_pseudo = MONO_ITERS // MONO_INTERVAL
+    errs = state_errors(runs["graph"]["state"], runs["eager"]["state"])
+    bad = {k: v for k, v in errs.items() if v != 0}
+    want = {"fwd": MONO_ITERS + 2 * n_pseudo, "bwd": MONO_ITERS + n_pseudo}
+    if (bad or runs["graph"]["loss"] != runs["eager"]["loss"]
+            or any(r["launches"] != want or r["pseudo_steps"] != n_pseudo
+                   for r in runs.values())
+            or tr.graph_builds["step"] < 1
+            or runs["graph"]["state"].adam.count != MONO_ITERS + n_pseudo):
+        raise AssertionError(
+            f"mono: graph and per-step not bit for bit {bad}, losses "
+            f"{[r['loss'] for r in runs.values()]}, launches "
+            f"{[r['launches'] for r in runs.values()]} (expected {want}), "
+            f"pseudo steps {[r['pseudo_steps'] for r in runs.values()]}")
+    moved = float((runs["graph"]["state"].gaussians.means
+                   - s0.gaussians.means).abs().max())
+    pseudo_ms = step_times(lambda: tr._maybe_mono_pseudo(MONO_INTERVAL),
+                           GS_TIMED_STEPS)
+    res = dict(iterations=MONO_ITERS, interval=MONO_INTERVAL,
+               pseudo_steps=n_pseudo, launches=runs["graph"]["launches"],
+               losses={k: r["loss"] for k, r in runs.items()},
+               seconds={k: r["seconds"] for k, r in runs.items()},
+               means_moved=moved,
+               pseudo_step_ms_median=float(np.median(pseudo_ms)),
+               pseudo_step_ms_p10_p90=[float(np.percentile(pseudo_ms, q))
+                                       for q in (10, 90)],
+               captures=dict(tr.graph_builds))
+    say("mono", **res)
+    return res
+
+
+def run_fleet(dev):
+    """cli/batch.py --dataset llff --parallel 1 --eval on one synthetic
+    COLMAP scan (the gs phase's truth from FLEET_IMAGES cameras at 504x378)
+    with the warp-only completion and the scene cuts: the worker
+    subprocess gets its card by CUDA_VISIBLE_DEVICES and exits 0, every
+    checkpoint is rendered, and the summary's PSNR and SSIM are finite
+    (the batch eval runs cli/metrics without LPIPS weights, so LPIPS is
+    nan, as in the JAX package)."""
+    root = os.path.join(BUILD_OUT, "fleet")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_colmap_scan(dev, os.path.join(root, "data", "scan"), FLEET_IMAGES,
+                      GS_W, GS_H)
+    envs = []
+    popen = cli_batch.subprocess.Popen
+
+    def spy(argv, **kw):
+        envs.append(kw.get("env", {}).get("CUDA_VISIBLE_DEVICES"))
+        return popen(argv, **kw)
+    cli_batch.subprocess.Popen = spy
+    try:
+        cli_batch.main(["--dataset", "llff", "--data_root",
+                        os.path.join(root, "data"), "--out_root",
+                        os.path.join(root, "out"), "--scenes", "scan",
+                        "--parallel", "1",
+                        "--eval", "--extra"] + SCENE_CUTS
+                       + ["--log_every", "0"])
+    finally:
+        cli_batch.subprocess.Popen = popen
+    seconds = time.perf_counter() - t0
+    out = os.path.join(root, "out", "scan")
+    rendered = sorted(os.listdir(os.path.join(out, "test")))
+    blocks = cli_summarize.parse_eval_res(os.path.join(out, "eval_res.txt"))
+    cycles = int(cli_batch.PRESETS["llff"][
+        cli_batch.PRESETS["llff"].index("--refine_cycle_num") + 1])
+    want = [f"ours_chkpnt{GS_ITERS}"] + [f"ours_refine_{c}_chkpnt{GS_ITERS}"
+                                         for c in range(cycles)]
+    table = cli_summarize.summarize(os.path.join(root, "out"),
+                                    checkpoints=sorted(blocks))
+    finite = all(np.isfinite(b[k]) for b in blocks.values()
+                 for k in ("PSNR", "SSIM"))
+    expect_env = cli_batch._worker_devices(1)
+    if (envs != expect_env or rendered != want
+            or sorted(blocks) != [w + ".pth" for w in want] or not finite):
+        raise AssertionError(f"fleet: worker CUDA_VISIBLE_DEVICES {envs} "
+                             f"(expected {expect_env}), rendered {rendered}, "
+                             f"eval {blocks}")
+    res = dict(seconds=seconds, worker_cuda_visible_devices=envs,
+               rendered=rendered, eval=blocks)
+    say("fleet", **res)
+    print(table, flush=True)
     return res
 
 
@@ -2729,6 +3197,15 @@ def main():
     dtu, dtu_census, dtu_shapes = run_dtu(pipe, unit, census)
     dtu_norm_rows = check_norms(dtu_census, dev)
     dtu_kernel_rows = check_unet_kernels(dtu_shapes, dev)
+    optin_args, optin_imgs = optin_inputs(pipe)
+    known_norms = {(k[0],) + k[2:] for k in (*census, *dtu_census)}
+    optins, optin_norms, optin_shapes = run_optins(
+        pipe, unit, optin_args, set(dtu_shapes), known_norms)
+    optin_norm_rows = check_norms(optin_norms, dev)
+    optin_kernel_rows = check_unet_kernels(optin_shapes, dev, "optins")
+    optins["forward_warp"] = check_forward_warp(optin_imgs)
+    del optin_args, optin_imgs
+    slice_run = run_slice(pipe, unit)
     vision, weights = run_vision(dev)
     dl3dv = run_dl3dv(pipe, unit, weights)
     del pipe                 # the GS phases measure their own peak memory
@@ -2737,13 +3214,19 @@ def main():
     gs_small = check_gs_small(dev)
     gs = run_gs(dev)
     lpips = run_lpips(dev)
+    mono = run_mono(dev)
+    fleet = run_fleet(dev)
     by_phase = {"unit": unit["launches"],
                 "guided": guided["unit"]["launches"],
                 "gs": {f"composite_{k}": v for k, v in gs["launches"].items()},
                 "scene": scene["launches"], "dtu": dtu["launches"],
                 "dl3dv": dl3dv["launches"],
                 "lpips": {f"composite_{k}": v
-                          for k, v in lpips["launches"].items()}}
+                          for k, v in lpips["launches"].items()},
+                "optins": optins["launches_all"],
+                "slice": slice_run["launches"],
+                "mono": {f"composite_{k}": v
+                         for k, v in mono["launches"].items()}}
 
     kernels = [
         kernel_entry("geglu_ffn", "syn3r_tpu_torch/csrc/geglu_ffn.cu",
@@ -2767,14 +3250,15 @@ def main():
     for k in kernels[-2:]:
         k["skip_removed_fraction"] = comp[k["name"]]["skip"][
             "removed_fraction"]
-    # GEGLU and flash: the largest error at the dtu phase's shapes too
+    # GEGLU and flash: the largest error at the dtu and optins phases'
+    # shapes too
     for k in kernels[:2]:
         k["max_abs_err"] = max([k["max_abs_err"]] + [
-            r["max_abs_err"] for r in dtu_kernel_rows
+            r["max_abs_err"] for r in dtu_kernel_rows + optin_kernel_rows
             if r["name"] == k["name"]])
     kernels += bwd_entries(guided, guided["unit"]["launches"])
-    kernels += norm_entries(norm_rows + dtu_norm_rows, unit["forwards"],
-                            scene["launches"])
+    kernels += norm_entries(norm_rows + dtu_norm_rows + optin_norm_rows,
+                            unit["forwards"], scene["launches"])
     for k in kernels:
         k["launches_by_phase"] = {p: c.get(k["name"], 0)
                                   for p, c in by_phase.items()}
@@ -2790,7 +3274,10 @@ def main():
                    "scene": scene, "dtu": dtu, "dtu_norms": dtu_norm_rows,
                    "dtu_kernels": dtu_kernel_rows,
                    "vision": vision, "dl3dv": dl3dv,
-                   "lpips": lpips, "kernels": kernels}, f, indent=1)
+                   "optins": optins, "optin_norms": optin_norm_rows,
+                   "optin_kernels": optin_kernel_rows, "slice": slice_run,
+                   "lpips": lpips, "mono": mono, "fleet": fleet,
+                   "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

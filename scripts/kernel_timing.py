@@ -209,19 +209,3 @@ def random_lpips_params(seed: int) -> dict:
         tree[f"lin_{i}"] = {"kernel": rng.uniform(0, 0.1, (1, 1, c, 1))
                             .astype(np.float32)}
     return {"params": tree}
-
-
-def save_params(params: dict, path) -> None:
-    """A param tree (under a top-level "params") as the flat npz that
-    ``syn3r_tpu_torch.utils.params.load_params`` reads: keys are the
-    '/'-joined paths."""
-    flat = {}
-
-    def walk(node, prefix):
-        for k, v in node.items():
-            if isinstance(v, dict):
-                walk(v, f"{prefix}{k}/")
-            else:
-                flat[prefix + k] = np.asarray(v)
-    walk(params["params"], "")
-    np.savez(path, **flat)

@@ -5,7 +5,7 @@ and ``random_gmflow_params`` give numpy param trees (under "params") with
 the structure and shapes of ``syn3r_tpu/vision/dust3r.py:Dust3R`` and
 ``syn3r_tpu/vision/gmflow_public.py:GMFlowPublic`` at the given widths
 (ViT-L/512 and the public gmflow by default), drawn from ``seed``;
-``scripts/kernel_timing.save_params`` writes one as the flat npz that
+``syn3r_tpu_torch.utils.params.save_params`` writes one as the flat npz that
 ``--dust3r_weights`` / ``--gmflow_weights`` read. Linear and conv weights
 are N(0, 0.02) (0.05 for the instance-normed convolutions), norms near
 (1, 0); the two head norms of DUSt3R are one draw, as a flax init makes

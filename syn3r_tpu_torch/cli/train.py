@@ -21,9 +21,11 @@ callable. ``--num_frames`` sets the frames of a pair (poses, warps, the
 warp-only completion), but the ``--svd_weights`` completion is built for
 25 frames whatever it says, as in the JAX package: with another count its
 first denoise raises ``ValueError`` (JAX's raises one too, from a shape
-mismatch inside its jitted loop). Not ported, each raising
-``NotImplementedError``: ``--scene_parallel on``, ``--interp_type
-forward_warp`` and ``--save_debug``.
+mismatch inside its jitted loop). ``--interp_type forward_warp`` builds
+the splat conditioning, ``--save_debug`` writes each pair's debug images
+under ``<model_path>/dense_views/debug/``, ``--guidance_reuse_cfg_uncond 1``
+configures the ``--svd_weights`` completion. Not ported, raising
+``NotImplementedError``: ``--scene_parallel on`` (multi-GPU).
 """
 
 from __future__ import annotations
@@ -114,15 +116,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _check_ported(args):
     """Raise NotImplementedError for a flag whose path is not ported."""
-    deferred = {
-        "--scene_parallel on": args.scene_parallel == "on",
-        "--interp_type forward_warp": args.interp_type == "forward_warp",
-        "--save_debug": args.save_debug,
-    }
-    for flag, given in deferred.items():
-        if given:
-            raise NotImplementedError(f"{flag} is not ported to "
-                                      "syn3r_tpu_torch")
+    if args.scene_parallel == "on":
+        raise NotImplementedError("--scene_parallel on (multi-GPU) is not "
+                                  "ported to syn3r_tpu_torch")
 
 
 def svd_config(args) -> dict:
@@ -193,6 +189,7 @@ def build_runner(args, scene, completion_fn=None):
         num_views_for_pcd_densification=args.num_views_for_pcd_densification,
         fps_keyframe_sampling=bool(args.fps_keyframe_sampling),
         reorg_train_views=bool(args.reorg_train_views),
+        save_debug=args.save_debug,
         seed=args.seed)
     dust3r_fn = flow_fn = None
     if args.dust3r_weights:

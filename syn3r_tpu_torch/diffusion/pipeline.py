@@ -12,17 +12,21 @@ a lambda schedule, and returns the completed frames.
   - ``denoise``: per step and direction (forward, then the time-flipped
     backward one). Post (``variant="post"``): ONE batch-3 UNet forward
     with batch_groups (1, 2) gives the uncond guidance pass and the CFG
-    pair at the pre-grad latents; the closed-form 4-tile guidance gradient
+    pair at the pre-grad latents (``fused_guidance_cfg=False``: a batch-1
+    and a batch-2 forward); the closed-form 4-tile guidance gradient
     moves the latents, and the Euler step starts from the post-grad
-    latents. With ``guidance_through_unet`` the gradient is instead
-    autograd's, of ``guidance_loss`` through a batch-1 uncond forward with
-    each UNet block checkpointed (the only place grad is enabled), then a
-    batch-2 CFG forward at the pre-grad latents. Prob
-    (``variant="prob"``, ``--diffusion_type 2PassProbUncertain``): no
-    guidance pass; one batch-2 CFG forward, then
-    the soft latent replacement step
-    (``scheduler.step_interp_prob_uncertain``). Directions merge with
-    w = linspace(1, 0, F); ``latent_num`` draws are averaged.
+    latents. ``guidance_reuse_cfg_uncond`` takes the guidance eps from the
+    CFG pair's uncond row (one batch-2 forward; a documented divergence).
+    With ``guidance_through_unet`` the gradient is instead autograd's, of
+    ``guidance_loss`` through a batch-1 uncond forward with each UNet
+    block checkpointed (the only place grad is enabled), then a batch-2
+    CFG forward at the pre-grad latents. Prob (``variant="prob"``,
+    ``--diffusion_type 2PassProbUncertain``): no guidance pass; one
+    batch-2 CFG forward, then the soft latent replacement step
+    (``scheduler.step_interp_prob_uncertain``). ``direction_parallel``
+    runs both directions' forwards as one, their batches stacked and
+    their batch_groups repeated. Directions merge with w = linspace(1, 0,
+    F); ``latent_num`` draws are averaged.
   - ``decode``: temporal decode in the compute dtype in chunks of
     ``decode_chunk_size`` (the decoder mixes frames within a chunk, so the
     chunk size changes the pixels).
@@ -34,7 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -81,18 +85,49 @@ class GuidedSVDConfig:
     # the masked MSE through a per-block-checkpointed batch-1 forward)
     # instead of the detached closed form. Forces direction_parallel off.
     guidance_through_unet: bool = False
-    # Not ported yet; each raises NotImplementedError when set.
-    direction_parallel: bool = False
+    # Post variant: the guidance pass (batch 1, uncond) and the CFG pair
+    # (batch 2) at the same pre-grad latents as ONE batch-3 forward with
+    # batch_groups (1, 2), the same math as the two calls (each group keeps
+    # its own time-context quirk). False runs the two calls.
+    fused_guidance_cfg: bool = True
+    # Post variant speed knob (opt-in, a documented DIVERGENCE from the
+    # reference): reuse the CFG pass's uncond row as the guidance pass's
+    # eps instead of the dedicated batch-1 uncond forward, one batch-2
+    # forward a step and direction. The two rows differ ONLY through the
+    # time-context batch quirk: in the batch-2 CFG group, half of each
+    # row's pixel rows attend to the COND clip embedding in temporal
+    # cross-attention, while the reference's guidance pass (batch 1) sees
+    # the uncond context everywhere. The per-tile std normalization inside
+    # guidance_grad_tiled washes out the scale difference; with zero CLIP
+    # embeddings the two variants agree.
     guidance_reuse_cfg_uncond: bool = False
+    # Both directions of a step as ONE UNet forward: the directions'
+    # batches stacked, batch_groups the per-direction groups repeated
+    # ((1, 2, 1, 2) for the fused post step), so each direction computes
+    # what it does alone. JAX vmaps the direction step instead.
+    direction_parallel: bool = False
+    # a direction per device: multi-GPU, not ported
+    direction_sharding: object = None
 
     def __post_init__(self):
         if self.variant not in ("post", "prob"):
             raise ValueError(f"unknown variant {self.variant!r}")
+        if self.direction_sharding is not None:
+            raise NotImplementedError(
+                "direction_sharding is multi-GPU, not ported (ROADMAP Queue "
+                "1, multi-GPU)")
         if self.guidance_through_unet:
             self.direction_parallel = False
-        for name in ("direction_parallel", "guidance_reuse_cfg_uncond"):
-            if getattr(self, name):
-                raise NotImplementedError(f"{name}=True is not ported")
+
+
+class _Direction(NamedTuple):
+    """What one direction of a denoise step reads."""
+    latents: torch.Tensor       # (F, h, w, 4)
+    clip_emb: torch.Tensor      # (2, 1, D): uncond zeros, cond
+    cond: torch.Tensor          # (F, h, w, 4) cond latents / FACTOR_S
+    mask: torch.Tensor          # (F-2, h, w)
+    lam: torch.Tensor           # (num_steps, F)
+    img_lat: torch.Tensor       # (F, h, w, 4) the endpoint latent repeated
 
 
 class GuidedSVDPipeline:
@@ -164,15 +199,17 @@ class GuidedSVDPipeline:
             mode = "reference" if hl >= 25 and wl >= 57 else "scaled"
         return mode
 
-    def _cfg_eps(self, scaled, t, clip_emb, img_lat, guidance):
-        """One batch-2 CFG forward (uncond, cond) and its guided eps."""
+    def _unet_stacked(self, t, parts, groups) -> list[torch.Tensor]:
+        """One UNet forward of the (sample, ehs) ``parts`` stacked along the
+        batch, with ``groups`` its batch_groups; the eps of each part,
+        float32."""
         dt = self.cfg.compute_dtype
-        inp2 = torch.stack([
-            torch.cat([scaled, torch.zeros_like(img_lat)], dim=-1),
-            torch.cat([scaled, img_lat], dim=-1)])
-        eps2 = self.m.unet(inp2.to(dt), t, clip_emb.to(dt),
-                           self._added_time_ids(2)).float()
-        return eps2[0] + guidance * (eps2[1] - eps2[0])
+        sample = torch.cat([x for x, _ in parts])
+        ehs = torch.cat([e for _, e in parts])
+        eps = self.m.unet(sample.to(dt), t, ehs.to(dt),
+                          self._added_time_ids(sample.shape[0]),
+                          tuple(groups)).float()
+        return list(eps.split([x.shape[0] for x, _ in parts]))
 
     def _unet_remat(self, sample, t, ehs, tids):
         """The UNet with each block checkpointed, for the gradient pass:
@@ -203,46 +240,91 @@ class GuidedSVDPipeline:
                                           lat)
         return S.normalize_guidance_grad(grad, sigma, lr=self.cfg.guidance_lr)
 
-    def _direction_step(self, latents, step_i, clip_emb, cond, msk, lam,
-                        img_lat, guidance):
+    def _step(self, dirs: list[_Direction], step_i: int,
+              guidance) -> list[torch.Tensor]:
+        """One denoise step of each direction in ``dirs``; their UNet
+        passes run as one forward each (the directions' batches stacked).
+        Returns each direction's next latents."""
         cfg, sch = self.cfg, self.schedule
-        dt = cfg.compute_dtype
-        t = sch.timesteps[step_i]
-        sigma = sch.sigmas[step_i]
-        scaled = S.scale_model_input(sch, latents, step_i)
+        t, sigma = sch.timesteps[step_i], sch.sigmas[step_i]
+        n = len(dirs)
+        scaled = [S.scale_model_input(sch, d.latents, step_i) for d in dirs]
+        uncond = [torch.cat([s, torch.zeros_like(d.img_lat)], dim=-1)
+                  for s, d in zip(scaled, dirs)]
+        cond_in = [torch.cat([s, d.img_lat], dim=-1)
+                   for s, d in zip(scaled, dirs)]
+
+        def cfg_pair():
+            # one batch-2 CFG forward a direction at the pre-grad latents
+            return self._unet_stacked(
+                t, [(torch.stack([u, c]), d.clip_emb)
+                    for u, c, d in zip(uncond, cond_in, dirs)], (2,) * n)
+
         if cfg.variant == "prob":
-            # one batch-2 CFG forward, no guidance pass; the soft
-            # replacement step runs in (F, C, h, w)
-            eps = self._cfg_eps(scaled, t, clip_emb, img_lat, guidance)
-            prev, _ = S.step_interp_prob_uncertain(
-                sch, eps.permute(0, 3, 1, 2), latents.permute(0, 3, 1, 2),
-                step_i, cond.permute(0, 3, 1, 2), msk, lam)
-            return prev.permute(0, 2, 3, 1)
+            # no guidance pass; the soft replacement step runs in
+            # (F, C, h, w)
+            out = []
+            for e2, d in zip(cfg_pair(), dirs):
+                eps = e2[0] + guidance * (e2[1] - e2[0])
+                prev, _ = S.step_interp_prob_uncertain(
+                    sch, eps.permute(0, 3, 1, 2),
+                    d.latents.permute(0, 3, 1, 2), step_i,
+                    d.cond.permute(0, 3, 1, 2), d.mask, d.lam)
+                out.append(prev.permute(0, 2, 3, 1))
+            return out
         if cfg.guidance_through_unet:
             # the gradient through the UNet moves the latents; the CFG
             # pair evaluates the PRE-grad latents, the Euler step starts
-            # from the POST-grad ones
-            grad = self._unet_guidance_grad(latents, step_i, clip_emb, cond,
-                                            msk, lam, img_lat)
-            eps = self._cfg_eps(scaled, t, clip_emb, img_lat, guidance)
-            return S.step_interp(sch, eps, latents - grad, step_i)[0]
-        # The guidance pass (batch 1, uncond) and the CFG pair (batch 2)
-        # evaluate the same PRE-grad latents as one batch-3 forward; the
-        # Euler step then starts from the POST-grad latents.
-        uncond = torch.cat([scaled, torch.zeros_like(img_lat)], dim=-1)
-        inp3 = torch.stack([uncond, uncond,
-                            torch.cat([scaled, img_lat], dim=-1)])
-        ehs3 = torch.cat([torch.zeros_like(clip_emb[:1]), clip_emb])
-        eps3 = self.m.unet(inp3.to(dt), t, ehs3.to(dt),
-                           self._added_time_ids(3), (1, 2)).float()
-        x0 = S.pred_original_sample(eps3[0], latents, sigma)
-        grad = S.guidance_grad_tiled(
-            x0.permute(0, 3, 1, 2), cond.permute(0, 3, 1, 2), msk,
-            lam[step_i], sigma, lr=cfg.guidance_lr,
-            tile_mode=self._tile_mode(latents))
-        latents = latents - grad.permute(0, 2, 3, 1)
-        eps = eps3[1] + guidance * (eps3[2] - eps3[1])
-        return S.step_interp(sch, eps, latents, step_i)[0]
+            # from the POST-grad ones (one direction: direction_parallel
+            # is off)
+            (d,) = dirs
+            grad = self._unet_guidance_grad(d.latents, step_i, d.clip_emb,
+                                            d.cond, d.mask, d.lam, d.img_lat)
+            (e2,) = cfg_pair()
+            eps = e2[0] + guidance * (e2[1] - e2[0])
+            return [S.step_interp(sch, eps, d.latents - grad, step_i)[0]]
+        if cfg.guidance_reuse_cfg_uncond:
+            # opt-in speed knob (documented divergence, see the config):
+            # ONE batch-2 CFG forward at the pre-grad latents serves BOTH
+            # the guidance x0 (its uncond row) and the CFG combination,
+            # dropping the dedicated batch-1 guidance forward. The uncond
+            # row differs from the reference's batch-1 pass only through
+            # the time-context batch quirk; the per-tile std normalization
+            # absorbs the scale shift.
+            pairs = cfg_pair()
+            guide = [e2[0] for e2 in pairs]
+        elif cfg.fused_guidance_cfg:
+            # the guidance pass (batch 1, uncond) and the CFG pair (batch
+            # 2) evaluate the same PRE-grad latents as one batch-3 forward
+            # a direction, batch_groups (1, 2)
+            eps3 = self._unet_stacked(
+                t, [(torch.stack([u, u, c]),
+                     torch.cat([torch.zeros_like(d.clip_emb[:1]),
+                                d.clip_emb]))
+                    for u, c, d in zip(uncond, cond_in, dirs)], (1, 2) * n)
+            guide = [e3[0] for e3 in eps3]
+            pairs = [e3[1:] for e3 in eps3]
+        else:
+            # reference semantics, unfused: one batch-1 uncond forward a
+            # direction (zero CLIP context, zero image latents) for the
+            # guidance, then the batch-2 CFG pass at the pre-grad latents
+            guide = [e[0] for e in self._unet_stacked(
+                t, [(u[None], torch.zeros_like(d.clip_emb[:1]))
+                    for u, d in zip(uncond, dirs)], (1,) * n)]
+            pairs = cfg_pair()
+        out = []
+        for g_eps, e2, d in zip(guide, pairs, dirs):
+            # the closed-form 4-tile guidance gradient moves the latents;
+            # the Euler step starts from the POST-grad latents
+            x0 = S.pred_original_sample(g_eps, d.latents, sigma)
+            grad = S.guidance_grad_tiled(
+                x0.permute(0, 3, 1, 2), d.cond.permute(0, 3, 1, 2), d.mask,
+                d.lam[step_i], sigma, lr=cfg.guidance_lr,
+                tile_mode=self._tile_mode(d.latents))
+            latents = d.latents - grad.permute(0, 2, 3, 1)
+            eps = e2[0] + guidance * (e2[1] - e2[0])
+            out.append(S.step_interp(sch, eps, latents, step_i)[0])
+        return out
 
     @torch.no_grad()
     def denoise(self, noise_latents, clip_start, clip_end, cond_latents,
@@ -275,12 +357,15 @@ class GuidedSVDPipeline:
         outs = []
         for latents in noise_latents * self.schedule.init_noise_sigma:
             for step_i in range(cfg.num_inference_steps):
-                fwd = self._direction_step(latents, step_i, clip_start, cond,
-                                           mask, lambda_ts, lat_start_f,
-                                           guidance)
-                bwd = self._direction_step(latents.flip(0), step_i, clip_end,
-                                           cond_bw, mask_bw, lam_bw,
-                                           lat_end_f, guidance)
+                fwd = _Direction(latents, clip_start, cond, mask, lambda_ts,
+                                 lat_start_f)
+                bwd = _Direction(latents.flip(0), clip_end, cond_bw, mask_bw,
+                                 lam_bw, lat_end_f)
+                if cfg.direction_parallel:
+                    fwd, bwd = self._step([fwd, bwd], step_i, guidance)
+                else:
+                    (fwd,) = self._step([fwd], step_i, guidance)
+                    (bwd,) = self._step([bwd], step_i, guidance)
                 latents = weight_fw * fwd + (1 - weight_fw) * bwd.flip(0)
             outs.append(latents)
         return torch.stack(outs).mean(dim=0)

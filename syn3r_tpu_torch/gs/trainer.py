@@ -36,9 +36,15 @@ params, gated by ``use_lpips_loss``, which the orchestrator turns on around
 ``refine_GS``) adds ``confidence x lpips_weight x LPIPS(render, target)``;
 the LPIPS module takes cuDNN's deterministic convolutions for it and its
 gradient, so a step's graph replay and its per-step run agree bit for
-bit. Not ported, raising
-``NotImplementedError``: the monocular-depth pseudo step
-(``sample_pseudo_interval`` is 1e20 in every shipped config).
+bit.
+
+The monocular-depth pseudo step (``set_mono_depth_fn`` with a caller's
+estimator rgb -> depth; ``sample_pseudo_interval`` is 1e20, off, in every
+shipped config): at each due iteration, between segments, a virtual
+camera interpolated between TSP-adjacent train cameras is rendered, the
+estimator gives its depth, and one Adam step takes the Pearson depth loss
+of the render through the same rasterizer route as a train step (the
+composite kernels on the card); the densify statistics do not change.
 """
 
 from __future__ import annotations
@@ -57,6 +63,7 @@ from ..models import gaussians as G
 from ..models.lpips import LPIPS, lpips_module
 from ..ops import rasterize as rz
 from ..ops.composite import composite_tiles
+from ..utils import se3
 from ..utils.camera import Camera, make_camera, stack_cameras
 from . import losses
 from .densify import DensifyStats, densify_and_prune, reset_opacity
@@ -243,7 +250,8 @@ class GSTrainer:
         # read once: a captured step holds this tensor's address
         self._bg = torch.tensor(config.bg_color, dtype=torch.float32,
                                 device=self.device)
-        self._mono_depth_fn = None      # set_mono_depth_fn is not ported
+        self._mono_depth_fn = None
+        self._mono_pseudo_cams: Optional[Camera] = None
         self._segments: Optional[StepGraph] = None
         self._renders: dict[tuple, StepGraph] = {}     # one per (H, W)
         # holders built, one capture each on CUDA: {"step": n, "render": n}
@@ -308,14 +316,10 @@ class GSTrainer:
         g_off = grads[-1]
         grads = dict(zip(names, grads[:-1]))
 
-        lrs = {"means": lr_means, "quats": cfg.rotation_lr,
-               "log_scales": cfg.scaling_lr,
-               "opacity_logits": cfg.opacity_lr, "sh_dc": cfg.feature_lr,
-               "sh_rest": cfg.feature_lr / 20.0}
         with torch.no_grad():
             new_params, new_adam = adam_update(
-                {k: v.detach() for k, v in params.items()}, grads, adam, lrs,
-                corrections)
+                {k: v.detach() for k, v in params.items()}, grads, adam,
+                self._lrs(lr_means), corrections)
             # densify statistics: the screen-centre gradient in the CUDA
             # rasterizer's NDC scale (pixel grad x W/2, H/2)
             screen = torch.stack([g_off[:, 0] * (camera.width * 0.5),
@@ -326,6 +330,14 @@ class GSTrainer:
                        & (c[:, 1] < camera.height + r))
             new_stats = stats.update(screen, r, visible)
         return new_params, new_adam, new_stats, loss.detach()
+
+    def _lrs(self, lr_means) -> dict:
+        """Adam's learning rate of each parameter field."""
+        cfg = self.cfg
+        return {"means": lr_means, "quats": cfg.rotation_lr,
+                "log_scales": cfg.scaling_lr,
+                "opacity_logits": cfg.opacity_lr, "sh_dc": cfg.feature_lr,
+                "sh_rest": cfg.feature_lr / 20.0}
 
     def _train_step(self, ts: TrainState, camera: Camera,
                     image: torch.Tensor, depth_target=None,
@@ -371,6 +383,70 @@ class GSTrainer:
                 v.copy_(getattr(stats, k))
             b["loss"].copy_(loss)
             b["j"].add_(1)
+
+    def _mono_pseudo_step(self, ts: TrainState, camera: Camera,
+                          est_depth: torch.Tensor
+                          ) -> tuple[TrainState, dict]:
+        """One monocular pseudo-view step: the Pearson depth loss between
+        the render at a virtual camera and an estimate of its depth, then
+        Adam on the parameters (no densify statistics: the view has no
+        photometric target)."""
+        cfg = self.cfg
+        g = ts.gaussians
+        params = {k: v.detach().requires_grad_(True)
+                  for k, v in G.get_params(g).items()}
+        _, out = self._render(G.with_params(g, params), camera)
+        pred_depth = torch.where(
+            out.alpha > 1e-6, out.depth / torch.clamp(out.alpha, min=1e-6),
+            0.0)
+        loss = cfg.mono_depth_weight * losses.pearson_depth_loss(
+            pred_depth, est_depth, valid=est_depth > 0)
+        names = list(params)
+        grads = dict(zip(names, torch.autograd.grad(
+            loss, [params[k] for k in names])))
+        with torch.no_grad():
+            new_params, new_adam = adam_update(
+                {k: v.detach() for k, v in params.items()}, grads, ts.adam,
+                self._lrs(position_lr(cfg, self.extent, ts.step)))
+        return (TrainState(gaussians=G.with_params(g, new_params),
+                           adam=new_adam, stats=ts.stats, step=ts.step),
+                {"loss": loss.detach()})
+
+    def _get_mono_pseudo_cams(self) -> Camera:
+        """Virtual cameras, ``mono_pseudo_per_pair`` between each two
+        TSP-adjacent train cameras (endpoints excluded), built once."""
+        if self._mono_pseudo_cams is None:
+            cams = self.train_views.cameras
+            order = order_cameras_tsp(cams)
+            out = []
+            for a, b in zip(order[:-1], order[1:]):
+                ca, cb = cams.at(a), cams.at(b)
+                poses = se3.interpolate_poses(
+                    ca.w2c, cb.w2c, self.cfg.mono_pseudo_per_pair + 2)
+                out += [make_camera(ca.K, p, ca.width, ca.height,
+                                    device=self.device)
+                        for p in poses[1:-1]]
+            self._mono_pseudo_cams = stack_cameras(out)
+        return self._mono_pseudo_cams
+
+    def _maybe_mono_pseudo(self, it: int):
+        """The mono-depth pseudo step when it is due: an estimator is
+        installed, the interval is finite and ``it`` a multiple of it from
+        ``start_sample_pseudo`` on. The camera is drawn from the view
+        stream after the segment's picks, as JAX draws it."""
+        cfg = self.cfg
+        if (self._mono_depth_fn is None
+                or cfg.sample_pseudo_interval >= 10 ** 9
+                or cfg.sample_pseudo_interval <= 0
+                or it < cfg.start_sample_pseudo
+                or it % cfg.sample_pseudo_interval):
+            return
+        pcams = self._get_mono_pseudo_cams()
+        cam = pcams.at(int(self._rng.integers(len(pcams))))
+        with torch.no_grad():
+            rgb = self._render(self.state.gaussians, cam)[1].rgb
+            est = self._mono_depth_fn(rgb).detach()
+        self.state, _ = self._mono_pseudo_step(self.state, cam, est)
 
     def _densify_step(self, ts: TrainState) -> TrainState:
         cfg = self.cfg
@@ -647,6 +723,7 @@ class GSTrainer:
                     self._maybe_grow()
                 if (last + 1) % cfg.opacity_reset_interval == 0:
                     self.state = self._reset_opacity_step(self.state)
+            self._maybe_mono_pseudo(last + 1)
             if log_every and (last + 1) % log_every == 0:
                 last_loss = float(loss)
                 print(f"[gs] iter {last + 1} loss {last_loss:.4f} "
@@ -663,9 +740,11 @@ class GSTrainer:
         self._segments = None      # a capture holds the old weights
 
     def set_mono_depth_fn(self, fn):
-        raise NotImplementedError(
-            "the monocular-depth pseudo step is not ported: "
-            "sample_pseudo_interval is 1e20 (off) in every shipped config")
+        """Install the monocular depth estimator rgb (H, W, 3) -> depth
+        (H, W) of the ``sample_pseudo_interval`` step (FSGS uses a frozen
+        DPT; none is in the repo)."""
+        self._mono_depth_fn = fn
+        self._mono_pseudo_cams = None
 
     def training(self, start_iter: int = 0, epoch_indicator: int = 0,
                  log_every: int = 0) -> float:

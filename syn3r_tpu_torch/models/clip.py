@@ -3,7 +3,8 @@
 Counterpart of ``syn3r_tpu/models/clip.py``, with HF's state-dict names
 (``vision_model.encoder.layers.{i}.mlp.fc1`` ...). ViT-H/14 as SVD uses it:
 hidden 1280, 32 layers, 16 heads, MLP 5120, patch 14, image 224,
-projection 1024, exact gelu.
+projection 1024, exact gelu. ``convert_clip_torch`` turns an HF state dict
+into the JAX package's flax tree (``cli/convert_weights.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +18,13 @@ from .layers import Conv2d, LayerNorm, Linear
 
 CLIP_IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_IMAGE_STD = (0.26862954, 0.26130258, 0.27577711)
+
+
+def convert_clip_torch(state_dict) -> dict:
+    """HF CLIPVisionModelWithProjection state dict -> the flax param tree
+    (numpy), as the JAX package's ``convert_clip_torch``."""
+    from .convert import flax_tree
+    return flax_tree(state_dict, "clip")
 
 
 def clip_normalize(img01: torch.Tensor) -> torch.Tensor:

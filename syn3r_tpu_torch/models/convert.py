@@ -14,6 +14,11 @@ convolutions, the ``lpips`` package names them by slice and index. DUSt3R
 and the public GMFlow have theirs too (``dust3r_state_from_flax``,
 ``gmflow_state_from_flax``): the inverses of the JAX package's converters
 from the public checkpoints, which fuse, split and permute weights.
+
+The other way, ``torch_to_flax`` (UNet, VAE), ``clip.convert_clip_torch``
+and ``lpips.convert_lpips_torch`` turn a checkpoint's torch state dict
+into the flax tree the JAX package writes as ``.npz``
+(``cli/convert_weights.py``), with the same forward rules.
 """
 
 from __future__ import annotations
@@ -81,6 +86,40 @@ def _to_torch_layout(arr: np.ndarray, leaf: str) -> np.ndarray:
     if arr.ndim == 2:        # (I, O) -> (O, I)
         return arr.transpose(1, 0)
     raise ValueError(f"unexpected kernel rank {arr.ndim}")
+
+
+def _to_flax_layout(arr: np.ndarray, leaf: str) -> np.ndarray:
+    """The inverse of ``_to_torch_layout``."""
+    if leaf != "kernel":
+        return arr
+    if arr.ndim == 5:        # (O, I, kt, kh, kw) -> (kt, kh, kw, I, O)
+        return arr.transpose(2, 3, 4, 1, 0)
+    if arr.ndim == 4:        # (O, I, kh, kw) -> (kh, kw, I, O)
+        return arr.transpose(2, 3, 1, 0)
+    if arr.ndim == 2:        # (O, I) -> (I, O)
+        return arr.transpose(1, 0)
+    raise ValueError(f"unexpected weight rank {arr.ndim}")
+
+
+def flax_tree(state_dict: dict, rule: str = "diffusers") -> dict:
+    """A torch state dict (numpy arrays or tensors) as the nested flax
+    param tree, float32, by ``rule`` ("diffusers" or "clip"): the JAX
+    package's ``torch_to_flax`` and ``convert_clip_torch``, in numpy."""
+    path_of = {"diffusers": diffusers_flax_path, "clip": clip_flax_path}[rule]
+    params: dict = {}
+    for key, arr in state_dict.items():
+        arr = np.asarray(arr)
+        path = path_of(key, arr.ndim)
+        node = params
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = _to_flax_layout(arr, path[-1]).astype(np.float32)
+    return params
+
+
+def torch_to_flax(state_dict: dict) -> dict:
+    """A diffusers state dict (UNet, VAE) as the flax param tree."""
+    return flax_tree(state_dict, "diffusers")
 
 
 def _flat_leaves(tree: dict, prefix=()) -> dict:

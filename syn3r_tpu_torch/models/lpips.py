@@ -10,7 +10,8 @@ The state-dict names are those of the ``lpips`` package's
 ``LPIPS(net='vgg')`` (``scaling_layer.shift``, ``net.sliceK.IDX.weight``,
 ``linK.model.1.weight``), so such a state dict loads as it is; the JAX
 package's converted ``.npz`` goes through
-``models.convert.lpips_state_from_flax`` (``load_lpips_fn``). The module
+``models.convert.lpips_state_from_flax`` (``load_lpips_fn``), and
+``convert_lpips_torch`` writes that tree from an ``lpips`` state dict. The module
 computes in float32, as the JAX module declares; its convolutions are
 cuDNN's, in full float32 once ``device.resolve_device`` has turned TF32
 off.
@@ -54,6 +55,24 @@ def vgg_conv_keys() -> list[str]:
             k = sum(idx >= s for s in _SLICE_STARTS[1:]) + 1
             keys.append(f"net.slice{k}.{idx}")
     return keys
+
+
+def convert_lpips_torch(state_dict) -> dict:
+    """An ``lpips.LPIPS(net='vgg')`` state dict (numpy arrays or tensors)
+    -> the JAX package's flax tree (``net/conv_i/{kernel,bias}`` in HWIO,
+    ``lin_i/kernel``), as its ``convert_lpips_torch``."""
+    import numpy as np
+    out = {"net": {}}
+    for i, key in enumerate(vgg_conv_keys()):
+        out["net"][f"conv_{i}"] = {
+            "kernel": np.asarray(state_dict[f"{key}.weight"]).transpose(
+                2, 3, 1, 0).astype(np.float32),
+            "bias": np.asarray(state_dict[f"{key}.bias"]).astype(np.float32)}
+    for i in range(len(_CHANNELS)):
+        w = np.asarray(state_dict[f"lin{i}.model.1.weight"])
+        out[f"lin_{i}"] = {"kernel": w.transpose(2, 3, 1, 0).astype(
+            np.float32)}
+    return out
 
 
 class VGG16Features(nn.Module):

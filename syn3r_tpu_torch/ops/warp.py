@@ -1,26 +1,31 @@
-"""Backward (gather) image warping with depth-consistency masks.
+"""Image warping: forward (splat) and backward (gather), with
+depth-consistency masks.
 
-Counterpart of ``syn3r_tpu/ops/warp.py`` on the backward-warp path:
-``pixel_grid``, ``consistency_check_with_depth`` (two-view cycle
+Counterpart of ``syn3r_tpu/ops/warp.py``: ``pixel_grid``,
+``bilinear_splat`` and ``forward_warp`` (a source view splatted into a
+target view with a soft z-buffer, the ``--interp_type forward_warp``
+conditioning), ``consistency_check_with_depth`` (two-view cycle
 reprojection error), ``inverse_warp`` (a source view gathered into a target
-view through the target's rendered depth, with its eight masks) and
-``downsample_mask_to_latent``. Images are channel-last (H, W, C) float32,
-depths (H, W), poses 4x4 world->camera, intrinsics 3x3.
+view through the target's rendered depth, with its eight masks),
+``dilate_mask`` and ``downsample_mask_to_latent``. Images are channel-last
+(H, W, C) float32, depths (H, W), poses 4x4 world->camera, intrinsics 3x3.
 
 The reference's half-pixel quirks are kept: it normalizes grids as
 ``2x/W - 1`` or ``x/((W-1)/2) - 1`` but samples with align_corners=False,
 so the effective sample positions are shifted; the same positions are
 computed here.
 
-Not ported: ``forward_warp``, ``bilinear_splat`` and ``dilate_mask``, used
-only by ``--interp_type forward_warp``, which no shipped config runs.
+The splat is a scatter-add (``index_put_`` with ``accumulate``): on the
+card its float atomics sum in an order that varies from run to run, so its
+output is reproducible to rounding, not bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..utils.camera import project, transform_points, unproject
 from .grid_sample import sample_pixels
@@ -32,6 +37,73 @@ def pixel_grid(h: int, w: int, dtype=torch.float32,
     x = torch.arange(w, dtype=dtype, device=device)[None, :].expand(h, w)
     y = torch.arange(h, dtype=dtype, device=device)[:, None].expand(h, w)
     return torch.stack([x, y], dim=-1)
+
+
+def bilinear_splat(frame: torch.Tensor, depth: torch.Tensor,
+                   flow: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                   depth_weight_scale: float = 50.0,
+                   max_depth: float = 5000.0
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Depth-weighted bilinear splatting of ``frame`` (H, W, C) along
+    ``flow`` (H, W, 2): each source pixel goes to the 4 integer neighbours
+    of its target position (in a 1-pixel border, clipped to it) with
+    bilinear weights divided by exp(log1p(z) / max log1p(z) x 50), a soft
+    z-buffer; the sums are normalized. ``depth`` (H, W) is each source
+    pixel's depth in the target frame. Returns (warped (H, W, C), valid
+    (H, W) bool)."""
+    h, w, c = frame.shape
+    pos = pixel_grid(h, w, frame.dtype, frame.device) + flow + 1.0
+    x0, y0 = torch.floor(pos[..., 0]), torch.floor(pos[..., 1])
+    # ceil as np.ceil: equal to floor at integral positions, not floor + 1
+    x1, y1 = torch.ceil(pos[..., 0]), torch.ceil(pos[..., 1])
+    px = torch.clamp(pos[..., 0], 0, w + 1)
+    py = torch.clamp(pos[..., 1], 0, h + 1)
+    x0c, x1c = (torch.clamp(v, 0, w + 1).long() for v in (x0, x1))
+    y0c, y1c = (torch.clamp(v, 0, h + 1).long() for v in (y0, y1))
+
+    w_nw = (1 - (py - y0c)) * (1 - (px - x0c))
+    w_sw = (1 - (y1c - py)) * (1 - (px - x0c))
+    w_ne = (1 - (py - y0c)) * (1 - (x1c - px))
+    w_se = (1 - (y1c - py)) * (1 - (x1c - px))
+
+    logd = torch.log1p(torch.clamp(depth, 0.0, max_depth))
+    zw = torch.exp(logd / torch.clamp(logd.max(), min=1e-12)
+                   * depth_weight_scale)
+    m = (torch.ones((h, w), dtype=frame.dtype, device=frame.device)
+         if mask is None else mask.to(frame.dtype))
+    base = m / zw
+
+    acc_img = frame.new_zeros(((h + 2) * (w + 2), c), dtype=torch.float32)
+    acc_w = frame.new_zeros(((h + 2) * (w + 2),), dtype=torch.float32)
+    src = frame.float().reshape(-1, c)
+    for wt, yy, xx in ((w_nw, y0c, x0c), (w_sw, y1c, x0c),
+                       (w_ne, y0c, x1c), (w_se, y1c, x1c)):
+        wgt = (wt * base).float().reshape(-1)
+        flat = (yy * (w + 2) + xx).reshape(-1)
+        acc_img.index_put_((flat,), src * wgt[:, None], accumulate=True)
+        acc_w.index_put_((flat,), wgt, accumulate=True)
+
+    img = acc_img.reshape(h + 2, w + 2, c)[1:-1, 1:-1]
+    wsum = acc_w.reshape(h + 2, w + 2)[1:-1, 1:-1]
+    valid = wsum > 0
+    out = torch.where(valid[..., None],
+                      img / torch.where(valid, wsum, 1.0)[..., None], 0.0)
+    return out.to(frame.dtype), valid
+
+
+def forward_warp(frame: torch.Tensor, depth: torch.Tensor,
+                 w2c_src: torch.Tensor, w2c_dst: torch.Tensor,
+                 K_src: torch.Tensor, K_dst: Optional[torch.Tensor] = None,
+                 mask: Optional[torch.Tensor] = None):
+    """Splat ``frame`` from the source camera to the destination camera
+    through the source ``depth``. Returns (warped, valid, flow)."""
+    if K_dst is None:
+        K_dst = K_src
+    pts_dst = transform_points(unproject(depth, K_src), w2c_src, w2c_dst)
+    uv, z = project(pts_dst, K_dst)
+    flow = uv - pixel_grid(*depth.shape, frame.dtype, frame.device)
+    warped, valid = bilinear_splat(frame, z, flow, mask=mask)
+    return warped, valid, flow
 
 
 def consistency_check_with_depth(depth1: torch.Tensor, w2c1: torch.Tensor,
@@ -117,6 +189,13 @@ def inverse_warp(img: torch.Tensor, depth_src: torch.Tensor,
         mask_reproj=(reproj_err < bandwidth) & mask_warp,
         soft_mask_reproj=torch.exp(-((reproj_err / bandwidth) ** 3)),
     )
+
+
+def dilate_mask(mask: torch.Tensor, size: int = 5) -> torch.Tensor:
+    """Binary dilation with a size x size square (a max pool whose padding
+    acts as -inf, as ``reduce_window``'s does)."""
+    m = mask.float()[None, None]
+    return F.max_pool2d(m, size, stride=1, padding=size // 2)[0, 0] > 0.5
 
 
 def downsample_mask_to_latent(mask: torch.Tensor, lat_h: int,

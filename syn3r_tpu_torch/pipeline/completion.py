@@ -1,7 +1,7 @@
 """Conditioning of guided completion and its lambda schedule.
 
 Counterpart of ``syn3r_tpu/pipeline/completion.py`` (reference
-``model/diffusionGS.py:653-923, 1120-1205``) on the backward-warp path:
+``model/diffusionGS.py:653-923, 1120-1205``):
 
   - ``interpolate_pair_poses`` between two endpoint cameras and
     ``perturb_and_select_poses``, which jitters each interior pose and keeps
@@ -14,14 +14,17 @@ Counterpart of ``syn3r_tpu/pipeline/completion.py`` (reference
     uncertainty fuses the soft cycle-reprojection mask with the intensity
     confidence exp(-(|warped - rendered| / 0.5)^3), holes zeroed; the
     cond image falls back to the GS render where uncertainty > 0.5; latent
-    masks are 8x8 block means; then ``search_hypers_v2``;
-  - ``covisibility_distance`` and ``fps_keyframes`` (numpy).
+    masks are 8x8 block means; then ``search_hypers_v2``. With
+    ``warp_mode="forward_warp"`` (``--interp_type forward_warp``) each
+    interior frame is instead the endpoint splatted to its pose with the
+    5x5-dilated holes zeroed, and its latent mask is binary (8x8 block
+    mean of the holes >= 0.2); it needs no GS render;
+  - ``covisibility_distance``, ``fps_keyframes``, ``split_point`` and
+    ``normalized_endpoint_dists`` (numpy).
 
 Images are (H, W, 3) in [0, 1]; the caller supplies the render functions
 (pose(s) -> rgb, depth at the diffusion resolution). Frames are processed
-one after another, as JAX's ``lax.map`` does. Not ported:
-``warp_mode="forward_warp"`` (raises) and ``split_point`` /
-``normalized_endpoint_dists`` (unused by the reference's live path).
+one after another, as JAX's ``lax.map`` does.
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ from typing import Callable, NamedTuple, Sequence
 import numpy as np
 import torch
 
-from ..ops.warp import downsample_mask_to_latent, inverse_warp
+from ..ops.warp import (dilate_mask, downsample_mask_to_latent,
+                        forward_warp, inverse_warp)
 from ..utils import se3
 
 
@@ -102,27 +106,30 @@ def prepare_pair_conditioning(
     """SVD conditioning of one endpoint pair. poses: (F, 4, 4) interpolated
     w2c chain, endpoints included. ``render_many_fn(poses (P, 4, 4)) ->
     (rgb (P, H, W, 3), depth (P, H, W))`` renders all interior poses at
-    once; without it ``render_fn(pose)`` renders them one by one."""
-    if warp_mode == "forward_warp":
-        raise NotImplementedError(
-            "warp_mode='forward_warp' is not ported: no shipped config "
-            "uses it")
-    if warp_mode != "backward_warp":
+    once; without it ``render_fn(pose)`` renders them one by one. The
+    forward warp renders nothing."""
+    if warp_mode not in ("backward_warp", "forward_warp"):
         raise ValueError(warp_mode)
     poses = pose_tensor(poses, image_l.device)
     f = poses.shape[0]
     h, w = image_l.shape[:2]
     lh, lw = h // latent_downsample, w // latent_downsample
     interior = poses[1:-1]
-    rendered, rendered_depth = (render_many_fn or _stacked(render_fn))(
-        interior)
+    if warp_mode == "backward_warp":
+        rendered, rendered_depth = (render_many_fn or _stacked(render_fn))(
+            interior)
     conds, masks = [], []
     for k in range(f - 2):
         left = k < 12          # interior index i = k + 1: i - 1 < 12
-        cond, mask_lat = _frame_conditioning(
-            image_l if left else image_r, depth_l if left else depth_r,
-            rendered[k], rendered_depth[k],
-            poses[0] if left else poses[-1], interior[k], K, lh, lw)
+        src = ((image_l, depth_l, poses[0]) if left
+               else (image_r, depth_r, poses[-1]))
+        if warp_mode == "forward_warp":
+            cond, mask_lat = _frame_conditioning_fw(*src, interior[k], K,
+                                                    lh, lw)
+        else:
+            cond, mask_lat = _frame_conditioning(
+                src[0], src[1], rendered[k], rendered_depth[k], src[2],
+                interior[k], K, lh, lw)
         conds.append(cond)
         masks.append(mask_lat)
     masks = torch.stack(masks)
@@ -145,6 +152,20 @@ def _frame_conditioning(src_img, src_depth, rendered, rendered_depth,
     uncert = 1.0 - conf                                  # (H, W, 1)
     mask_lat = downsample_mask_to_latent(uncert[..., 0], lh, lw)
     cond = torch.where(uncert > 0.5, rendered, warped)
+    return torch.clamp(cond, 0.0, 1.0), mask_lat
+
+
+def _frame_conditioning_fw(src_img, src_depth, src_pose, pose, K,
+                           lh: int, lw: int):
+    """Forward-splat conditioning of one frame (the reference's
+    ``warp_images``): the source endpoint splatted to ``pose``; holes are
+    where the splat is empty, 5x5-dilated; the cond image is the splat
+    with the holes zeroed, the latent mask the 8x8 block mean of the holes
+    binarized at 0.2."""
+    warped, valid, _ = forward_warp(src_img, src_depth, src_pose, pose, K)
+    hole = dilate_mask(~valid, 5)
+    cond = warped * (1.0 - hole.to(warped.dtype))[..., None]
+    mask_lat = (downsample_mask_to_latent(hole, lh, lw) >= 0.2).float()
     return torch.clamp(cond, 0.0, 1.0), mask_lat
 
 
@@ -182,6 +203,32 @@ def interpolate_pair_poses(pose_l, pose_r, num: int = 25) -> np.ndarray:
     return se3.interpolate_poses(
         torch.as_tensor(np.asarray(pose_l, np.float32)),
         torch.as_tensor(np.asarray(pose_r, np.float32)), num).numpy()
+
+
+def split_point(poses: Sequence[np.ndarray]) -> int:
+    """The index that minimizes the summed distances of the translation
+    columns to their endpoint (left of it to the first, from it on to the
+    last), by a grid search (the reference's ``compute_dists``; its live
+    path never reads the result)."""
+    pts = np.asarray([p[:3, 3] for p in poses])
+    best, best_cost = 1, np.inf
+    for idx in range(1, len(pts) - 1):
+        cost = (np.linalg.norm(pts[:idx] - pts[0], axis=1).sum()
+                + np.linalg.norm(pts[idx:] - pts[-1], axis=1).sum())
+        if cost < best_cost:
+            best, best_cost = idx, cost
+    return best
+
+
+def normalized_endpoint_dists(poses: Sequence[np.ndarray]) -> np.ndarray:
+    """Each pose's distance to its endpoint on its side of
+    ``split_point``, over the largest."""
+    idx = split_point(poses)
+    pts = np.asarray([p[:3, 3] for p in poses])
+    diff = np.where(np.arange(len(pts))[:, None] < idx, pts - pts[0],
+                    pts - pts[-1])
+    d = np.linalg.norm(diff, axis=1)
+    return d / max(d.max(), 1e-12)
 
 
 def perturb_and_select_poses(

@@ -8,13 +8,15 @@ input views (``init_GS``), then per cycle resume from the latest checkpoint
   - ``densify_views``: for each view pair (N wrap-around pairs for
     'interpolate_gs_v2', N - 1 for 'interpolate_loop0_gs') interpolate the
     poses, perturb the interior ones (a numpy rng per (cycle, pair)), build
-    the backward-warp conditioning from the ORIGINAL endpoint photos
-    (nearest-upsized to the diffusion resolution) and GS depths, run the
-    completion with a ``torch.Generator`` seeded ``seed + 1000 cycle +
-    pair`` on the trainer's device, put the endpoint photos back, resize to
-    the GS resolution (antialiased cubic) and cache the pair as
-    ``interpolated_dense_views_cyc{c}_view{p}.npz`` (a cache of another
-    shape is recomputed);
+    the conditioning (``interp_type``: the backward warp, or the forward
+    splat) from the ORIGINAL endpoint photos (nearest-upsized to the
+    diffusion resolution) and GS depths, run the completion with a
+    ``torch.Generator`` seeded ``seed + 1000 cycle + pair`` on the
+    trainer's device, dump the pair's debug artifacts (``save_debug``,
+    ``utils/debug_dump.py``, under ``debug/cyc{c}_pair{p}``), put the
+    endpoint photos back, resize to the GS resolution (antialiased cubic)
+    and cache the pair as ``interpolated_dense_views_cyc{c}_view{p}.npz``
+    (a cache of another shape is recomputed);
   - ``densify_pcds`` (the DL3DV preset, with a ``dust3r_fn``): keyframes
     per pair (farthest-point over covisibility or evenly spaced, the last
     dropped), a GMFlow frame-quality gate against the GS render (with a
@@ -29,9 +31,8 @@ The completion is any callable ``(image_start, cond_images, image_end,
 mask, lambda_ts, generator) -> (F, H, W, 3)``: a ``GuidedSVDPipeline`` or,
 without weights, ``_warp_only_completion``.
 
-Not ported, each raising ``NotImplementedError``: ``pair_parallel``
-(multi-GPU), ``save_debug`` (``utils/debug_dump.py``) and
-``interp_type="forward_warp"``.
+Not ported, raising ``NotImplementedError``: ``pair_parallel``
+(multi-GPU).
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ import torch
 
 from ..gs.trainer import GSTrainer, order_cameras_tsp
 from ..utils.camera import Camera, make_camera
+from ..utils.debug_dump import dump_pair_debug
 from ..utils.image import (resize_bilinear, resize_cubic_antialiased,
                            resize_nearest)
 from ..utils.pcd import remove_statistical_outliers
@@ -85,19 +87,12 @@ class DiffusionGSConfig:
         if self.densify_type not in ("interpolate_gs_v2",
                                      "interpolate_loop0_gs"):
             raise ValueError(f"unknown densify_type {self.densify_type!r}")
-        if self.interp_type == "forward_warp":
-            raise NotImplementedError(
-                "interp_type='forward_warp' is not ported: no shipped "
-                "config uses it")
-        if self.interp_type != "backward_warp":
+        if self.interp_type not in ("backward_warp", "forward_warp"):
             raise ValueError(f"unknown interp_type {self.interp_type!r}")
         if self.pair_parallel or self.pair_sharding is not None:
             raise NotImplementedError(
-                "pair_parallel is not ported (multi-GPU, ROADMAP Queue 1 "
-                "item 8)")
-        if self.save_debug:
-            raise NotImplementedError(
-                "save_debug is not ported (utils/debug_dump.py)")
+                "pair_parallel is multi-GPU, not ported (ROADMAP Queue 1, "
+                "multi-GPU)")
 
 
 class DiffusionGS:
@@ -268,6 +263,10 @@ class DiffusionGS:
                                         cond.image_end, cond.masks,
                                         cond.lambda_ts, gen)
             frames = frames.to(device=self.device, dtype=torch.float32)
+            if cfg.save_debug:
+                dump_pair_debug(os.path.join(self.save_dir, "debug",
+                                             f"cyc{cycle}_pair{pi}"),
+                                cond, frames)
             if cfg.replace_endpoints:
                 frames = torch.cat([cond.image_start[None], frames[1:-1],
                                     cond.image_end[None]])

@@ -131,6 +131,15 @@ def project(pts: torch.Tensor, K: torch.Tensor,
     return torch.stack([u, v], dim=-1), z
 
 
+def covisibility_weight(cam_a: Camera, cam_b: Camera, alpha: float = 1.0,
+                        beta: float = 1.0) -> torch.Tensor:
+    """1 - exp(-a |dc|) exp(-b angle) of two cameras (camera-centre
+    distance and relative rotation angle; higher is further apart)."""
+    t = torch.linalg.norm(cam_a.position - cam_b.position)
+    ang = torch.deg2rad(se3.rotation_angle_deg(cam_a.R, cam_b.R))
+    return 1.0 - torch.exp(-alpha * t) * torch.exp(-beta * ang)
+
+
 def look_at_w2c(eye, target, up: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
     """w2c of a camera at ``eye`` looking at ``target`` (OpenCV: +z

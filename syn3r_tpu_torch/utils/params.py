@@ -1,13 +1,30 @@
-"""Reader of the flat .npz weight files the JAX package writes.
+"""The flat .npz weight files of both packages.
 
-``syn3r_tpu.utils.params.save_params`` stores a flax param tree as one npz
-keyed by '/'-joined paths. This reads it back as a nested dict of numpy
-arrays, the form ``models.convert.load_flax_params`` takes.
+A flax param tree is stored as one npz keyed by '/'-joined paths
+(``save_params``, as ``syn3r_tpu.utils.params.save_params`` writes it);
+``load_params`` reads it back as a nested dict of numpy arrays, the form
+``models.convert.load_flax_params`` takes.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def save_params(params: dict, path) -> None:
+    """A nested dict of arrays (optionally under "params") as one npz."""
+    flat = {}
+
+    def walk(node, prefix=""):
+        for k, v in node.items():
+            p = f"{prefix}/{k}" if prefix else k
+            if isinstance(v, dict):
+                walk(v, p)
+            else:
+                flat[p] = np.asarray(v)
+
+    walk(params.get("params", params))
+    np.savez(path, **flat)
 
 
 def load_params(path) -> dict:

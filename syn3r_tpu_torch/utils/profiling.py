@@ -1,17 +1,22 @@
-"""Per-phase wall-clock timing.
+"""Per-phase wall-clock timing, device traces and memory statistics.
 
-Counterpart of ``syn3r_tpu/utils/profiling.py`` ``PhaseTimer``: wall time
-per named pipeline phase (init_gs, densify, refine), summed over calls. A
-phase with ``sync=True`` waits for the card (``torch.cuda.synchronize``)
-before it stops the clock, so queued kernels are charged to it.
+Counterpart of ``syn3r_tpu/utils/profiling.py``: ``PhaseTimer`` sums the
+wall time per named pipeline phase (init_gs, densify, refine); a phase
+with ``sync=True`` waits for the card (``torch.cuda.synchronize``) before
+it stops the clock, so queued kernels are charged to it. ``trace`` (JAX's
+``xla_trace``) records a ``torch.profiler`` trace of its block and writes
+it as a Chrome trace under ``log_dir``; ``device_memory_stats`` gives the
+card's allocator statistics under JAX's keys, or None off a card.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import os
 import time
 from collections import defaultdict
+from typing import Optional
 
 import torch
 
@@ -42,3 +47,35 @@ class PhaseTimer:
 
     def report(self) -> str:
         return json.dumps(self.summary(), indent=2)
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Profile the block (host and, on a card, device activity) and write
+    ``trace_<pid>_<ns>.json`` (Chrome trace format) under ``log_dir``;
+    yields the path it will write."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+    with profile(activities=acts) as prof:
+        yield path
+    prof.export_chrome_trace(path)
+
+
+def device_memory_stats(device=None) -> Optional[dict]:
+    """The caching allocator's bytes in use and peak, and the card's
+    memory (JAX's ``bytes_in_use``, ``peak_bytes_in_use``, ``bytes_limit``)
+    of ``device`` (the current card by default); None without a card or
+    for a CPU device."""
+    if not torch.cuda.is_available():
+        return None
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type != "cuda":
+        return None
+    stats = torch.cuda.memory_stats(dev)
+    return {"bytes_in_use": stats.get("allocated_bytes.all.current", 0),
+            "peak_bytes_in_use": stats.get("allocated_bytes.all.peak", 0),
+            "bytes_limit": torch.cuda.mem_get_info(dev)[1]}

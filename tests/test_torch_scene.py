@@ -457,9 +457,7 @@ def test_cli_train_dtu_flags_on_cpu(scene_dir, tmp_path):
     assert CLI.svd_config(args)["variant"] == "post"
 
 
-@pytest.mark.parametrize("flags", [
-    ["--scene_parallel", "on"], ["--interp_type", "forward_warp"],
-    ["--save_debug"]])
+@pytest.mark.parametrize("flags", [["--scene_parallel", "on"]])
 def test_deferred_flags_raise(tmp_path, flags):
     """Each deferred flag raises before the scene is read."""
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -469,10 +467,8 @@ def test_deferred_flags_raise(tmp_path, flags):
 
 def test_deferred_options_raise(cloud, tmp_path):
     _, ttr, _ = _trainers(cloud, tmp_path)
-    for kw in (dict(pair_parallel=True), dict(save_debug=True),
-               dict(interp_type="forward_warp")):
-        with pytest.raises(NotImplementedError):
-            TO.DiffusionGSConfig(**kw)
+    with pytest.raises(NotImplementedError):
+        TO.DiffusionGSConfig(pair_parallel=True)
     runner = TO.DiffusionGS(ttr, TO.DiffusionGSConfig(),
                             save_dir=str(tmp_path / "d"))
     assert runner.densify_pcds(None, None, 0) is None

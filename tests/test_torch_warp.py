@@ -230,10 +230,12 @@ def test_prepare_pair_conditioning_matches_jax(scene):
         t_one, _t(K), poses, _t(img_l), _t(depth_l), _t(img_r),
         _t(depth_r), num_steps=20)
     assert torch.equal(seq.cond_images, got.cond_images)
-    with pytest.raises(NotImplementedError):
+    # the forward warp runs (tests/test_torch_forward_warp.py holds it to
+    # JAX); an unknown mode raises
+    with pytest.raises(ValueError):
         TC.prepare_pair_conditioning(t_one, _t(K), poses, _t(img_l),
                                      _t(depth_l), _t(img_r), _t(depth_r),
-                                     warp_mode="forward_warp")
+                                     warp_mode="splat")
 
 
 def test_perturb_and_select_poses_matches_jax(scene):
