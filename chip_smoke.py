@@ -189,15 +189,43 @@ Phases, one result line each; any failure raises and the exit code is not 0:
               scene cuts: the worker subprocess pinned by
               CUDA_VISIBLE_DEVICES exits 0, every checkpoint rendered,
               PSNR and SSIM of the summary finite.
+  12. parallel the parallel/ package at full width, on distinct cards
+              where torch sees two or more, else on a mesh that names
+              cuda:0 two or four times (printed; no speed-up is expected
+              or claimed there). The unit's networks rebuilt from its seed.
+              Direction sharding: the post unit, 2 steps, on a (1, 2)
+              topology against the sequential unit, in turns (sequential,
+              sharded, sharded, sequential): bit for bit on one card
+              (OPTIN_TOL across cards), launches exact. Pair waves: the
+              scene phase's build_runner + run with a (2, 2) (pair, dir)
+              topology: 3 pairs in 2 waves a cycle, one slot padded;
+              launches exactly 8 units' (2 cycles x 4 slots), 6 caches
+              (a padded slot writes none), the cycle-0 caches bit for bit
+              the scene phase's on one card. The TP and SP forwards: one
+              batch-3 UNet forward (25 x 72 x 128 latents, groups (1, 2))
+              2-way against the unsplit one (PAR_TOL), in turns, launches
+              exact (GEGLU and flash twice a forward's, at inner / 2 and
+              heads 3 + 2 (TP) or frames 13 + 12 (SP); the norms once (TP)
+              or a shard each, the temporal GroupNorm's stats plain (SP)).
+              GPipe: 4 stages of a level-1 BasicTransformerBlock (C 320, 5
+              heads, 9216 tokens), 4 microbatches of 3, against the
+              sequential tower (PAR_TOL). The DP GS step: the gs cell's
+              65,536 Gaussians at 504x378, 4 views over 2 replicas against
+              the one-replica step (DP_*), both composite kernels launched
+              once a view. Every new GEGLU (with its shard width), flash
+              and norm shape is then held against its plain version, as in
+              the optins phase. Times of each path in turns with its
+              one-card counterpart, peak memory per card.
 The JSON kernel table takes its launches from the scene phase (the two
 backward kernels', which only the guided option runs, from the guided
 phase), and its launches_by_phase from the unit, guided, gs, scene, dtu,
-dl3dv, lpips, optins, slice and mono phases.
+dl3dv, lpips, optins, slice, mono and parallel phases.
 The line before the last is the JSON kernel table, after it the
 nvidia-smi line, and the last line is {"ok": true, "device": {...}}.
 Details also go to chiprun_out/chip_smoke.json.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -222,19 +250,30 @@ from syn3r_tpu_torch.diffusion.pipeline import (GuidedSVDConfig,
                                                 init_random_weights_,
                                                 load_svd_completion)
 from syn3r_tpu_torch.gs import losses as gs_losses
+from syn3r_tpu_torch.gs.densify import DensifyStats
 from syn3r_tpu_torch.gs.scene import SceneData, load_colmap_scene
-from syn3r_tpu_torch.gs.trainer import GSTrainer, TrainConfig, make_viewset
+from syn3r_tpu_torch.gs.trainer import (AdamState, GSTrainer, TrainConfig,
+                                        TrainState, make_viewset,
+                                        position_lr, scene_extent)
 from syn3r_tpu_torch.kernels import build
 from syn3r_tpu_torch.models import gaussians as GM
 from syn3r_tpu_torch.models import layers as L
 from syn3r_tpu_torch.models.lpips import lpips_module
-from syn3r_tpu_torch.models.svd_unet import UNetSpatioTemporalConditionModel
+from syn3r_tpu_torch.models.svd_unet import (BasicTransformerBlock,
+                                             UNetSpatioTemporalConditionModel)
 from syn3r_tpu_torch.ops import attention as A
 from syn3r_tpu_torch.ops import composite as TC
 from syn3r_tpu_torch.ops import norm as N
 from syn3r_tpu_torch.ops import rasterize as RZ
 from syn3r_tpu_torch.ops.geglu_ffn import (geglu_ffn, geglu_ffn_reference,
                                           geglu_plan)
+from syn3r_tpu_torch.parallel import sequence_parallel as SPM
+from syn3r_tpu_torch.parallel.data_parallel import make_dp_gs_train_step
+from syn3r_tpu_torch.parallel.mesh import (make_mesh, make_scene_topology,
+                                           to_device)
+from syn3r_tpu_torch.parallel.pipeline_parallel import make_gpipe
+from syn3r_tpu_torch.parallel.sequence_parallel import make_sp_unet_forward
+from syn3r_tpu_torch.parallel.tensor_parallel import make_tp_unet_forward
 from syn3r_tpu_torch.pipeline import completion as TCP
 from syn3r_tpu_torch.pipeline.completion import search_hypers_v2
 from syn3r_tpu_torch.utils import colmap as CM
@@ -359,6 +398,10 @@ COMPOSITE_TOL = {"fwd": (1e-4, 1e-4), "bwd": (1e-3, 2e-3)}
 # rtol 1e-4.
 NORM_TOL = {torch.bfloat16: (1e-5, 2.0 ** -7), torch.float32: (1e-4, 1e-4)}
 AFFINE_TOL = (1e-5, 1e-4)
+# the GroupNorm sums launch (the frame-sharded GroupNorm's): |error| of a
+# per-(B, C) sum against a float64 sum, over the float64 sum of the terms'
+# magnitudes; float32 accumulation in chains of at most 512 terms
+SUMS_RTOL = 2.0 ** -15
 # the dtu phase: cli/batch.py's DTU preset with the scene phase's cuts, on
 # a synthetic scan written as COLMAP: 10 images of 1600x1200 (DTU's size),
 # loaded at --resolution 4 (400x300); llffhold 8 makes images 0 and 8 the
@@ -408,6 +451,27 @@ FLEET_IMAGES = 10
 # dtu phase's batch-2 rows, 50 x 9216) or batch entries (its B = 50) of a
 # shape; a larger shape is held on its first and its last such slice
 SLICE_ROWS, SLICE_B = 50 * 9216, 50
+# The parallel phase. One full-width batch-3 UNet forward split over 2
+# devices (tensor-parallel: the row-parallel partials rounded to bf16 and
+# added; sequence-parallel: the halo convolutions, the temporal
+# attention's dense path against the packed one, the temporal GroupNorm's
+# float32 sums in another order) and GPipe's 4 stages against the
+# unsplit forward / the sequential tower: last-bit differences of bf16
+# outputs (2^-9 relative) at every attention and FF output, which the
+# residual stream of ~50 blocks carries to the output: max-abs over max
+# |want| 1e-1, rel-RMS 5e-2. A wrong head, unit or frame split moves the
+# output by O(1). Direction sharding and pair waves on a mesh that repeats one card
+# run the sequential unit's own calls: bit for bit (OPTIN_TOL across
+# distinct cards, whose kernels may pick other algorithms).
+PAR_TOL = (1e-1, 5e-2)
+# GPipe: stages and microbatches (of 3 rows each)
+PAR_STAGES, PAR_MICRO = 4, 4
+# The DP GS step (4 views over 2 replicas) against the one-replica step:
+# float32, the views' gradients summed in another order. The loss within
+# 1e-5 relative; Adam moves a mean by at most its learning rate, whatever
+# the gradient's size, so a gradient at rounding level may flip a move:
+# every mean within 2 lr, and at most 1e-3 of them beyond 1e-5.
+DP_LOSS_RTOL, DP_MEANS_ATOL, DP_MEANS_FRACTION = 1e-5, 1e-5, 1e-3
 # the vision phase: DUSt3R ViT-L/512 and the public GMFlow (128 channels,
 # 6 layers) at full width with random float32 weights from seeds
 # (scripts/vision_weights.py), saved as the npz trees that the dl3dv
@@ -543,13 +607,17 @@ def sass_count(name, opcode):
     return sum(opcode in line for line in out.splitlines())
 
 
-def geglu_inputs(gen, dev, r, c):
-    """bf16 x (r, c) and Linear-layout weights of width c, from ``gen``."""
+def geglu_inputs(gen, dev, r, c, inner=None):
+    """bf16 x (r, c) and Linear-layout weights of width c and ``inner``
+    GEGLU units (4c; a tensor-parallel shard's fewer), from ``gen``."""
+    inner = 4 * c if inner is None else inner
+
     def rnd(*shape, std=1.0):
         return (torch.randn(shape, generator=gen, device=dev)
                 * std).to(torch.bfloat16)
-    return (rnd(r, c), rnd(8 * c, c, std=c ** -0.5), rnd(8 * c, std=0.1),
-            rnd(c, 4 * c, std=(4 * c) ** -0.5), rnd(c, std=0.1))
+    return (rnd(r, c), rnd(2 * inner, c, std=c ** -0.5),
+            rnd(2 * inner, std=0.1), rnd(c, inner, std=inner ** -0.5),
+            rnd(c, std=0.1))
 
 
 def check_geglu(gen, dev, smi):
@@ -2398,7 +2466,8 @@ def check_unet_kernels(shapes, dev, phase="dtu"):
         if name == "geglu_ffn":
             args = geglu_inputs(gen, dev, *shape)
             fn, plain = geglu_ffn, geglu_ffn_reference
-            extra = dict(plan=geglu_plan(*shape, sms))
+            extra = dict(plan=geglu_plan(shape[0], shape[1], sms,
+                                         *shape[2:]))
             n = SLICE_ROWS
         else:
             b, h, s, d = shape
@@ -2895,17 +2964,344 @@ def run_fleet(dev):
     return res
 
 
+def parallel_devices(n):
+    """``n`` mesh entries: the visible cards in turn (distinct where there
+    are n of them), or cuda:0 n times on one card."""
+    count = torch.cuda.device_count()
+    return [torch.device("cuda", i % count) for i in range(n)]
+
+
+def sync_all(devices):
+    for d in dict.fromkeys(devices):
+        torch.cuda.synchronize(d)
+
+
+def peak_gb(devices):
+    return {str(d): torch.cuda.max_memory_allocated(d) / 1e9
+            for d in dict.fromkeys(devices)}
+
+
+def reset_peaks(devices):
+    for d in dict.fromkeys(devices):
+        torch.cuda.reset_peak_memory_stats(d)
+
+
+def timed_run(fn, devices):
+    """(result, seconds, launches, peak GB by device) of one call of
+    ``fn``: the counts zeroed just before and read just after."""
+    sync_all(devices)
+    reset_peaks(devices)
+    zero_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    sync_all(devices)
+    return (out, time.perf_counter() - t0, launch_counts(),
+            peak_gb(devices))
+
+
+def in_turns(plain, path, devices, value=lambda out: out):
+    """plain, path, path, plain: ((outputs), seconds of each, launches and
+    peak memory of the path's first call, and whether each repeat gave
+    the same ``value`` of its output bit for bit)."""
+    a0, ta0, _, _ = timed_run(plain, devices)
+    b0, tb0, launches, peak = timed_run(path, devices)
+    b1, tb1, _, _ = timed_run(path, devices)
+    a1, ta1, _, _ = timed_run(plain, devices)
+    same = all(torch.equal(value(x), value(y))
+               for x, y in ((a0, a1), (b0, b1)))
+    return (a0, b0), dict(turns_s=[ta0, tb0, tb1, ta1], plain_s=[ta0, ta1],
+                          path_s=[tb0, tb1], repeat_bit_equal=same,
+                          launches=launches, peak_mem_gb=peak)
+
+
+def want_launches(**kw):
+    out = {k: 0 for k in launch_counts()}
+    out.update(kw)
+    return out
+
+
+def check_launches(name, got, want):
+    if got != want:
+        raise AssertionError(f"parallel {name}: launches {got}, expected "
+                             f"{want}")
+
+
+def temporal_gn_recorder(census, where):
+    """Records, while installed, each frame shard's temporal GroupNorm
+    (``sequence_parallel._gn_sharded``: the sums launch and the apply
+    kernel on each shard) in ``census`` under ``where``, keyed as
+    NormCensus keys its calls but of kind "gn_sums"."""
+    orig = SPM._gn_sharded
+
+    def rec(norms, xs):
+        gn = norms[0]
+        for x in xs:
+            c = x.shape[-1]
+            key = ("gn_sums", where,
+                   (x.shape[0], x.numel() // (x.shape[0] * c), c), x.dtype,
+                   gn.silu, gn.num_groups, gn.eps, gn.weight.dtype)
+            census.calls[key] = census.calls.get(key, 0) + 1
+        return orig(norms, xs)
+    SPM._gn_sharded = rec
+    return lambda: setattr(SPM, "_gn_sharded", orig)
+
+
+def run_parallel(dev, unit, scene_total_s, known_shapes, known_norms):
+    """The parallel/ package on the card, at full width: direction
+    sharding, pair waves, the TP and SP forwards, the DP GS step, GPipe
+    (see the module docstring). Returns the record, the new norm calls
+    and the new GEGLU/flash shapes (to be held against their plain
+    versions)."""
+    distinct = torch.cuda.device_count() >= 2
+    devs2, devs4 = parallel_devices(2), parallel_devices(4)
+    say("parallel", mesh="distinct cards" if distinct else
+        "cuda:0 repeated (one card)", devices2=[str(d) for d in devs2],
+        devices4=[str(d) for d in devs4])
+    pipe = load_svd_completion(None, dev, seed=0, num_inference_steps=STEPS)
+    per = {k: unit["launches"][k] // unit["forwards"]
+           for k in ("geglu_ffn", "flash_attention")}
+    n_gn, n_ln = unit["unet_norms_per_forward"]
+    tol = OPTIN_TOL if distinct else None     # None: bit for bit
+    res = {"mesh": "distinct" if distinct else "repeated cuda:0"}
+
+    def held(name, got, want):
+        if tol is None:
+            if not torch.equal(got, want):
+                raise AssertionError(f"parallel {name}: not bit for bit "
+                                     f"{errors(got, want)}")
+            return dict(bit_equal=True)
+        e = check_rel(f"parallel {name}", got, want, tol)
+        return dict(max_abs=e[0], rel_rms=e[1], max_abs_rel=e[2])
+
+    # -- direction sharding: the post unit on a (1, 2) topology --------
+    _, dir2 = make_scene_topology(devs2)
+    pipe_dir = GuidedSVDPipeline(pipe.m, dataclasses.replace(
+        pipe.cfg, direction_sharding=dir2))
+    args, _ = optin_inputs(pipe)
+    (seq, sharded), rec = in_turns(lambda: pipe.denoise(*args),
+                                   lambda: pipe_dir.denoise(*args), devs2)
+    n = 2 * STEPS
+    check_launches("direction", rec["launches"], want_launches(
+        geglu_ffn=per["geglu_ffn"] * n,
+        flash_attention=per["flash_attention"] * n, gn_stats=n_gn * n,
+        gn_apply=n_gn * n, layer_norm=n_ln * n))
+    rec["held_to_sequential"] = held("direction", sharded, seq)
+    res["direction"] = rec
+    say("parallel", path="direction_sharding", **rec)
+    del args, seq, sharded, pipe_dir
+
+    # -- pair waves: the scene phase's run, 2 waves a cycle -----------
+    pair4, dir4 = make_scene_topology(devs4)
+    pipe_pairs = GuidedSVDPipeline(pipe.m, dataclasses.replace(
+        pipe.cfg, direction_sharding=dir4))
+    out = os.path.join(BUILD_OUT, "parallel_scene")
+    shutil.rmtree(out, ignore_errors=True)
+    pargs = cli_train.build_parser().parse_args(
+        ["-s", "(in memory)", "-m", out] + SCENE_FLAGS)
+    runner = cli_train.build_runner(pargs, scene_data(dev),
+                                    completion_fn=pipe_pairs,
+                                    topology=(pair4, dir4))
+    if not (runner.cfg.pair_parallel and pair4.shards == 2):
+        raise AssertionError("parallel: the runner has no 2-slot pair axis")
+    _, total_s, launches, peak = timed_run(
+        lambda: runner.run(log_every=0), devs4)
+    slots = SCENE_CYCLES * 2 * pair4.shards       # 3 pairs + 1 padded
+    steps = GS_ITERS * (1 + SCENE_CYCLES)
+    want = {k: slots * unit["launches"][k] for k in UNIT_KERNELS}
+    if (any(launches[k] != v for k, v in want.items())
+            or launches["composite_bwd"] != steps
+            or launches["composite_fwd"] <= steps):
+        raise AssertionError(f"parallel pairs: launches {launches}, "
+                             f"expected {want}")
+    caches = sorted(os.listdir(runner.save_dir))
+    want_caches = sorted(f"interpolated_dense_views_cyc{c}_view{p}.npz"
+                         for c in range(SCENE_CYCLES)
+                         for p in range(SCENE_PAIRS))
+    if caches != want_caches:
+        raise AssertionError(f"parallel pairs: caches {caches} (a padded "
+                             f"slot wrote one?)")
+    pair_held = {}
+    for p in range(SCENE_PAIRS):
+        name = f"interpolated_dense_views_cyc0_view{p}.npz"
+        with np.load(os.path.join(runner.save_dir, name)) as got, \
+                np.load(os.path.join(BUILD_OUT, "scene", "dense_views",
+                                     name)) as want_:
+            pair_held[p] = held(f"pairs cycle-0 pair {p}",
+                                torch.from_numpy(got["frames"]),
+                                torch.from_numpy(want_["frames"]))
+            if not np.array_equal(got["poses"], want_["poses"]):
+                raise AssertionError(f"parallel pairs: pair {p} poses")
+    res["pairs"] = dict(
+        total_s=total_s, scene_phase_total_s=scene_total_s,
+        phases_s={k: v["total_s"] for k, v in
+                  runner.timer.summary().items()},
+        waves_per_cycle=2, slots_per_cycle=2 * pair4.shards,
+        caches=len(caches), held_to_scene_phase=pair_held,
+        launches=launches, peak_mem_gb=peak)
+    say("parallel", path="pair_waves", **res["pairs"])
+    del runner, pipe_pairs
+
+    # -- TP and SP forwards: one full-width batch-3 UNet forward ------
+    g = torch.Generator(device=dev).manual_seed(11)
+    sample = torch.randn((3, FRAMES, HEIGHT // 8, WIDTH // 8, 8),
+                         generator=g, device=dev).to(torch.bfloat16)
+    ehs = torch.randn((3, 1, 1024), generator=g,
+                      device=dev).to(torch.bfloat16)
+    t = pipe.schedule.timesteps[0]
+    tids = pipe._added_time_ids(3)
+    unet = pipe.m.unet
+    census = NormCensus()
+    census.watch(unet, "unet_parallel")
+    fwd_args = (sample, t, ehs, tids, (1, 2))
+    with KernelShapes() as shapes, torch.no_grad():
+        whole = unet(*fwd_args)
+        known = set(known_shapes) | set(shapes.calls)
+        known_n = set(known_norms) | {(k[0],) + k[2:] for k in census.calls}
+        tp_run, params_tp = make_tp_unet_forward(
+            make_mesh(axis_name="model", devices=devs2), unet)
+        sp_run = make_sp_unet_forward(
+            make_mesh(axis_name="seq", devices=devs2), unet)
+        for r in sp_run.replicas[1:]:
+            if r is not unet:
+                census.watch(r, "unet_parallel")
+        undo = temporal_gn_recorder(census, "unet_sp_temporal")
+        try:
+            for name, run in (("tp", tp_run), ("sp", sp_run)):
+                (ref, got), rec = in_turns(lambda: unet(*fwd_args),
+                                           lambda: run(*fwd_args), devs2)
+                if name == "tp":
+                    want = want_launches(
+                        geglu_ffn=2 * per["geglu_ffn"],
+                        flash_attention=2 * per["flash_attention"],
+                        gn_stats=n_gn, gn_apply=n_gn, layer_norm=n_ln)
+                else:
+                    # a temporal GroupNorm: one sums launch a shard
+                    want = want_launches(
+                        geglu_ffn=2 * per["geglu_ffn"],
+                        flash_attention=2 * per["flash_attention"],
+                        gn_stats=2 * n_gn, gn_apply=2 * n_gn,
+                        layer_norm=2 * n_ln)
+                check_launches(name, rec["launches"], want)
+                e = check_rel(f"parallel {name}", got, whole, PAR_TOL)
+                rec["held_to_unsharded"] = dict(
+                    max_abs=e[0], rel_rms=e[1], max_abs_rel=e[2])
+                res[name] = rec
+                say("parallel", path=f"{name}_forward", **rec)
+                del ref, got
+        finally:
+            undo()
+        half = {k: v for k, v in params_tp.items()
+                if isinstance(v, list)}
+        res["tp"]["split_weights"] = len(half)
+        res["tp"]["shard_rows_to_q_level1"] = [
+            t.shape[0] for t in params_tp[
+                "down_blocks.0.attentions.0.transformer_blocks.0.attn1."
+                "to_q.weight"]]
+        del tp_run, sp_run, params_tp, half, whole
+
+        # -- GPipe: 4 stages of a level-1 BasicTransformerBlock -------
+        gen = torch.Generator(device=dev).manual_seed(12)
+        blocks = [init_random_weights_(BasicTransformerBlock(
+            320, 5, 64, 1024).to(dev), gen).to(torch.bfloat16).eval()
+            for _ in range(PAR_STAGES)]
+        census.watch(torch.nn.ModuleList(blocks), "gpipe")
+        x = torch.randn((3 * PAR_MICRO, (HEIGHT // 8) * (WIDTH // 8), 320),
+                        generator=gen, device=dev).to(torch.bfloat16)
+        # one CLIP context for every row (its one token broadcasts)
+        ctx = torch.randn((1, 1, 1024), generator=gen,
+                          device=dev).to(torch.bfloat16)
+        mesh4 = make_mesh(axis_name="stage", devices=devs4)
+        run = make_gpipe(mesh4, lambda b, xin: b(
+            xin, to_device(ctx, xin.device)), PAR_STAGES)
+
+        def sequential():
+            y = x
+            for b in blocks:
+                y = b(y, ctx)
+            return y
+        (ref, got), rec = in_turns(sequential,
+                                   lambda: run(blocks, x, PAR_MICRO), devs4)
+        calls = PAR_STAGES * PAR_MICRO
+        flash = A.takes_flash(x.shape[1], x.shape[1], 64)  # 9216 tokens
+        check_launches("gpipe", rec["launches"], want_launches(
+            geglu_ffn=calls, flash_attention=calls * flash,
+            layer_norm=3 * calls))
+        e = check_rel("parallel gpipe", got, ref, PAR_TOL)
+        rec["held_to_sequential"] = dict(max_abs=e[0], rel_rms=e[1],
+                                         max_abs_rel=e[2])
+        # x on the host: the stages on the cards, the output gathered
+        # onto the host and read at once
+        host = run(blocks, x.cpu(), PAR_MICRO)
+        if host.device.type != "cpu" or not torch.equal(host, got.cpu()):
+            raise AssertionError("parallel gpipe: the gather onto the host "
+                                 f"differs {errors(host, got.cpu())}")
+        rec["host_gather_bit_equal"] = True
+        del host
+        res["gpipe"] = rec
+        say("parallel", path="gpipe", **rec)
+        del blocks, x, ref, got
+    census.close()
+    new_shapes = {k: c for k, c in shapes.calls.items() if k not in known}
+    new_norms = {k: c for k, c in census.calls.items()
+                 if (k[0],) + k[2:] not in known_n}
+    del pipe, sample, ehs, unet
+    torch.cuda.empty_cache()
+
+    # -- DP GS step: 4 views over 2 replicas --------------------------
+    state, gt, cam = gs_truth(dev)
+    cams = [camera_from_fov(0.9, 0.7, cam.width, cam.height,
+                            look_at_w2c([x_, 0.0, 0.0], [0.0, 0.0, 2.5]),
+                            device=dev) for x_ in (-0.3, -0.1, 0.1, 0.3)]
+    with torch.no_grad():
+        targets = torch.stack([RZ.render(gt, c, method="kernel",
+                                         tile_cap=GS_CAP).rgb for c in cams])
+    cfg = TrainConfig(tile_cap=GS_CAP)
+    ts = TrainState(gaussians=state,
+                    adam=AdamState.init(GM.get_params(state)),
+                    stats=DensifyStats.zeros(state.capacity, dev), step=0)
+    cams_st = stack_cameras(cams)
+    extent = max(scene_extent(cams_st), 1e-6)
+    step, prepare = make_dp_gs_train_step(
+        make_mesh(axis_name="data", devices=devs2), cfg, extent)
+    placed = prepare(ts, cams_st, targets)
+    (one, dp), rec = in_turns(
+        lambda: step(ts, cams_st, targets), lambda: step(*placed), devs2,
+        value=lambda out: (out[0] if isinstance(out[0], TrainState)
+                           else out[0][0]).gaussians.means)
+    check_launches("dp_gs", rec["launches"], want_launches(
+        composite_fwd=len(cams), composite_bwd=len(cams)))
+    lr = position_lr(cfg, extent, 0)
+    loss_rel = abs(float(dp[1]) - float(one[1])) / abs(float(one[1]))
+    d = (dp[0][0].gaussians.means - one[0].gaussians.means).abs()
+    beyond = float((d > DP_MEANS_ATOL).float().mean())
+    if not (loss_rel <= DP_LOSS_RTOL and float(d.max()) <= 2 * lr
+            and beyond <= DP_MEANS_FRACTION):
+        raise AssertionError(
+            f"parallel dp_gs: loss rel {loss_rel}, means max {d.max()} "
+            f"(2 lr {2 * lr}), share beyond {DP_MEANS_ATOL}: {beyond}")
+    rec.update(loss=float(dp[1]), loss_one_replica=float(one[1]),
+               loss_rel=loss_rel, means_max_abs=float(d.max()),
+               means_share_beyond_atol=beyond, lr_means=lr,
+               views=len(cams), replicas=2)
+    res["dp_gs"] = rec
+    say("parallel", path="dp_gs_step", **rec)
+    return res, new_norms, new_shapes
+
+
 class ShapeRecorder:
     """A kernel wrapper that counts its calls by the shape of the first
-    argument in ``calls`` and passes each on; ``launches`` is the
-    wrapper's own count (the wrapper adds to it under its module-level
-    name, which the recorder takes while active)."""
+    argument in ``calls`` (a GEGLU call of a tensor-parallel shard adds its
+    inner width) and passes each on; ``launches`` is the wrapper's own
+    count (the wrapper adds to it under its module-level name, which the
+    recorder takes while active)."""
 
     def __init__(self, name, fn, calls):
         self.name, self.fn, self.calls = name, fn, calls
 
     def __call__(self, x, *args):
         key = (self.name, tuple(x.shape))
+        if self.name == "geglu_ffn" and args[2].shape[1] != 4 * x.shape[1]:
+            key = (self.name, tuple(x.shape) + (args[2].shape[1],))
         self.calls[key] = self.calls.get(key, 0) + 1
         return self.fn(x, *args)
 
@@ -2923,7 +3319,8 @@ class KernelShapes:
     kernel sees: the names the callers look up (``L.geglu_ffn``, which
     FeedForward calls, and ``A.flash_attention``, which ``A.attention``
     calls) are bound to ShapeRecorders. ``calls``: {(name, shape): calls},
-    shape (rows, C) for GEGLU and (B, H, S, D) for flash."""
+    shape (rows, C) for GEGLU ((rows, C, inner) for a tensor-parallel
+    shard's) and (B, H, S, D) for flash."""
 
     def __init__(self):
         self.calls = {}
@@ -3014,7 +3411,9 @@ def check_norm_row(key, calls, gen, dev):
                dtype=str(dtype).replace("torch.", ""),
                weight_dtype=str(w.dtype).replace("torch.", ""), silu=silu,
                groups=groups, calls=calls)
-    if kind == "group_norm":
+    if kind == "gn_sums":
+        row.update(check_gn_sums(x, w, b, groups, eps, silu, iters))
+    elif kind == "group_norm":
         a, bb = N.group_norm_stats(x, w, b, groups, eps)
         a2, bb2 = N.group_norm_stats(x, w, b, groups, eps)
         torch.cuda.synchronize()
@@ -3092,6 +3491,54 @@ def check_norm_row(key, calls, gen, dev):
     return row
 
 
+def check_gn_sums(x, w, b, groups, eps, silu, iters):
+    """A frame shard's temporal GroupNorm at its shape: the sums launch
+    against float64 sums (SUMS_RTOL; two launches equal bit for bit, the
+    arrival counters left at zero) and the apply kernel against its plain
+    version, with their times."""
+    s = N.group_norm_sums(x)
+    s2 = N.group_norm_sums(x)
+    torch.cuda.synchronize()
+    left = int(N._gn_buffers(x.device, 0, x.shape[0])[1].abs().sum())
+    if not torch.equal(s, s2) or left:
+        raise AssertionError(f"gn_sums at {tuple(x.shape)}: repeat equal "
+                             f"{torch.equal(s, s2)}, counters left {left}")
+    xd = x.double()
+    want = torch.stack([xd.sum(dim=1), (xd * xd).sum(dim=1)])
+    scale = torch.stack([xd.abs().sum(dim=1), (xd * xd).sum(dim=1)])
+    d = (s.double() - want).abs()
+    rel = float((d / scale.clamp_min(1e-30)).max())
+    if not rel <= SUMS_RTOL:
+        raise AssertionError(f"gn_sums at {tuple(x.shape)}: error {rel} of "
+                             f"the terms' magnitude > {SUMS_RTOL}")
+    del s2, xd, want, scale
+    a_ref, bb_ref = N.group_norm_affine_from_sums(s, x.shape[1], w, b,
+                                                  groups, eps)
+    y = N.group_norm_apply(x, a_ref, bb_ref, silu)
+    y_ref = N.group_norm_apply_reference(x, a_ref, bb_ref, silu)
+    e_y = check_close("gn_apply", y.float(), y_ref.float(),
+                      *NORM_TOL[x.dtype])
+    del y, y_ref
+    torch.cuda.synchronize()
+    numel, isz = x.numel(), x.element_size()
+    st_bound = bound_ms(NORM_OPS["stats"] * numel, numel * isz,
+                        PEAK_F32_FLOPS)
+    ap_bound = bound_ms(NORM_OPS["apply_silu" if silu else "apply"] * numel,
+                        2 * numel * isz, PEAK_F32_FLOPS)
+    return dict(
+        sums=dict(max_abs_err=float(d.max()), max_rel_err=rel,
+                  ms=cuda_ms(lambda: N.group_norm_sums(x), iters),
+                  plain_ms=cuda_ms(lambda: N.group_norm_sums_reference(x),
+                                   2),
+                  bound_ms=st_bound[0], bound_by=st_bound[1]),
+        apply=dict(max_abs_err=e_y[0], rel_rms_err=e_y[1],
+                   ms=cuda_ms(lambda: N.group_norm_apply(
+                       x, a_ref, bb_ref, silu), iters),
+                   plain_ms=cuda_ms(lambda: N.group_norm_apply_reference(
+                       x, a_ref, bb_ref, silu), 2),
+                   bound_ms=ap_bound[0], bound_by=ap_bound[1]))
+
+
 def check_norms(census, dev):
     """Every GroupNorm and LayerNorm shape of the census against the plain
     versions, as check_norm_row does."""
@@ -3110,7 +3557,8 @@ def norm_entries(rows, per_forward, launches):
             ("gn_apply", "group_norm", "apply", 106),
             ("layer_norm", "layer_norm", "layer_norm", 179)):
         unet = [r for r in rows if r["kind"] == kind and r["where"] == "unet"]
-        mine = [r for r in rows if r["kind"] == kind]
+        mine = [r for r in rows if r["kind"] == kind
+                or (part == "apply" and r["kind"] == "gn_sums")]
 
         def tot(key, rs=unet, part=part):
             return sum(r[part][key] * r["calls"] / per_forward for r in rs)
@@ -3128,6 +3576,11 @@ def norm_entries(rows, per_forward, launches):
             "per": "one batch-3 UNet forward "
                    f"({int(sum(r['calls'] for r in unet) / per_forward)} "
                    "calls)"}
+        if name == "gn_stats":
+            # the sums launch at the frame shards' shapes (parallel phase)
+            sums = [r["sums"] for r in rows if r["kind"] == "gn_sums"]
+            entry["sums_max_rel_err"] = max(
+                (r["max_rel_err"] for r in sums), default=None)
         if kind == "group_norm":
             # F.group_norm computes the whole GroupNorm (stats and apply):
             # a yardstick for the pair of kernels, not for either alone
@@ -3216,6 +3669,16 @@ def main():
     lpips = run_lpips(dev)
     mono = run_mono(dev)
     fleet = run_fleet(dev)
+    parallel, par_norms, par_shapes = run_parallel(
+        dev, unit, scene["total_s"], set(dtu_shapes) | set(optin_shapes),
+        known_norms | {(k[0],) + k[2:] for k in optin_norms})
+    par_norm_rows = check_norms(par_norms, dev)
+    par_kernel_rows = check_unet_kernels(par_shapes, dev, "parallel")
+    par_launches = {}
+    for rec in parallel.values():
+        if isinstance(rec, dict) and "launches" in rec:
+            for k, v in rec["launches"].items():
+                par_launches[k] = par_launches.get(k, 0) + v
     by_phase = {"unit": unit["launches"],
                 "guided": guided["unit"]["launches"],
                 "gs": {f"composite_{k}": v for k, v in gs["launches"].items()},
@@ -3226,7 +3689,8 @@ def main():
                 "optins": optins["launches_all"],
                 "slice": slice_run["launches"],
                 "mono": {f"composite_{k}": v
-                         for k, v in mono["launches"].items()}}
+                         for k, v in mono["launches"].items()},
+                "parallel": par_launches}
 
     kernels = [
         kernel_entry("geglu_ffn", "syn3r_tpu_torch/csrc/geglu_ffn.cu",
@@ -3254,11 +3718,13 @@ def main():
     # shapes too
     for k in kernels[:2]:
         k["max_abs_err"] = max([k["max_abs_err"]] + [
-            r["max_abs_err"] for r in dtu_kernel_rows + optin_kernel_rows
+            r["max_abs_err"]
+            for r in dtu_kernel_rows + optin_kernel_rows + par_kernel_rows
             if r["name"] == k["name"]])
     kernels += bwd_entries(guided, guided["unit"]["launches"])
-    kernels += norm_entries(norm_rows + dtu_norm_rows + optin_norm_rows,
-                            unit["forwards"], scene["launches"])
+    kernels += norm_entries(norm_rows + dtu_norm_rows + optin_norm_rows
+                            + par_norm_rows, unit["forwards"],
+                            scene["launches"])
     for k in kernels:
         k["launches_by_phase"] = {p: c.get(k["name"], 0)
                                   for p, c in by_phase.items()}
@@ -3277,6 +3743,8 @@ def main():
                    "optins": optins, "optin_norms": optin_norm_rows,
                    "optin_kernels": optin_kernel_rows, "slice": slice_run,
                    "lpips": lpips, "mono": mono, "fleet": fleet,
+                   "parallel": parallel, "parallel_norms": par_norm_rows,
+                   "parallel_kernels": par_kernel_rows,
                    "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)

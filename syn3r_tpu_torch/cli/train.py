@@ -24,8 +24,13 @@ first denoise raises ``ValueError`` (JAX's raises one too, from a shape
 mismatch inside its jitted loop). ``--interp_type forward_warp`` builds
 the splat conditioning, ``--save_debug`` writes each pair's debug images
 under ``<model_path>/dense_views/debug/``, ``--guidance_reuse_cfg_uncond 1``
-configures the ``--svd_weights`` completion. Not ported, raising
-``NotImplementedError``: ``--scene_parallel on`` (multi-GPU).
+configures the ``--svd_weights`` completion. ``--scene_parallel`` is
+JAX's: ``auto`` (the default) engages when more than one card is visible
+and prints the (pair, dir) mesh of ``parallel.mesh.make_scene_topology``
+(the pairs complete in waves over the pair axis, each direction on its own
+card), ``on`` requires two cards, ``off`` runs the pairs one after
+another. A fleet worker of ``cli/batch.py`` sees one card
+(``CUDA_VISIBLE_DEVICES``), so ``auto`` is off in it.
 """
 
 from __future__ import annotations
@@ -107,18 +112,32 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save_debug", action="store_true")
     p.add_argument("--scene_parallel", default="auto",
                    choices=["auto", "off", "on"],
-                   help="auto and off run the pairs one after another on "
-                        "one card; on (multi-GPU) is not ported")
+                   help="within-scene multi-card placement: every (view "
+                        "pair, direction) completion of a wave on its own "
+                        "card of a (pair, dir) mesh. auto = engage when >1 "
+                        "card is visible; on = require it; off = one pair "
+                        "after another")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log_every", type=int, default=1000)
     return p
 
 
-def _check_ported(args):
-    """Raise NotImplementedError for a flag whose path is not ported."""
-    if args.scene_parallel == "on":
-        raise NotImplementedError("--scene_parallel on (multi-GPU) is not "
-                                  "ported to syn3r_tpu_torch")
+def scene_topology(args, dev):
+    """(pair placement, dir placement) of ``--scene_parallel`` on the
+    visible cards (none for ``--device cpu``), or (None, None); ``on``
+    without two cards exits, as JAX's does."""
+    from ..parallel.mesh import make_scene_topology
+    if args.scene_parallel == "off":
+        return None, None
+    pair_sh, dir_sh = make_scene_topology(None if dev.type == "cuda"
+                                          else [dev])
+    if pair_sh is not None:
+        print(f"[scene_parallel] (pair, dir) mesh "
+              f"{pair_sh.mesh.devices.shape} over "
+              f"{pair_sh.mesh.devices.size} devices")
+    elif args.scene_parallel == "on":
+        raise SystemExit("--scene_parallel on requires >= 2 devices")
+    return pair_sh, dir_sh
 
 
 def svd_config(args) -> dict:
@@ -132,10 +151,12 @@ def svd_config(args) -> dict:
         guidance_reuse_cfg_uncond=bool(args.guidance_reuse_cfg_uncond))
 
 
-def build_runner(args, scene, completion_fn=None):
+def build_runner(args, scene, completion_fn=None, topology=None):
     """The ``DiffusionGS`` of ``args`` on ``scene`` (a ``SceneData``): the
     trainer on ``args.device``, the completion from ``args.svd_weights``
-    unless ``completion_fn`` is given, the warp-only one otherwise."""
+    unless ``completion_fn`` is given, the warp-only one otherwise.
+    ``topology`` (pair placement, dir placement) replaces the one
+    ``--scene_parallel`` finds on the visible cards."""
     import torch
 
     from ..device import resolve_device
@@ -144,8 +165,9 @@ def build_runner(args, scene, completion_fn=None):
     from ..pipeline.orchestrator import DiffusionGS, DiffusionGSConfig
     from ..utils.params import load_params
 
-    _check_ported(args)
     dev = resolve_device(args.device)
+    pair_sh, dir_sh = (scene_topology(args, dev) if topology is None
+                       else topology)
     views = make_viewset(scene.train_cameras, scene.train_images)
     test_views = (make_viewset(scene.test_cameras, scene.test_images)
                   if len(scene.test_cameras) else None)
@@ -173,6 +195,7 @@ def build_runner(args, scene, completion_fn=None):
         from ..diffusion.pipeline import load_svd_completion
         completion_fn = load_svd_completion(args.svd_weights, dev,
                                             seed=args.seed,
+                                            direction_sharding=dir_sh,
                                             **svd_config(args))
     dcfg = DiffusionGSConfig(
         diffusion_width=args.diffusion_width,
@@ -190,6 +213,8 @@ def build_runner(args, scene, completion_fn=None):
         fps_keyframe_sampling=bool(args.fps_keyframe_sampling),
         reorg_train_views=bool(args.reorg_train_views),
         save_debug=args.save_debug,
+        pair_parallel=pair_sh is not None,
+        pair_sharding=pair_sh,
         seed=args.seed)
     dust3r_fn = flow_fn = None
     if args.dust3r_weights:
@@ -208,7 +233,6 @@ def main(argv=None):
     from ..gs.scene import load_colmap_scene
 
     args = build_parser().parse_args(argv)
-    _check_ported(args)
     scene = load_colmap_scene(args.source_path, images_dir=args.images,
                               resolution=args.resolution,
                               n_views=args.n_views, llffhold=args.llffhold,

@@ -354,13 +354,9 @@ extern "C" int syn3r_flash_attention(const void* q, const void* k,
     if (err != cudaSuccess) return (int)err;
     s_dims[i] = sd;
   }
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    if (err != cudaSuccess) return (int)err;
-    attr_set = true;
-  }
+  static unsigned long long attr_set = 0;  // a bit per device
+  cudaError_t err = allow_smem_per_device(flash_wgmma_kernel, SMEM, attr_set);
+  if (err != cudaSuccess) return (int)err;
   flash_wgmma_kernel<<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
       maps[0], maps[1], maps[2], s_dims[0], s_dims[1], s_dims[2],
       static_cast<bf16*>(o), lse, H, S, B * H, osb, osh, oss,

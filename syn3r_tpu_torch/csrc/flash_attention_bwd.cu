@@ -595,15 +595,6 @@ bool bad_args(int B, int H, int S, int ld, int grid) {
          (long long)B * H * ((S + BS - 1) / BS) >= (1ll << 31);
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes, bool& done) {
-  if (done) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) done = true;
-  return err;
-}
-
 Out out_of(void* p, const long long* s) {
   return Out{static_cast<bf16*>(p), s[0], s[1], s[2]};
 }
@@ -632,9 +623,9 @@ extern "C" int syn3r_flash_bwd_dkv(const void* q, const void* k, const void* v,
     err = make_map_f32_rows(&maps[4], lse, S, (uint64_t)B * H, ld, BS);
   if (err == cudaSuccess)
     err = make_map_f32_rows(&maps[5], delta, S, (uint64_t)B * H, ld, BS);
-  static bool attr_set = false;
+  static unsigned long long attr_set = 0;  // a bit per device
   if (err == cudaSuccess)
-    err = allow_smem(flash_bwd_dkv_kernel, DKV_SMEM, attr_set);
+    err = allow_smem_per_device(flash_bwd_dkv_kernel, DKV_SMEM, attr_set);
   if (err != cudaSuccess) return (int)err;
   flash_bwd_dkv_kernel<<<grid, THREADS, DKV_SMEM,
                          static_cast<cudaStream_t>(stream)>>>(
@@ -662,9 +653,9 @@ extern "C" int syn3r_flash_bwd_dq(const void* q, const void* k, const void* v,
   const void* bases[5] = {q, k, v, dout, out};
   const int rows[5] = {BR, BS, BS, BR, BR};
   cudaError_t err = read_maps(maps, s_dims, bases, geom, rows, 5);
-  static bool attr_set = false;
+  static unsigned long long attr_set = 0;  // a bit per device
   if (err == cudaSuccess)
-    err = allow_smem(flash_bwd_dq_kernel, DQ_SMEM, attr_set);
+    err = allow_smem_per_device(flash_bwd_dq_kernel, DQ_SMEM, attr_set);
   if (err != cudaSuccess) return (int)err;
   flash_bwd_dq_kernel<<<grid, THREADS, DQ_SMEM,
                         static_cast<cudaStream_t>(stream)>>>(

@@ -42,7 +42,10 @@
 // split-K: deterministic.
 //
 // Weights use torch's Linear layout: W1 (8C, C), W2 (C, 4C), row-major, so
-// every operand is K-major and no transpose is needed.
+// every operand is K-major and no transpose is needed. A tensor-parallel
+// shard of the FF (parallel/tensor_parallel.py) passes its own inner width:
+// W1 (2 inner, C) (its value rows, then its gate rows), W2 (C, inner); a
+// ragged last tile of either GEMM is masked as a ragged row tile is.
 
 #include "hopper_common.cuh"
 
@@ -270,14 +273,10 @@ template <bool GEGLU, int BN>
 cudaError_t launch_gemm(const CUtensorMap& tm_a, const CUtensorMap& tm_b,
                         const bf16* bias, bf16* out, int M, int N, int K,
                         int grid, cudaStream_t stream) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        ffn_wgmma_kernel<GEGLU, BN>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<BN>::SMEM);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
+  static unsigned long long attr_set = 0;  // a bit per device
+  cudaError_t err = allow_smem_per_device(ffn_wgmma_kernel<GEGLU, BN>,
+                                          Cfg<BN>::SMEM, attr_set);
+  if (err != cudaSuccess) return err;
   ffn_wgmma_kernel<GEGLU, BN><<<grid, THREADS, Cfg<BN>::SMEM, stream>>>(
       tm_a, tm_b, bias, out, M, N, K);
   return cudaGetLastError();
@@ -294,36 +293,43 @@ cudaError_t map_2d(CUtensorMap* map, const void* base, uint64_t rows,
 
 }  // namespace
 
-// x (rows, c), w1 (8c, c), b1 (8c), w2 (c, 4c), b2 (c), all bf16,
-// contiguous and 16-byte aligned; h (rows, 4c) is scratch for the gated
-// product, y (rows, c) the output. bn2 is GEMM-2's N tile (128 or 160),
-// grid1 and grid2 the persistent grids of the two GEMMs (see
-// ops/geglu_ffn.py geglu_plan). Returns a cudaError_t (0 on success).
+// x (rows, c), w1 (2 inner, c), b1 (2 inner), w2 (c, inner), b2 (c), all
+// bf16, contiguous and 16-byte aligned; h (rows, inner) is scratch for the
+// gated product, y (rows, c) the output. inner is 4c for a whole FF and
+// less for a tensor-parallel shard of its GEGLU units (w1's value rows then
+// its gate rows, w2's matching columns); c and inner are multiples of 8
+// (16-byte rows for TMA). bn2 is GEMM-2's N tile (128 or 160), grid1 and
+// grid2 the persistent grids of the two GEMMs (see ops/geglu_ffn.py
+// geglu_plan). Returns a cudaError_t (0 on success).
 extern "C" int syn3r_geglu_ffn(const void* x, const void* w1, const void* b1,
                                const void* w2, const void* b2, void* h,
-                               void* y, long long rows, int c, int bn2,
-                               int grid1, int grid2, void* stream) {
-  if (c <= 0 || c % 8 != 0 || rows <= 0 || rows >= (1ll << 31) ||
-      (bn2 != 128 && bn2 != 160) || grid1 <= 0 || grid2 <= 0)
+                               void* y, long long rows, int c, int inner,
+                               int bn2, int grid1, int grid2, void* stream) {
+  if (c <= 0 || c % 8 != 0 || inner <= 0 || inner % 8 != 0 || rows <= 0 ||
+      rows >= (1ll << 31) || (bn2 != 128 && bn2 != 160) || grid1 <= 0 ||
+      grid2 <= 0)
     return (int)cudaErrorInvalidValue;
   const int m = (int)rows;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   CUtensorMap tm_x, tm_w1, tm_h, tm_w2;
   cudaError_t err;
   if ((err = map_2d(&tm_x, x, rows, c, BMT)) != cudaSuccess ||
-      (err = map_2d(&tm_w1, w1, 8ull * c, c, GEGLU_BN / 2)) != cudaSuccess ||
-      (err = map_2d(&tm_h, h, rows, 4ull * c, BMT)) != cudaSuccess ||
-      (err = map_2d(&tm_w2, w2, c, 4ull * c, bn2)) != cudaSuccess)
+      (err = map_2d(&tm_w1, w1, 2ull * inner, c, GEGLU_BN / 2)) !=
+          cudaSuccess ||
+      (err = map_2d(&tm_h, h, rows, inner, BMT)) != cudaSuccess ||
+      (err = map_2d(&tm_w2, w2, c, inner, bn2)) != cudaSuccess)
     return (int)err;
   err = launch_gemm<true, GEGLU_BN>(tm_x, tm_w1, static_cast<const bf16*>(b1),
-                                    static_cast<bf16*>(h), m, 4 * c, c, grid1,
+                                    static_cast<bf16*>(h), m, inner, c, grid1,
                                     s);
   if (err != cudaSuccess) return (int)err;
   if (bn2 == 160)
     err = launch_gemm<false, 160>(tm_h, tm_w2, static_cast<const bf16*>(b2),
-                                  static_cast<bf16*>(y), m, c, 4 * c, grid2, s);
+                                  static_cast<bf16*>(y), m, c, inner, grid2,
+                                  s);
   else
     err = launch_gemm<false, 128>(tm_h, tm_w2, static_cast<const bf16*>(b2),
-                                  static_cast<bf16*>(y), m, c, 4 * c, grid2, s);
+                                  static_cast<bf16*>(y), m, c, inner, grid2,
+                                  s);
   return (int)err;
 }

@@ -47,6 +47,11 @@
 //    result is the same bit for bit from run to run. The counters (one
 //    int32 a batch element, zero between calls) are kept by the wrapper
 //    per device and assume one stream, as the whole port does.
+//  * The sums alone (syn3r_gn_sums): the same launch, whose folding block
+//    writes b's per-(B, C) sums of x and x^2 in place of the affine. A
+//    GroupNorm whose rows lie on several devices (the frame shards of
+//    parallel/sequence_parallel.py) adds the shards' sums in a fixed order
+//    and folds them once, as JAX folds its kernel's sums.
 //  * Weight and bias in their own dtype (bf16 or float32), widened in the
 //    fold: no cast launch.
 //  * The apply's SiLU with fast intrinsics, o / (1 + exp(-o)) as
@@ -145,7 +150,8 @@ __global__ void __launch_bounds__(MAX_THREADS)
     gn_stats_kernel(const T* __restrict__ x, const TW* __restrict__ w,
                     const TW* __restrict__ bias, float* __restrict__ part,
                     int* __restrict__ arrivals, float* __restrict__ a,
-                    float* __restrict__ bb, Plan p, int G, float eps) {
+                    float* __restrict__ bb, Plan p, int G, float eps,
+                    bool sums_only) {
   constexpr int V = Vec<T>::N;
   extern __shared__ float sh[];  // (rows, 2, C) float32
   __shared__ float gmean[MAX_GROUPS], grstd[MAX_GROUPS];
@@ -228,6 +234,15 @@ __global__ void __launch_bounds__(MAX_THREADS)
         sh[c] = t;
       }
       __syncthreads();
+      if (sums_only) {
+        for (int c = threadIdx.x; c < C; c += blockDim.x) {
+          a[b * C + c] = sh[c];
+          bb[b * C + c] = sh[C + c];
+        }
+        if (threadIdx.x == 0) arrivals[b] = 0;
+        __syncthreads();
+        return;
+      }
       const int cg = C / G;
       const float n = (float)(p.S * cg);
       for (int g = threadIdx.x; g < G; g += blockDim.x) {
@@ -373,7 +388,7 @@ extern "C" int syn3r_gn_stats(const void* x, const void* weight,
 #define SYN3R_GN_STATS(T, TW)                                              \
   gn_stats_kernel<T, TW><<<grid, threads, smem, s>>>(                      \
       static_cast<const T*>(x), static_cast<const TW*>(weight),            \
-      static_cast<const TW*>(bias), pt, ar, at, bt, p, G, eps)
+      static_cast<const TW*>(bias), pt, ar, at, bt, p, G, eps, false)
   if (x_bf16) {
     if (w_bf16) SYN3R_GN_STATS(bf16, bf16);
     else SYN3R_GN_STATS(bf16, float);
@@ -382,6 +397,33 @@ extern "C" int syn3r_gn_stats(const void* x, const void* weight,
     else SYN3R_GN_STATS(float, float);
   }
 #undef SYN3R_GN_STATS
+  return (int)cudaGetLastError();
+}
+
+// Per-(B, C) float32 sums of x (s1) and of x^2 (s2) over S, (B, C) each:
+// the stats launch without the group fold. part and arrivals as for
+// syn3r_gn_stats.
+extern "C" int syn3r_gn_sums(const void* x, void* part, void* arrivals,
+                             void* s1, void* s2, int B, long long S, int C,
+                             int x_bf16, int threads, int grid,
+                             void* stream) {
+  Plan p;
+  if (!make_plan(B, S, C, x_bf16 ? 8 : 4, threads, grid, &p))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = stats_smem(threads, x_bf16 ? 8 : 4);
+  float* pt = static_cast<float*>(part);
+  int* ar = static_cast<int*>(arrivals);
+  float* o1 = static_cast<float*>(s1);
+  float* o2 = static_cast<float*>(s2);
+  if (x_bf16)
+    gn_stats_kernel<bf16, float><<<grid, threads, smem, s>>>(
+        static_cast<const bf16*>(x), nullptr, nullptr, pt, ar, o1, o2, p, 1,
+        0.0f, true);
+  else
+    gn_stats_kernel<float, float><<<grid, threads, smem, s>>>(
+        static_cast<const float*>(x), nullptr, nullptr, pt, ar, o1, o2, p, 1,
+        0.0f, true);
   return (int)cudaGetLastError();
 }
 

@@ -453,4 +453,22 @@ inline cudaError_t make_map_f32_rows(CUtensorMap* map, const void* base,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// Raises `kernel`'s dynamic shared memory limit to `bytes` on the current
+// device, once a device: the attribute is per device, so a flag per process
+// would leave a second card at the 48 KB default. `done` holds one bit per
+// device ordinal (ordinals past 63 set the attribute on every call).
+template <typename Kernel>
+inline cudaError_t allow_smem_per_device(Kernel kernel, int bytes,
+                                         unsigned long long& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (done & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done |= bit;
+  return err;
+}
+
 }  // namespace syn3r

@@ -25,8 +25,21 @@ a lambda schedule, and returns the completed frames.
     batch-2 CFG forward, then the soft latent replacement step
     (``scheduler.step_interp_prob_uncertain``). ``direction_parallel``
     runs both directions' forwards as one, their batches stacked and
-    their batch_groups repeated. Directions merge with w = linspace(1, 0,
-    F); ``latent_num`` draws are averaged.
+    their batch_groups repeated. ``direction_sharding`` (a placement of
+    ``parallel/mesh.py`` over a mesh with a "dir" axis of 2) runs each
+    direction's forward on its own device's replica of the networks
+    instead, one UNet call a device and step, all issued from the one
+    host thread; the backward direction's latents are copied to its
+    device and its output back for the merge. Over a (dir, model) mesh
+    each direction's UNet is tensor-parallel over its row of "model"
+    (``parallel/tensor_parallel.py``); over a (pair, dir) mesh the pair
+    slot picks the row. Directions merge with w = linspace(1, 0, F);
+    ``latent_num`` draws are averaged.
+  - ``complete_wave``: several pairs in lock-step (the orchestrator's
+    ``pair_parallel``): each pair's encode, then every denoise step of all
+    pairs, then each decode. With a pair placement pair k runs on slot k's
+    devices; without one the pairs' same-direction batches are stacked
+    into one UNet call a step (batch_groups repeated once a pair).
   - ``decode``: temporal decode in the compute dtype in chunks of
     ``decode_chunk_size`` (the decoder mixes frames within a chunk, so the
     chunk size changes the pixels).
@@ -48,6 +61,7 @@ from ..models.clip import CLIPVisionModelWithProjection, clip_normalize
 from ..models.convert import load_flax_params
 from ..models.svd_unet import UNetSpatioTemporalConditionModel
 from ..models.vae import AutoencoderKLTemporalDecoder
+from ..parallel.mesh import Mesh, module_replicas, to_device
 from ..utils.image import resize_antialiased, to_01, to_neg1_1
 from ..utils.params import load_params
 from . import scheduler as S
@@ -104,19 +118,23 @@ class GuidedSVDConfig:
     # Both directions of a step as ONE UNet forward: the directions'
     # batches stacked, batch_groups the per-direction groups repeated
     # ((1, 2, 1, 2) for the fused post step), so each direction computes
-    # what it does alone. JAX vmaps the direction step instead.
+    # what it does alone. JAX vmaps the direction step instead. With
+    # direction_sharding each direction runs on its own device instead.
     direction_parallel: bool = False
-    # a direction per device: multi-GPU, not ported
+    # a placement (parallel.mesh.sharded(mesh, "dir")) whose leading axis
+    # of 2 holds the directions; turns direction_parallel on, as JAX's
     direction_sharding: object = None
 
     def __post_init__(self):
         if self.variant not in ("post", "prob"):
             raise ValueError(f"unknown variant {self.variant!r}")
         if self.direction_sharding is not None:
-            raise NotImplementedError(
-                "direction_sharding is multi-GPU, not ported (ROADMAP Queue "
-                "1, multi-GPU)")
-        if self.guidance_through_unet:
+            if self.direction_sharding.shards != 2:
+                raise ValueError("direction_sharding must split its leading "
+                                 "axis over 2 devices, got "
+                                 f"{self.direction_sharding}")
+            self.direction_parallel = True
+        elif self.guidance_through_unet:
             self.direction_parallel = False
 
 
@@ -130,6 +148,18 @@ class _Direction(NamedTuple):
     img_lat: torch.Tensor       # (F, h, w, 4) the endpoint latent repeated
 
 
+class _PairState(NamedTuple):
+    """One pair's denoise: its forward direction runs on units[0], its
+    backward one on units[1] (the same unit unless the directions are
+    sharded); fwd and bwd are the directions' constants on their units'
+    devices (clip_emb, cond, mask, lam, img_lat of ``_Direction``)."""
+    units: tuple
+    fwd: tuple
+    bwd: tuple
+    weight_fw: torch.Tensor
+    draws: torch.Tensor
+
+
 class GuidedSVDPipeline:
     def __init__(self, models: SVDModels, config: GuidedSVDConfig):
         # frozen: a gradient through the UNet is only ever taken w.r.t. the
@@ -140,6 +170,69 @@ class GuidedSVDPipeline:
         self.device = next(models.unet.parameters()).device
         self.schedule = S.svd_schedule(config.num_inference_steps,
                                        device=self.device)
+        self.guidance = torch.linspace(
+            config.min_guidance_scale, config.max_guidance_scale,
+            config.num_frames, device=self.device)[:, None, None, None]
+        # the networks' replicas by device and the pipelines that run on
+        # them, built once: every device of the dir placement now, a pair
+        # slot's device at its first wave
+        self._replicas = {self.device: models}
+        self._units: dict[tuple, GuidedSVDPipeline] = {}
+        pl = config.direction_sharding
+        if pl is not None:
+            for slot in range(pl.mesh.shape.get("pair", 1)):
+                self._units_of(slot)
+
+    # -- placement ------------------------------------------------------
+
+    def _unit_on(self, devices) -> "GuidedSVDPipeline":
+        """The pipeline that runs one direction (or a whole unsharded pair)
+        on ``devices``: the networks' replica on devices[0], its UNet
+        tensor-parallel over all of them when there are several."""
+        key = tuple(devices)
+        if self.cfg.direction_sharding is None and key == (self.device,):
+            return self
+        unit = self._units.get(key)
+        if unit is None:
+            dev = key[0]
+            if dev not in self._replicas:
+                self._replicas.update(replicate_models(self.m, [dev]))
+            m = self._replicas[dev]
+            unet = m.unet
+            if len(key) > 1:
+                from ..parallel.tensor_parallel import TensorParallelUNet
+                unet = TensorParallelUNet(Mesh(list(key), ("model",)), unet)
+            unit = GuidedSVDPipeline(
+                SVDModels(unet=unet, vae=m.vae, clip=m.clip),
+                dataclasses.replace(self.cfg, direction_sharding=None,
+                                    direction_parallel=False))
+            self._units[key] = unit
+        return unit
+
+    def _units_of(self, slot: int = 0, placement=None) -> tuple:
+        """(forward unit, backward unit) of pair slot ``slot``: with
+        direction_sharding the two cells of the dir axis at index ``slot``
+        of the mesh's "pair" axis (each a row of "model" where the mesh has
+        one); else the pair placement's slot device, or this pipeline."""
+        pl = self.cfg.direction_sharding
+        if pl is None:
+            if placement is None:
+                return self, self
+            unit = self._unit_on(placement.slot_devices(slot)[:1])
+            return unit, unit
+        mesh, dax = pl.mesh, pl.leading_axis
+        extra = set(mesh.axis_names) - {dax, "pair", "model"}
+        if extra:
+            raise ValueError(f"direction_sharding: mesh axes {extra} are "
+                             "neither 'pair' nor 'model'")
+
+        def cell(d):
+            at = {dax: d, "pair": slot}
+            if "model" in mesh.axis_names:
+                return mesh.along("model", at)
+            return [mesh.devices[tuple(at.get(a, 0)
+                                       for a in mesh.axis_names)]]
+        return self._unit_on(cell(0)), self._unit_on(cell(1))
 
     def _tensor(self, x) -> torch.Tensor:
         if not isinstance(x, torch.Tensor):
@@ -326,49 +419,93 @@ class GuidedSVDPipeline:
             out.append(S.step_interp(sch, eps, latents, step_i)[0])
         return out
 
-    @torch.no_grad()
-    def denoise(self, noise_latents, clip_start, clip_end, cond_latents,
-                mask, lambda_ts) -> torch.Tensor:
-        """noise_latents: (latent_num, F, h, w, 4) standard normals;
-        cond_latents: (F, h, w, 4) (already / FACTOR_S); mask: (F-2, h, w);
-        lambda_ts: (num_steps, F). Returns latents (F, h, w, 4)."""
-        cfg = self.cfg
-        f = cfg.num_frames
+    def _pair_state(self, units, noise_latents, clip_start, clip_end,
+                    cond_latents, mask, lambda_ts) -> _PairState:
+        """The denoise inputs of one pair (``denoise``'s arguments) as a
+        ``_PairState`` on ``units``: the draws and the merge weight on the
+        forward unit's device, each direction's constants on its own."""
+        f = self.cfg.num_frames
+        fu, bu = units
         noise_latents, clip_start, clip_end, cond, mask, lambda_ts = (
-            self._tensor(a) for a in (noise_latents, clip_start, clip_end,
-                                      cond_latents, mask, lambda_ts))
+            fu._tensor(a) for a in (noise_latents, clip_start, clip_end,
+                                    cond_latents, mask, lambda_ts))
         if cond.shape[0] != f:
             raise ValueError(
                 f"this completion pipeline runs {f} frames "
                 f"(GuidedSVDConfig.num_frames) but got {cond.shape[0]} "
                 "conditioning frames; the --svd_weights completion is the "
                 "25-frame pipeline whatever --num_frames says")
-        guidance = torch.linspace(cfg.min_guidance_scale,
-                                  cfg.max_guidance_scale, f,
-                                  device=self.device)[:, None, None, None]
         weight_fw = torch.linspace(1.0, 0.0, f,
-                                   device=self.device)[:, None, None, None]
+                                   device=fu.device)[:, None, None, None]
         lat_start_f = (cond[:1] * FACTOR_S).repeat(f, 1, 1, 1)
         lat_end_f = (cond[-1:] * FACTOR_S).repeat(f, 1, 1, 1)
-        cond_bw = cond.flip(0)
-        mask_bw = mask.flip(0)
-        lam_bw = lambda_ts.flip(1)
+        bwd = tuple(bu._tensor(a) for a in (
+            clip_end, cond.flip(0), mask.flip(0), lambda_ts.flip(1),
+            lat_end_f))
+        return _PairState(units=units,
+                          fwd=(clip_start, cond, mask, lambda_ts, lat_start_f),
+                          bwd=bwd, weight_fw=weight_fw,
+                          draws=noise_latents * fu.schedule.init_noise_sigma)
 
-        outs = []
-        for latents in noise_latents * self.schedule.init_noise_sigma:
-            for step_i in range(cfg.num_inference_steps):
-                fwd = _Direction(latents, clip_start, cond, mask, lambda_ts,
-                                 lat_start_f)
-                bwd = _Direction(latents.flip(0), clip_end, cond_bw, mask_bw,
-                                 lam_bw, lat_end_f)
-                if cfg.direction_parallel:
-                    fwd, bwd = self._step([fwd, bwd], step_i, guidance)
-                else:
-                    (fwd,) = self._step([fwd], step_i, guidance)
-                    (bwd,) = self._step([bwd], step_i, guidance)
-                latents = weight_fw * fwd + (1 - weight_fw) * bwd.flip(0)
-            outs.append(latents)
-        return torch.stack(outs).mean(dim=0)
+    def _advance(self, states: list, lats: list, step_i: int,
+                 stack_pairs: bool = False) -> list:
+        """One denoise step of each pair of ``states`` from its latents
+        ``lats``; returns the merged latents. Directions that run on one
+        unit are stacked into one UNet forward where asked: both
+        directions of a pair where ``direction_parallel`` is set without a
+        placement, and the pairs where ``stack_pairs``. Every call is
+        issued before any merge."""
+        cfg = self.cfg
+        stack_dirs = cfg.direction_parallel and cfg.direction_sharding is None
+        # the directions' UNet calls, in issue order: {key: (unit, items)}
+        calls = {}
+        for i, (st, lat) in enumerate(zip(states, lats)):
+            for which, unit, lt, consts in (
+                    (0, st.units[0], lat, st.fwd),
+                    (1, st.units[1], to_device(lat.flip(0),
+                                               st.units[1].device), st.bwd)):
+                key = ((id(unit),) + (() if stack_dirs else (which,))
+                       + (() if stack_pairs else (i,)))
+                calls.setdefault(key, (unit, []))[1].append(
+                    (i, which, _Direction(lt, *consts)))
+        outs = [[None, None] for _ in states]
+        for unit, items in calls.values():
+            if cfg.guidance_through_unet:     # one direction a call
+                groups = [[it] for it in items]
+            else:
+                groups = [items]
+            for group in groups:
+                res = unit._step([d for _, _, d in group], step_i,
+                                 unit.guidance)
+                for (i, which, _), r in zip(group, res):
+                    outs[i][which] = r
+        return [st.weight_fw * fwd + (1 - st.weight_fw)
+                * to_device(bwd, fwd.device).flip(0)
+                for st, (fwd, bwd) in zip(states, outs)]
+
+    def _denoise_states(self, states: list,
+                        stack_pairs: bool = False) -> list:
+        """Every draw of every pair of ``states``, the pairs' steps in
+        lock-step; each pair's mean over its draws."""
+        outs = [[] for _ in states]
+        for li in range(states[0].draws.shape[0]):
+            lats = [st.draws[li] for st in states]
+            for step_i in range(self.cfg.num_inference_steps):
+                lats = self._advance(states, lats, step_i, stack_pairs)
+            for o, lat in zip(outs, lats):
+                o.append(lat)
+        return [torch.stack(o).mean(dim=0) for o in outs]
+
+    @torch.no_grad()
+    def denoise(self, noise_latents, clip_start, clip_end, cond_latents,
+                mask, lambda_ts) -> torch.Tensor:
+        """noise_latents: (latent_num, F, h, w, 4) standard normals;
+        cond_latents: (F, h, w, 4) (already / FACTOR_S); mask: (F-2, h, w);
+        lambda_ts: (num_steps, F). Returns latents (F, h, w, 4), on this
+        pipeline's device (pair slot 0's with direction_sharding)."""
+        st = self._pair_state(self._units_of(0), noise_latents, clip_start,
+                              clip_end, cond_latents, mask, lambda_ts)
+        return self._denoise_states([st])[0]
 
     # -- decode ---------------------------------------------------------
 
@@ -389,15 +526,41 @@ class GuidedSVDPipeline:
         """Full completion: (F, H, W, 3) frames in [0, 1]. The noise
         augmentation and then the initial latents are drawn from
         ``generator`` unless ``latents`` is given."""
-        clip_s, clip_e, cond, _, _ = self.encode_conditioning(
-            image_start, cond_images, image_end, generator)
-        if latents is None:
-            h, w = cond.shape[1:3]
-            latents = torch.randn(
-                (self.cfg.latent_num, self.cfg.num_frames, h, w, 4),
-                generator=generator, device=self.device)
-        out = self.denoise(latents, clip_s, clip_e, cond, mask, lambda_ts)
-        return self.decode(out)
+        return self.complete_wave(
+            [(image_start, cond_images, image_end, mask, lambda_ts)],
+            [generator], latents=None if latents is None else [latents])[0]
+
+    @torch.no_grad()
+    def complete_wave(self, jobs, generators, placement=None,
+                      latents=None) -> list:
+        """Complete the pairs ``jobs`` ((image_start, cond_images,
+        image_end, mask, lambda_ts) each, with its generator) in lock-step,
+        all issued from this thread: every pair's encode, then each denoise
+        step of every pair, then every decode. With ``placement`` (the pair
+        placement, as many jobs as its slots) pair k runs on slot k's
+        devices and its generator must live on slot k's first device;
+        without it every pair runs on this pipeline's own units, their
+        same-direction batches stacked. Returns each pair's frames on its
+        device."""
+        units = [self._units_of(k if placement is not None else 0,
+                                placement) for k in range(len(jobs))]
+        states = []
+        for k, ((image_start, cond_images, image_end, mask, lambda_ts),
+                gen) in enumerate(zip(jobs, generators)):
+            home = units[k][0]
+            clip_s, clip_e, cond, _, _ = home.encode_conditioning(
+                image_start, cond_images, image_end, gen)
+            if latents is None:
+                h, w = cond.shape[1:3]
+                lat = torch.randn(
+                    (self.cfg.latent_num, self.cfg.num_frames, h, w, 4),
+                    generator=gen, device=home.device)
+            else:
+                lat = latents[k]
+            states.append(self._pair_state(units[k], lat, clip_s, clip_e,
+                                           cond, mask, lambda_ts))
+        outs = self._denoise_states(states, stack_pairs=placement is None)
+        return [u[0].decode(o) for u, o in zip(units, outs)]
 
 
 def init_random_weights_(module: torch.nn.Module,
@@ -423,6 +586,19 @@ def init_random_weights_(module: torch.nn.Module,
     return module
 
 
+def replicate_models(models: SVDModels,
+                     devices) -> dict[torch.device, SVDModels]:
+    """{device: SVDModels}: the UNet, the VAE and CLIP replicated on each
+    device of ``devices`` from the same weights (``models`` itself on its
+    own device), for ``direction_sharding`` and pair waves."""
+    nets = {name: module_replicas(getattr(models, name), devices)
+            for name in ("unet", "vae", "clip")}
+    return {dev: SVDModels(unet=nets["unet"][dev].eval(),
+                           vae=nets["vae"][dev].eval(),
+                           clip=nets["clip"][dev].eval())
+            for dev in nets["unet"]}
+
+
 def load_svd_completion(weights_dir: Optional[str] = None,
                         device: str | torch.device = "cuda", seed: int = 0,
                         **config) -> GuidedSVDPipeline:
@@ -433,7 +609,9 @@ def load_svd_completion(weights_dir: Optional[str] = None,
     full widths. The UNet is held in bf16 (the reference loads the fp16
     checkpoint); CLIP and the VAE keep float32 weights and run CLIP and
     the decode in the compute dtype, the encode in float32. ``config``
-    fields go to ``GuidedSVDConfig``."""
+    fields go to ``GuidedSVDConfig``; with ``direction_sharding`` the
+    networks are replicated on every device of its mesh
+    (``replicate_models``)."""
     dev = resolve_device(device)
     cfg = GuidedSVDConfig(**config)
     with torch.device(dev):

@@ -73,9 +73,9 @@ def _frame_top_masks(pred, cond, certain, weight, clamp_lo: float):
     C, and cuts the sorted |diff| at
     int(clamp(weight) * (len - num_zero)) + num_zero; both kept."""
     t = pred.shape[0]
-    num_zero = (~certain).reshape(t, -1).sum(dim=1)
+    num_zero = (~certain).flatten(1).sum(dim=1)
     masked_diff = (pred - cond) * certain
-    flat = masked_diff.abs().reshape(t, -1)
+    flat = masked_diff.abs().flatten(1)
     sorted_diff = flat.sort(dim=1).values
     n = flat.shape[1]
     w = weight.clamp(clamp_lo, 1.0)

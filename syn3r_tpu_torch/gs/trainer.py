@@ -142,6 +142,15 @@ def position_lr(cfg: TrainConfig, extent: float, step: int) -> float:
                              + t * math.log(cfg.position_lr_final))
 
 
+def adam_lrs(cfg: TrainConfig, lr_means: float) -> dict:
+    """Adam's learning rate of each parameter field, ``lr_means`` the
+    position's (``position_lr``)."""
+    return {"means": lr_means, "quats": cfg.rotation_lr,
+            "log_scales": cfg.scaling_lr,
+            "opacity_logits": cfg.opacity_lr, "sh_dc": cfg.feature_lr,
+            "sh_rest": cfg.feature_lr / 20.0}
+
+
 def adam_corrections(count: int, b1: float = 0.9,
                      b2: float = 0.999) -> tuple[float, float]:
     """The reciprocals of Adam's bias corrections, 1 / (1 - b1^count) and
@@ -319,7 +328,7 @@ class GSTrainer:
         with torch.no_grad():
             new_params, new_adam = adam_update(
                 {k: v.detach() for k, v in params.items()}, grads, adam,
-                self._lrs(lr_means), corrections)
+                adam_lrs(self.cfg, lr_means), corrections)
             # densify statistics: the screen-centre gradient in the CUDA
             # rasterizer's NDC scale (pixel grad x W/2, H/2)
             screen = torch.stack([g_off[:, 0] * (camera.width * 0.5),
@@ -330,14 +339,6 @@ class GSTrainer:
                        & (c[:, 1] < camera.height + r))
             new_stats = stats.update(screen, r, visible)
         return new_params, new_adam, new_stats, loss.detach()
-
-    def _lrs(self, lr_means) -> dict:
-        """Adam's learning rate of each parameter field."""
-        cfg = self.cfg
-        return {"means": lr_means, "quats": cfg.rotation_lr,
-                "log_scales": cfg.scaling_lr,
-                "opacity_logits": cfg.opacity_lr, "sh_dc": cfg.feature_lr,
-                "sh_rest": cfg.feature_lr / 20.0}
 
     def _train_step(self, ts: TrainState, camera: Camera,
                     image: torch.Tensor, depth_target=None,
@@ -407,7 +408,7 @@ class GSTrainer:
         with torch.no_grad():
             new_params, new_adam = adam_update(
                 {k: v.detach() for k, v in params.items()}, grads, ts.adam,
-                self._lrs(position_lr(cfg, self.extent, ts.step)))
+                adam_lrs(cfg, position_lr(cfg, self.extent, ts.step)))
         return (TrainState(gaussians=G.with_params(g, new_params),
                            adam=new_adam, stats=ts.stats, step=ts.step),
                 {"loss": loss.detach()})

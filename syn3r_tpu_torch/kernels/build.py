@@ -27,9 +27,10 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 # C entry points and their argument types, per kernel library.
 SIGNATURES = {
-    # x, w1, b1, w2, b2, h, y; rows, C; GEMM-2 N tile, grids; stream
+    # x, w1, b1, w2, b2, h, y; rows, C, inner; GEMM-2 N tile, grids;
+    # stream
     "geglu_ffn": {"syn3r_geglu_ffn":
-                  [_P] * 7 + [_LL, _I, _I, _I, _I, _P]},
+                  [_P] * 7 + [_LL, _I, _I, _I, _I, _I, _P]},
     # q, k, v, o, lse (or null); 3 x 12 map values; B, H, S; o strides;
     # scale; grid; stream
     "flash_attention": {"syn3r_flash_attention":
@@ -54,6 +55,8 @@ SIGNATURES = {
         # weight bf16, threads, grid; stream
         "syn3r_gn_stats": [_P] * 7 + [_I, _LL, _I, _I, _F, _I, _I, _I, _I,
                                       _P],
+        # x, part, arrivals, s1, s2; B, S, C; bf16, threads, grid; stream
+        "syn3r_gn_sums": [_P] * 5 + [_I, _LL, _I, _I, _I, _I, _P],
         # x, a, b, y; B, S, C; silu, bf16, threads, grid; stream
         "syn3r_gn_apply": [_P] * 4 + [_I, _LL, _I, _I, _I, _I, _I, _P],
         # kernel (0 stats, 1 apply), x bf16, variant, threads

@@ -37,6 +37,33 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.cat([torch.cos(emb), torch.sin(emb)], dim=-1)
 
 
+def run_local(steps):
+    """Runs ``steps`` on one device: a forward written as a generator that
+    yields its frame-coupled calls (those that read frames other than the
+    ones they write) as ``(fn, *args)``; each call is made as it is and its
+    result sent back. ``parallel/sequence_parallel.py`` runs the generators
+    of all frame shards in lock-step and makes each such call across the
+    shards."""
+    try:
+        call = next(steps)
+        while True:
+            call = steps.send(call[0](*call[1:]))
+    except StopIteration as stop:
+        return stop.value
+
+
+class Stepped(nn.Module):
+    """A module whose forward is its generator ``steps`` (``run_local``)."""
+
+    def forward(self, *args, **kwargs):
+        return run_local(self.steps(*args, **kwargs))
+
+
+def frame_ids(num_frames: int, batch: int, device) -> torch.Tensor:
+    """The frame index of each (batch element, frame) row."""
+    return torch.arange(num_frames, device=device).repeat(batch)
+
+
 class Linear(nn.Linear):
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(x.dtype)
@@ -141,30 +168,47 @@ class Attention(nn.Module):
         residual = x
         if self.group_norm is not None:
             x = self.group_norm(x)
+        out = self.attend(x, context)
         if context is not None and context.shape[1] == 1:
-            # One context token: softmax over one key is exactly 1, so the
-            # output is to_out(to_v(context)) broadcast over the queries
-            # (to_q / to_k stay in the state dict, unused).
-            out = self.to_out[0](self.to_v(context)).expand(
-                x.shape[0], x.shape[1], -1)
-        else:
-            ctx = x if context is None else context
-            bsz, s = x.shape[0], x.shape[1]
-
-            def split(t):
-                return t.view(t.shape[0], t.shape[1], self.heads,
-                              self.dim_head).transpose(1, 2)
-
-            q, k, v = split(self.to_q(x)), split(self.to_k(ctx)), \
-                split(self.to_v(ctx))
-            out = attention(q, k, v, 1.0 / math.sqrt(self.dim_head))
-            out = out.transpose(1, 2).reshape(bsz, s, -1)
-            out = self.to_out[0](out)
+            out = out.expand(x.shape[0], x.shape[1], -1)
         if self.residual_connection:
             out = out + residual
         if spatial:
             out = out.reshape(b, h, w, -1)
         return out
+
+    def attend(self, x, context=None, shard=None):
+        """to_out of the attention of x (B, S, C) to ``context`` (x itself
+        when None), over all heads with to_out's bias, or over the heads of
+        ``shard`` without it: a tensor-parallel partial, ``shard`` =
+        {"heads": n, "to_q" / "to_k" / "to_v": (weight rows, bias rows or
+        None), "to_out": (weight columns, None)}
+        (``parallel/tensor_parallel.py``). With one context token the
+        result is (B, 1, C): softmax over one key is exactly 1, so the
+        output is to_out(to_v(context)), which ``forward`` broadcasts over
+        the queries (to_q / to_k stay in the state dict, unused)."""
+        def proj(name, t):
+            if shard is None:
+                return (self.to_out[0] if name == "to_out"
+                        else getattr(self, name))(t)
+            w, b = shard[name]
+            return F.linear(t, w.to(t.dtype),
+                            None if b is None else b.to(t.dtype))
+
+        if context is not None and context.shape[1] == 1:
+            return proj("to_out", proj("to_v", context))
+        heads = self.heads if shard is None else shard["heads"]
+        ctx = x if context is None else context
+        bsz, s = x.shape[0], x.shape[1]
+
+        def split(t):
+            return t.view(t.shape[0], t.shape[1], heads,
+                          self.dim_head).transpose(1, 2)
+
+        q, k, v = (split(proj("to_q", x)), split(proj("to_k", ctx)),
+                   split(proj("to_v", ctx)))
+        out = attention(q, k, v, 1.0 / math.sqrt(self.dim_head))
+        return proj("to_out", out.transpose(1, 2).reshape(bsz, s, -1))
 
 
 class GEGLU(nn.Module):
@@ -217,9 +261,10 @@ class ResnetBlock2D(nn.Module):
         return x + h
 
 
-class TemporalResnetBlock(nn.Module):
+class TemporalResnetBlock(Stepped):
     """Resnet over the frame axis with (3, 1, 1) convolutions.
-    x: (B, F, H, W, C); temb: (B, F, D) or None."""
+    x: (B, F, H, W, C); temb: (B, F, D) or None. Its GroupNorms (over
+    F x H x W) and its convolutions are frame-coupled (``run_local``)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  temb_channels: int | None = None, eps: float = 1e-6):
@@ -235,11 +280,13 @@ class TemporalResnetBlock(nn.Module):
         self.conv_shortcut = (Conv3d(in_channels, out_channels, 1)
                               if in_channels != out_channels else None)
 
-    def forward(self, x, temb=None):
-        h = self.conv1(self.norm1(x))
+    def steps(self, x, temb=None):
+        h = yield self.norm1, x
+        h = yield self.conv1, h
         if temb is not None:
             h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None, :]
-        h = self.conv2(self.norm2(h))
+        h = yield self.norm2, h
+        h = yield self.conv2, h
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h

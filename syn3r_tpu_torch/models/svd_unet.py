@@ -8,12 +8,19 @@ the attention rows are batch-major, so pixel row r attends to the first
 frame's context of batch element r % B (transformer_temporal.py:311-317).
 ``batch_groups`` reproduces that per group for a batch made of
 independent sub-calls, so one fused batch-3 call with groups (1, 2) equals
-the separate batch-1 guidance and batch-2 CFG calls.
+the separate batch-1 guidance and batch-2 CFG calls. A ``BatchWindow`` in
+its place runs a slice of a batch with the whole batch's quirk (a
+data-parallel replica's rows, ``parallel/data_parallel.py``).
+
+The modules that hold frame-coupled work (the temporal resnets and
+transformers, and the blocks above them) write their forward as a
+generator ``steps`` (``layers.run_local``): a frame-sharded forward
+(``parallel/sequence_parallel.py``) runs the same code on each shard.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -21,11 +28,32 @@ from torch.utils.checkpoint import checkpoint
 
 from .layers import (AlphaBlender, Attention, Conv2d, Downsample2D,
                      FeedForward, GroupNorm, LayerNorm, Linear, ResnetBlock2D,
-                     TemporalResnetBlock, TimestepEmbedding, Upsample2D,
-                     timestep_embedding)
+                     Stepped, TemporalResnetBlock, TimestepEmbedding,
+                     Upsample2D, frame_ids, timestep_embedding)
 
 
-class SpatioTemporalResBlock(nn.Module):
+class BatchWindow(NamedTuple):
+    """Elements [offset, offset + b) of a batch grouped by ``groups``
+    (sizes summing to the whole batch), ``first_context`` (B, 1, D) the
+    whole batch's encoder states: passed as ``batch_groups``, the slice's
+    time context is the one its rows take in the whole batch's call."""
+    groups: Tuple[int, ...]
+    offset: int
+    first_context: torch.Tensor
+
+
+def time_context_rows(groups, s: int, device) -> torch.Tensor:
+    """The batch element whose first-frame context each (element, pixel)
+    row of a call attends to in temporal cross-attention: pixel row r of a
+    group of m elements starting at element off takes off + r % m."""
+    parts, off = [], 0
+    for m in groups:
+        parts.append(off + torch.arange(m * s, device=device) % m)
+        off += m
+    return torch.cat(parts)
+
+
+class SpatioTemporalResBlock(Stepped):
     """Spatial ResnetBlock2D + temporal (3,1,1)-conv resnet, alpha-blended."""
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -39,13 +67,13 @@ class SpatioTemporalResBlock(nn.Module):
             out_channels, out_channels, temb_channels, temporal_eps or eps)
         self.time_mixer = AlphaBlender(switch_spatial_to_temporal_mix)
 
-    def forward(self, x, temb, num_frames: int):
+    def steps(self, x, temb, num_frames: int):
         x = self.spatial_res_block(x, temb)
         bf, h, w, c = x.shape
         b = bf // num_frames
         x5 = x.reshape(b, num_frames, h, w, c)
         temb5 = temb.reshape(b, num_frames, -1) if temb is not None else None
-        xt = self.temporal_res_block(x5, temb5)
+        xt = yield from self.temporal_res_block.steps(x5, temb5)
         return self.time_mixer(x5, xt).reshape(bf, h, w, c)
 
 
@@ -67,8 +95,9 @@ class BasicTransformerBlock(nn.Module):
         return x + self.ff(self.norm3(x))
 
 
-class TemporalBasicTransformerBlock(nn.Module):
-    """Per-pixel block over the frame axis. Input (B*S, F, C)."""
+class TemporalBasicTransformerBlock(Stepped):
+    """Per-pixel block over the frame axis. Input (B*S, F, C). Its
+    self-attention over the frames is frame-coupled."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int):
         super().__init__()
@@ -81,14 +110,14 @@ class TemporalBasicTransformerBlock(nn.Module):
         self.norm3 = LayerNorm(dim)
         self.ff = FeedForward(dim)
 
-    def forward(self, x, context):
+    def steps(self, x, context):
         x = self.ff_in(self.norm_in(x)) + x
-        x = x + self.attn1(self.norm1(x))
+        x = x + (yield self.attn1, self.norm1(x))
         x = x + self.attn2(self.norm2(x), context)
         return x + self.ff(self.norm3(x))
 
 
-class TransformerSpatioTemporalModel(nn.Module):
+class TransformerSpatioTemporalModel(Stepped):
     """Spatial + temporal transformer pair with learned time mixing."""
 
     def __init__(self, channels: int, heads: int, dim_head: int,
@@ -109,36 +138,39 @@ class TransformerSpatioTemporalModel(nn.Module):
         self.time_mixer = AlphaBlender()
         self.proj_out = Linear(inner, channels)
 
-    def forward(self, x, context, num_frames: int,
-                batch_groups: Optional[Tuple[int, ...]] = None):
+    def steps(self, x, context, num_frames: int,
+              batch_groups: Optional[Tuple[int, ...]] = None):
         bf, height, width, channels = x.shape
         b = bf // num_frames
         s = height * width
-        tc_first = context.reshape(b, num_frames, context.shape[1],
-                                   context.shape[2])[:, 0]
-        groups = batch_groups if batch_groups is not None else (b,)
-        if sum(groups) != b:
-            raise ValueError(f"batch_groups {groups} != batch {b}")
-        parts, off = [], 0
-        for m in groups:
-            parts.append(off + torch.arange(m * s, device=x.device) % m)
-            off += m
-        time_context = tc_first[torch.cat(parts)]            # (B*S, T, D)
+        if isinstance(batch_groups, BatchWindow):
+            w = batch_groups
+            rows = time_context_rows(w.groups, s, x.device)[
+                w.offset * s:(w.offset + b) * s]
+            time_context = w.first_context.to(x.device, x.dtype)[rows]
+        else:
+            tc_first = context.reshape(b, num_frames, context.shape[1],
+                                       context.shape[2])[:, 0]
+            groups = batch_groups if batch_groups is not None else (b,)
+            if sum(groups) != b:
+                raise ValueError(f"batch_groups {groups} != batch {b}")
+            time_context = tc_first[time_context_rows(groups, s, x.device)]
 
         residual = x
         h = self.norm(x).reshape(bf, s, channels)
         h = self.proj_in(h)
         inner = h.shape[-1]
-        frame_ids = torch.arange(num_frames, device=x.device).repeat(b)
-        t_emb = timestep_embedding(frame_ids, channels).to(x.dtype)
+        # the frame ids are frame-coupled: a shard's are its global ones
+        ids = yield frame_ids, num_frames, b, x.device
+        t_emb = timestep_embedding(ids, channels).to(x.dtype)
         emb = self.time_pos_embed(t_emb)[:, None, :]          # (B*F, 1, C)
 
         for block, temporal in zip(self.transformer_blocks,
                                    self.temporal_transformer_blocks):
             h = block(h, context)
             mix = (h + emb).reshape(b, num_frames, s, inner).transpose(1, 2)
-            mix = temporal(mix.reshape(b * s, num_frames, inner),
-                           time_context)
+            mix = yield from temporal.steps(
+                mix.reshape(b * s, num_frames, inner), time_context)
             mix = mix.reshape(b, s, num_frames, inner).transpose(1, 2)
             h = self.time_mixer(h, mix.reshape(bf, s, inner))
 
@@ -146,7 +178,7 @@ class TransformerSpatioTemporalModel(nn.Module):
         return h.reshape(bf, height, width, channels) + residual
 
 
-class CrossAttnDownBlockSpatioTemporal(nn.Module):
+class CrossAttnDownBlockSpatioTemporal(Stepped):
     def __init__(self, in_channels, out_channels, temb_channels, heads,
                  context_dim, num_layers=2, add_downsample=True):
         super().__init__()
@@ -162,11 +194,11 @@ class CrossAttnDownBlockSpatioTemporal(nn.Module):
         self.downsamplers = nn.ModuleList(
             [Downsample2D(out_channels)] if add_downsample else [])
 
-    def forward(self, x, temb, context, num_frames, batch_groups=None):
+    def steps(self, x, temb, context, num_frames, batch_groups=None):
         outputs = []
         for res, attn in zip(self.resnets, self.attentions):
-            x = res(x, temb, num_frames)
-            x = attn(x, context, num_frames, batch_groups)
+            x = yield from res.steps(x, temb, num_frames)
+            x = yield from attn.steps(x, context, num_frames, batch_groups)
             outputs.append(x)
         for down in self.downsamplers:
             x = down(x)
@@ -174,7 +206,7 @@ class CrossAttnDownBlockSpatioTemporal(nn.Module):
         return x, outputs
 
 
-class DownBlockSpatioTemporal(nn.Module):
+class DownBlockSpatioTemporal(Stepped):
     def __init__(self, in_channels, out_channels, temb_channels,
                  num_layers=2):
         super().__init__()
@@ -183,15 +215,15 @@ class DownBlockSpatioTemporal(nn.Module):
                                     out_channels, temb_channels, 1e-5)
              for i in range(num_layers)])
 
-    def forward(self, x, temb, num_frames):
+    def steps(self, x, temb, num_frames):
         outputs = []
         for res in self.resnets:
-            x = res(x, temb, num_frames)
+            x = yield from res.steps(x, temb, num_frames)
             outputs.append(x)
         return x, outputs
 
 
-class UNetMidBlockSpatioTemporal(nn.Module):
+class UNetMidBlockSpatioTemporal(Stepped):
     def __init__(self, channels, temb_channels, heads, context_dim):
         super().__init__()
         self.resnets = nn.ModuleList(
@@ -201,14 +233,16 @@ class UNetMidBlockSpatioTemporal(nn.Module):
             [TransformerSpatioTemporalModel(channels, heads,
                                             channels // heads, context_dim)])
 
-    def forward(self, x, temb, context, num_frames, batch_groups=None):
-        x = self.resnets[0](x, temb, num_frames)
-        x = self.attentions[0](x, context, num_frames, batch_groups)
-        return self.resnets[1](x, temb, num_frames)
+    def steps(self, x, temb, context, num_frames, batch_groups=None):
+        x = yield from self.resnets[0].steps(x, temb, num_frames)
+        x = yield from self.attentions[0].steps(x, context, num_frames,
+                                                batch_groups)
+        return (yield from self.resnets[1].steps(x, temb, num_frames))
 
 
-class UpBlockSpatioTemporal(nn.Module):
-    """``in_channels``: one entry per resnet, the concatenated width."""
+class UpBlockSpatioTemporal(Stepped):
+    """``in_channels``: one entry per resnet, the concatenated width;
+    ``res_states``: the skips, the last one taken first."""
 
     def __init__(self, in_channels: Sequence[int], out_channels,
                  temb_channels, heads=None, context_dim=None,
@@ -228,19 +262,20 @@ class UpBlockSpatioTemporal(nn.Module):
         self.upsamplers = nn.ModuleList(
             [Upsample2D(out_channels)] if add_upsample else [])
 
-    def forward(self, x, res_states, temb, context, num_frames,
-                batch_groups=None):
+    def steps(self, x, res_states, temb, context, num_frames,
+              batch_groups=None):
         for i, res in enumerate(self.resnets):
-            x = torch.cat([x, res_states.pop()], dim=-1)
-            x = res(x, temb, num_frames)
+            x = torch.cat([x, res_states[-1 - i]], dim=-1)
+            x = yield from res.steps(x, temb, num_frames)
             if self.attentions is not None:
-                x = self.attentions[i](x, context, num_frames, batch_groups)
+                x = yield from self.attentions[i].steps(
+                    x, context, num_frames, batch_groups)
         for up in self.upsamplers:
             x = up(x)
         return x
 
 
-class UNetSpatioTemporalConditionModel(nn.Module):
+class UNetSpatioTemporalConditionModel(Stepped):
     """The SVD denoiser.
 
     sample: (B, F, H, W, 8) noisy latents concatenated with the
@@ -301,19 +336,19 @@ class UNetSpatioTemporalConditionModel(nn.Module):
         self.conv_norm_out = GroupNorm(ch[0], 32, 1e-5, silu=True)
         self.conv_out = Conv2d(ch[0], out_channels, 3, padding=1)
 
-    def forward(self, sample, timestep, encoder_hidden_states,
-                added_time_ids,
-                batch_groups: Optional[Tuple[int, ...]] = None,
-                remat_blocks: bool = False):
-        """``remat_blocks``: checkpoint each down, mid and up block (the
-        blocks JAX wraps in ``nn.remat``), so a gradient through the UNet
-        keeps one block's activations at a time and recomputes the block's
-        forward in the backward; the values are the same."""
+    def steps(self, sample, timestep, encoder_hidden_states, added_time_ids,
+              batch_groups: Optional[Tuple[int, ...]] = None,
+              remat_blocks: bool = False):
+        """The forward. ``remat_blocks``: checkpoint each down, mid and up
+        block (the blocks JAX wraps in ``nn.remat``), so a gradient through
+        the UNet keeps one block's activations at a time and recomputes
+        the block's forward in the backward (on one device); the values
+        are the same."""
         def run(block, *args):
             if remat_blocks:
                 return checkpoint(block, *args, use_reentrant=False,
                                   preserve_rng_state=False)
-            return block(*args)
+            return (yield from block.steps(*args))
 
         b, f, h, w, c = sample.shape
         dt = sample.dtype
@@ -332,19 +367,18 @@ class UNetSpatioTemporalConditionModel(nn.Module):
         res_stack = [x]
         for block in self.down_blocks:
             if isinstance(block, CrossAttnDownBlockSpatioTemporal):
-                x, outs = run(block, x, emb, context, f, batch_groups)
+                x, outs = yield from run(block, x, emb, context, f,
+                                         batch_groups)
             else:
-                x, outs = run(block, x, emb, f)
+                x, outs = yield from run(block, x, emb, f)
             res_stack.extend(outs)
 
-        x = run(self.mid_block, x, emb, context, f, batch_groups)
+        x = yield from run(self.mid_block, x, emb, context, f, batch_groups)
 
         for block in self.up_blocks:
             n_lay = len(block.resnets)
-            res = [res_stack.pop() for _ in range(n_lay)][::-1]
-            # the block pops its skips: a fresh list for each (re)run
-            x = run(lambda x, *r, block=block: block(
-                x, list(r), emb, context, f, batch_groups), x, *res)
+            res = tuple(res_stack.pop() for _ in range(n_lay))[::-1]
+            x = yield from run(block, x, res, emb, context, f, batch_groups)
 
         x = self.conv_out(self.conv_norm_out(x))
         return x.reshape(b, f, h, w, -1)

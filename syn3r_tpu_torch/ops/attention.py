@@ -138,7 +138,8 @@ def mapped(t: torch.Tensor, rows: int):
 
 
 def _flash_forward(q, k, v, scale: float, with_lse: bool):
-    """One launch of the forward kernel on CUDA tensors: (out, lse), out
+    """One launch of the forward kernel on CUDA tensors, on q's card (its
+    current device and stream): (out, lse), out
     (B, H, S, D) a view of a (B, S, H, D) tensor, lse the f32 (B, H, S)
     log-sum-exp of each row where ``with_lse``, else None."""
     check_cuda(q)
@@ -153,14 +154,15 @@ def _flash_forward(q, k, v, scale: float, with_lse: bool):
                       device=q.device).permute(0, 2, 1, 3)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     ob, oh, os_, _ = out.stride()
     grid = flash_grid(b, h, s, torch.cuda.get_device_properties(
         q.device).multi_processor_count)
-    err = build.entry("flash_attention")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), geom, b, h, s, ob, oh, os_,
-        float(scale), grid, stream)
+    with torch.cuda.device(q.device):
+        err = build.entry("flash_attention")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), geom, b, h, s, ob, oh,
+            os_, float(scale), grid,
+            torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed: cudaError {err}")
@@ -258,11 +260,13 @@ def flash_bwd_launch(name: str, plan: dict, views: dict, lse, delta, outs,
         for x in (*m["dims"], *m["strides"], *m["box"], m["s_dim"])))
     ostr = (ctypes.c_longlong * (3 * len(outs)))(
         *(st for t in outs for st in t.stride()[:3]))
-    err = build.entry("flash_attention_bwd", f"syn3r_flash_bwd_{name}")(
-        *(views[n].data_ptr() for n in FLASH_BWD_INPUTS[name]),
-        lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
-        geom, ostr, b, h, s, plan["ld"], float(scale), plan[name]["grid"],
-        torch.cuda.current_stream(views["q"].device).cuda_stream)
+    dev = views["q"].device
+    with torch.cuda.device(dev):
+        err = build.entry("flash_attention_bwd", f"syn3r_flash_bwd_{name}")(
+            *(views[n].data_ptr() for n in FLASH_BWD_INPUTS[name]),
+            lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
+            geom, ostr, b, h, s, plan["ld"], float(scale),
+            plan[name]["grid"], torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd {name} kernel launch "
                            f"failed: cudaError {err}")

@@ -275,10 +275,11 @@ def _check(P, G, C, O, extra=()):
 
 
 def composite_fwd_launch(P, G, C, O, K: int, keep_bits: bool = False):
-    """Launches the forward kernel on CUDA tensors. Returns (out, ltc,
-    keep): with ``keep_bits`` the skip test's bits (``composite_fwd_plan``'s
-    scratch "keep"; ``keep_words_to_mask`` reads them), else None, as
-    when there is no work."""
+    """Launches the forward kernel on CUDA tensors, on G's card (its
+    current device and stream). Returns (out, ltc, keep): with
+    ``keep_bits`` the skip test's bits (``composite_fwd_plan``'s scratch
+    "keep"; ``keep_words_to_mask`` reads them), else None, as when there
+    is no work."""
     _check(P, G, C, O)
     T, _, cap = G.shape
     px = P.shape[1]
@@ -293,11 +294,12 @@ def composite_fwd_launch(P, G, C, O, K: int, keep_bits: bool = False):
         shape = plan["scratch"]["keep"]
         keep = (torch.empty if plan["kernel_rects"] == shape[2]
                 else torch.zeros)(shape, dtype=torch.int32, device=G.device)
-    err = build.entry("composite_fwd")(
-        P.data_ptr(), G.data_ptr(), C.data_ptr(), O.data_ptr(),
-        out.data_ptr(), ltc.data_ptr(),
-        None if keep is None else keep.data_ptr(), T, px, cap, K,
-        torch.cuda.current_stream(G.device).cuda_stream)
+    with torch.cuda.device(G.device):
+        err = build.entry("composite_fwd")(
+            P.data_ptr(), G.data_ptr(), C.data_ptr(), O.data_ptr(),
+            out.data_ptr(), ltc.data_ptr(),
+            None if keep is None else keep.data_ptr(), T, px, cap, K,
+            torch.cuda.current_stream(G.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"composite_fwd kernel launch failed: "
                            f"cudaError {err}")
@@ -314,10 +316,10 @@ def composite_fwd(P, G, C, O, K: int):
 
 
 def composite_bwd_launch(P, G, C, O, ltc, dout, K: int):
-    """Launches the backward kernels on CUDA tensors. Returns (dG, dC, dO,
-    keep), keep the skip test's bits (``composite_bwd_plan``'s scratch
-    "keep"; ``keep_words_to_mask`` reads them), or None when there is no
-    work."""
+    """Launches the backward kernels on CUDA tensors, on G's card. Returns
+    (dG, dC, dO, keep), keep the skip test's bits (``composite_bwd_plan``'s
+    scratch "keep"; ``keep_words_to_mask`` reads them), or None when there
+    is no work."""
     T, _, cap = G.shape
     px = P.shape[1]
     _check(P, G, C, O, extra=[("ltc", ltc, (T, cap // K, px)),
@@ -331,11 +333,12 @@ def composite_bwd_launch(P, G, C, O, ltc, dout, K: int):
         torch.empty(shape, dtype=torch.int32 if name == "keep"
                     else torch.float32, device=G.device)
         for name, shape in plan["scratch"].items())
-    err = build.entry("composite_bwd")(
-        P.data_ptr(), G.data_ptr(), C.data_ptr(), O.data_ptr(),
-        ltc.data_ptr(), dout.data_ptr(), tot.data_ptr(), keep.data_ptr(),
-        part.data_ptr(), dG.data_ptr(), dC.data_ptr(), dO.data_ptr(), T, px,
-        cap, K, torch.cuda.current_stream(G.device).cuda_stream)
+    with torch.cuda.device(G.device):
+        err = build.entry("composite_bwd")(
+            P.data_ptr(), G.data_ptr(), C.data_ptr(), O.data_ptr(),
+            ltc.data_ptr(), dout.data_ptr(), tot.data_ptr(), keep.data_ptr(),
+            part.data_ptr(), dG.data_ptr(), dC.data_ptr(), dO.data_ptr(), T,
+            px, cap, K, torch.cuda.current_stream(G.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"composite_bwd kernel launch failed: "
                            f"cudaError {err}")

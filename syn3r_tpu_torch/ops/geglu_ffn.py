@@ -11,7 +11,11 @@ CPU tensor it runs ``geglu_ffn_reference``. A CUDA tensor never falls
 back: the wrapper launches or raises. ``geglu_plan`` is the launch
 geometry, in plain Python.
 
-Weights use torch's Linear layout: ``w1`` (8C, C), ``w2`` (C, 4C).
+Weights use torch's Linear layout: ``w1`` (8C, C), ``w2`` (C, 4C); a
+tensor-parallel shard of the GEGLU units (``parallel/tensor_parallel.py``)
+passes ``w1`` (2 inner, C), its value rows then its gate rows, and ``w2``
+(C, inner), inner any multiple of 8 (the SVD UNet's shards: 4C / 2 and
+4C / 4).
 """
 
 from __future__ import annotations
@@ -29,15 +33,18 @@ from ..kernels import build
 TILE_ROWS, GEMM1_TN, GEMM2_TILES = 256, 80, (160, 128)
 
 
-def geglu_plan(rows: int, c: int, num_sms: int) -> dict:
-    """Launch geometry of the kernel pair for x (rows, c) on a card with
-    ``num_sms`` SMs: GEMM-2's N tile (the one that computes the fewest
-    columns, the larger on a tie: 160 at C = 320, 640 and 1280, where
-    none is wasted), each GEMM's output tiles and its persistent grid
-    (one block per SM, at most one per tile)."""
+def geglu_plan(rows: int, c: int, num_sms: int,
+               inner: int | None = None) -> dict:
+    """Launch geometry of the kernel pair for x (rows, c) and ``inner``
+    GEGLU units (4c by default) on a card with ``num_sms`` SMs: GEMM-2's N
+    tile (the one that computes the fewest columns, the larger on a tie:
+    160 at C = 320, 640 and 1280, where none is wasted), each GEMM's output
+    tiles and its persistent grid (one block per SM, at most one per
+    tile)."""
+    inner = 4 * c if inner is None else inner
     bn2 = min(GEMM2_TILES, key=lambda n: (-(-c // n) * n, -n))
     m_tiles = -(-rows // TILE_ROWS)
-    tiles1 = m_tiles * -(-4 * c // GEMM1_TN)
+    tiles1 = m_tiles * -(-inner // GEMM1_TN)
     tiles2 = m_tiles * -(-c // bn2)
     return dict(bn2=bn2, tiles1=tiles1, tiles2=tiles2,
                 grid1=min(tiles1, num_sms), grid2=min(tiles2, num_sms))
@@ -65,33 +72,38 @@ def geglu_ffn_reference(x2: torch.Tensor, w1, b1, w2, b2) -> torch.Tensor:
     return torch.matmul(prod, w2.to(dt).t()) + b2.to(dt)
 
 
-def check_geglu_args(x2: torch.Tensor, w1, b1, w2, b2) -> tuple[int, int]:
-    """(rows, C) of what the kernel takes: bf16 x (rows, C) with C % 8 == 0
-    (TMA needs 16-byte row strides) and weights of those widths; raises on
-    anything else."""
+def check_geglu_args(x2: torch.Tensor, w1, b1, w2,
+                     b2) -> tuple[int, int, int]:
+    """(rows, C, inner) of what the kernel takes: bf16 x (rows, C) with C
+    and inner (w2's columns) multiples of 8 (TMA needs 16-byte row
+    strides) and weights of those widths; raises on anything else."""
     r, c = x2.shape
+    inner = w2.shape[-1]
     if x2.dtype != torch.bfloat16:
         raise TypeError(f"geglu_ffn kernel takes bfloat16, got {x2.dtype}")
-    if c % 8:
-        raise ValueError(f"geglu_ffn kernel needs C % 8 == 0, got C={c}")
-    if (tuple(w1.shape) != (8 * c, c) or tuple(b1.shape) != (8 * c,)
-            or tuple(w2.shape) != (c, 4 * c) or tuple(b2.shape) != (c,)):
+    if c % 8 or inner % 8 or inner < 8:
+        raise ValueError(f"geglu_ffn kernel needs C and inner multiples of "
+                         f"8, got C={c}, inner={inner}")
+    if (tuple(w1.shape) != (2 * inner, c) or tuple(b1.shape) != (2 * inner,)
+            or tuple(w2.shape) != (c, inner) or tuple(b2.shape) != (c,)):
         raise ValueError("geglu_ffn: weight shapes do not match C="
                          f"{c}: {w1.shape} {b1.shape} {w2.shape} {b2.shape}")
-    return r, c
+    return r, c, inner
 
 
 def _geglu_launch(x2: torch.Tensor, w1, b1, w2, b2) -> torch.Tensor:
-    """One launch of the kernel pair on CUDA tensors."""
-    r, c = check_geglu_args(x2, w1, b1, w2, b2)
+    """One launch of the kernel pair on CUDA tensors, on x2's card (its
+    current device and stream)."""
+    r, c, inner = check_geglu_args(x2, w1, b1, w2, b2)
     args = [aligned16(t.to(torch.bfloat16)) for t in (x2, w1, b1, w2, b2)]
-    plan = geglu_plan(r, c, _num_sms(x2.device))
-    h = torch.empty((r, 4 * c), dtype=torch.bfloat16, device=x2.device)
+    plan = geglu_plan(r, c, _num_sms(x2.device), inner)
+    h = torch.empty((r, inner), dtype=torch.bfloat16, device=x2.device)
     y = torch.empty((r, c), dtype=torch.bfloat16, device=x2.device)
-    stream = torch.cuda.current_stream(x2.device).cuda_stream
-    err = build.entry("geglu_ffn")(
-        *(t.data_ptr() for t in args), h.data_ptr(), y.data_ptr(), r, c,
-        plan["bn2"], plan["grid1"], plan["grid2"], stream)
+    with torch.cuda.device(x2.device):
+        err = build.entry("geglu_ffn")(
+            *(t.data_ptr() for t in args), h.data_ptr(), y.data_ptr(), r, c,
+            inner, plan["bn2"], plan["grid1"], plan["grid2"],
+            torch.cuda.current_stream(x2.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"geglu_ffn kernel launch failed: cudaError {err}")
     geglu_ffn.launches += 1

@@ -12,8 +12,10 @@ sums over equal items of rows on a grid sized to residency, folded by the
 last block of each batch element, in a fixed order, to the per-(B, C)
 affine ``a = rstd w``, ``b = bias - mean a``; ``group_norm_apply``:
 ``y = x a + b`` with the SiLU, one read-write pass over the same items;
-their launch plan is ``group_norm_plan``) replacing ``_gn_stats_kernel``
-and ``_gn_apply_kernel``, and ``csrc/layer_norm.cu`` (a persistent grid of
+their launch plan is ``group_norm_plan``; ``group_norm_sums``: the stats
+launch writing the per-(B, C) sums of x and x^2 in place of the affine,
+for a GroupNorm whose rows lie on several devices) replacing
+``_gn_stats_kernel`` and ``_gn_apply_kernel``, and ``csrc/layer_norm.cu`` (a persistent grid of
 warps over groups of rows, weight and bias held in registers in their own
 dtype; its launch plan is ``layer_norm_plan``) replacing ``_ln_kernel``.
 On a CPU tensor they run the plain versions. A CUDA tensor never falls
@@ -69,18 +71,39 @@ contiguous_counted.copies = 0
 
 # -- plain versions ----------------------------------------------------------
 
-def _group_stats(xf: torch.Tensor, num_groups: int, eps: float):
-    """Per-(B, C) float32 mean and rstd of their groups: per-(B, C) sums of
-    x and x^2 over S, folded per group, var = E[x^2] - mean^2."""
-    b, s, c = xf.shape
+def group_norm_sums_reference(x3: torch.Tensor) -> torch.Tensor:
+    """Plain version of the sums launch: (2, B, C) float32, the per-(B, C)
+    sums of x and of x^2 over S."""
+    xf = x3.float()
+    return torch.stack([xf.sum(dim=1), (xf * xf).sum(dim=1)])
+
+
+def _fold(sums: torch.Tensor, rows: int, num_groups: int, eps: float):
+    """Per-(B, C) float32 mean and rstd of their groups from the (2, B, C)
+    sums over ``rows`` rows: folded per group, var = E[x^2] - mean^2."""
+    _, b, c = sums.shape
     cg = c // num_groups
-    n = s * cg
-    mean = xf.sum(dim=1).reshape(b, num_groups, cg).sum(-1) / n
-    var = (xf * xf).sum(dim=1).reshape(b, num_groups, cg).sum(-1) / n \
-        - mean * mean
+    n = rows * cg
+    mean = sums[0].reshape(b, num_groups, cg).sum(-1) / n
+    var = sums[1].reshape(b, num_groups, cg).sum(-1) / n - mean * mean
     rstd = torch.rsqrt(var + eps)
     return (mean.repeat_interleave(cg, dim=-1),
             rstd.repeat_interleave(cg, dim=-1))
+
+
+def group_norm_affine_from_sums(sums: torch.Tensor, rows: int, weight, bias,
+                                num_groups: int, eps: float):
+    """The per-(B, C) float32 affine (a, b) of GroupNorm from the (2, B, C)
+    sums of x and x^2 over ``rows`` rows (pallas_norm.py:147-156): a few
+    elementwise operations on B x C values."""
+    mean, rstd = _fold(sums, rows, num_groups, eps)
+    a = rstd * weight.float()
+    return a, bias.float() - mean * a
+
+
+def _group_stats(xf: torch.Tensor, num_groups: int, eps: float):
+    """Per-(B, C) float32 mean and rstd of their groups over S."""
+    return _fold(group_norm_sums_reference(xf), xf.shape[1], num_groups, eps)
 
 
 def group_norm_reference(x3: torch.Tensor, weight, bias, num_groups: int,
@@ -100,9 +123,9 @@ def group_norm_affine_reference(x3: torch.Tensor, weight, bias,
                                 num_groups: int, eps: float):
     """Plain version of the stats kernels: the per-(B, C) float32 affine
     (a, b) with a = rstd w and b = bias - mean a (pallas_norm.py:147-156)."""
-    mean, rstd = _group_stats(x3.float(), num_groups, eps)
-    a = rstd * weight.float()
-    return a, bias.float() - mean * a
+    return group_norm_affine_from_sums(group_norm_sums_reference(x3),
+                                       x3.shape[1], weight, bias, num_groups,
+                                       eps)
 
 
 def group_norm_apply_reference(x3: torch.Tensor, a: torch.Tensor,
@@ -164,12 +187,14 @@ def _affine_param(t, c: int, device,
 
 
 def _launch(name: str, fn_name: str | None, device, *args) -> int:
-    """Calls kernel entry ``fn_name`` of library ``name`` on ``device``'s
-    current stream, each tensor of ``args`` as its device pointer; returns
-    the cudaError."""
-    return build.entry(name, fn_name)(
-        *(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args),
-        torch.cuda.current_stream(device).cuda_stream)
+    """Calls kernel entry ``fn_name`` of library ``name`` with ``device``
+    current, on its current stream, each tensor of ``args`` as its device
+    pointer; returns the cudaError."""
+    with torch.cuda.device(device):
+        return build.entry(name, fn_name)(
+            *(a.data_ptr() if isinstance(a, torch.Tensor) else a
+              for a in args),
+            torch.cuda.current_stream(device).cuda_stream)
 
 
 def group_norm_threads(c: int, dtype: torch.dtype, kernel: str) -> int:
@@ -341,6 +366,28 @@ def group_norm_stats(x3: torch.Tensor, weight, bias, num_groups: int,
                            f"cudaError {err}")
     group_norm.launches["stats"] += 1
     return ab[0], ab[1]
+
+
+def group_norm_sums(x3: torch.Tensor) -> torch.Tensor:
+    """(2, B, C) float32: the per-(B, C) sums of x and of x^2 over S, the
+    stats kernel's sums launch for a CUDA tensor (counted as a stats
+    launch), the plain version for a CPU tensor."""
+    if x3.device.type == "cpu":
+        return group_norm_sums_reference(x3)
+    _check_input("group_norm", x3, 3)
+    b, s, c = x3.shape
+    plan = _gn_launch_plan(0, x3, False, 1)
+    part, counters = _gn_buffers(x3.device, plan["slots"] * 2 * c, b)
+    out = torch.empty((2, b, c), dtype=torch.float32, device=x3.device)
+    err = _launch("group_norm", "syn3r_gn_sums", x3.device, x3, part,
+                  counters, out[0], out[1], b, s, c,
+                  int(x3.dtype == torch.bfloat16), plan["threads"],
+                  plan["grid"])
+    if err != 0:
+        raise RuntimeError(f"group_norm sums kernel launch failed: "
+                           f"cudaError {err}")
+    group_norm.launches["stats"] += 1
+    return out
 
 
 def group_norm_apply(x3: torch.Tensor, a: torch.Tensor, b: torch.Tensor,

@@ -31,8 +31,19 @@ The completion is any callable ``(image_start, cond_images, image_end,
 mask, lambda_ts, generator) -> (F, H, W, 3)``: a ``GuidedSVDPipeline`` or,
 without weights, ``_warp_only_completion``.
 
-Not ported, raising ``NotImplementedError``: ``pair_parallel``
-(multi-GPU).
+``pair_parallel`` (``--scene_parallel``) completes the uncached pairs in
+waves, as JAX's does: with ``pair_sharding`` (the pair placement of
+``parallel.mesh.make_scene_topology``) a wave is as many pairs as the pair
+axis has slots, padded by repeating its last pair (the padded slots run
+and are dropped: they write no cache), and pair k of a wave runs on slot
+k's devices with its generator there; without it one wave holds every
+pair, on one device, stacked into one UNet call a step (batch 3P for P
+pairs: DL3DV's 9 pairs would be a batch-27 forward, which does not fit
+an 80 GB card, and no CLI path asks for it). A completion with a
+``complete_wave`` method (``GuidedSVDPipeline``) takes the wave in
+lock-step from this thread; any other callable is called a pair at a time
+on its slot's device. Each pair keeps the sequential loop's generator
+seed, so a wave completes what the loop does.
 """
 
 from __future__ import annotations
@@ -45,6 +56,7 @@ import numpy as np
 import torch
 
 from ..gs.trainer import GSTrainer, order_cameras_tsp
+from ..parallel.mesh import to_device
 from ..utils.camera import Camera, make_camera
 from ..utils.debug_dump import dump_pair_debug
 from ..utils.image import (resize_bilinear, resize_cubic_antialiased,
@@ -89,10 +101,6 @@ class DiffusionGSConfig:
             raise ValueError(f"unknown densify_type {self.densify_type!r}")
         if self.interp_type not in ("backward_warp", "forward_warp"):
             raise ValueError(f"unknown interp_type {self.interp_type!r}")
-        if self.pair_parallel or self.pair_sharding is not None:
-            raise NotImplementedError(
-                "pair_parallel is multi-GPU, not ported (ROADMAP Queue 1, "
-                "multi-GPU)")
 
 
 class DiffusionGS:
@@ -228,6 +236,26 @@ class DiffusionGS:
             render_many_fn=self.render_many_diffusion_res)
         return poses, cond
 
+    def _complete_wave(self, conds: list, pis: list, cycle: int,
+                       placement) -> list:
+        """The completed frames of pairs ``pis`` (their conditionings
+        ``conds``), each with the generator ``seed + 1000 cycle + pair`` on
+        its device: slot k's first device of ``placement``, else the
+        trainer's. Several pairs go to the completion's ``complete_wave``
+        where it has one."""
+        seed = self.cfg.seed + 1000 * cycle
+        devs = [self.device if placement is None
+                else placement.slot_devices(k)[0] for k in range(len(conds))]
+        gens = [torch.Generator(device=d).manual_seed(seed + pi)
+                for d, pi in zip(devs, pis)]
+        jobs = [(c.image_start, c.cond_images, c.image_end, c.masks,
+                 c.lambda_ts) for c in conds]
+        wave = getattr(self.completion_fn, "complete_wave", None)
+        if wave is not None and len(jobs) > 1:
+            return wave(jobs, gens, placement)
+        return [self.completion_fn(*(to_device(t, d) for t in job), g)
+                for job, g, d in zip(jobs, gens, devs)]
+
     def densify_views(self, cycle: int, log_every: int = 0):
         """Completed frames (P, F, Hgs, Wgs, 3) and their poses
         (P, F, 4, 4) of every view pair, each pair cached."""
@@ -256,12 +284,7 @@ class DiffusionGS:
             pending.append((pi, cache, cond, poses))
 
         # phase 2: completion, endpoints back, GS resolution, cache
-        for pi, cache, cond, poses in pending:
-            gen = torch.Generator(device=self.device).manual_seed(
-                cfg.seed + 1000 * cycle + pi)
-            frames = self.completion_fn(cond.image_start, cond.cond_images,
-                                        cond.image_end, cond.masks,
-                                        cond.lambda_ts, gen)
+        def finish(pi, cache, cond, poses, frames):
             frames = frames.to(device=self.device, dtype=torch.float32)
             if cfg.save_debug:
                 dump_pair_debug(os.path.join(self.save_dir, "debug",
@@ -278,6 +301,24 @@ class DiffusionGS:
             results[pi] = (frames, poses)
             if log_every:
                 print(f"[densify] cycle {cycle} pair {pi} done")
+
+        if cfg.pair_parallel and len(pending) > 1:
+            pl = cfg.pair_sharding
+            shards = 1 if pl is None else pl.shards
+            wave = shards if pl is not None else len(pending)
+            for w0 in range(0, len(pending), wave):
+                batch = pending[w0:w0 + wave]
+                slots = batch + [batch[-1]] * ((-len(batch)) % shards)
+                frames = self._complete_wave(
+                    [c for _, _, c, _ in slots], [pi for pi, *_ in slots],
+                    cycle, pl)
+                # the padded slots' frames are dropped
+                for (pi, cache, cond, poses), f in zip(batch, frames):
+                    finish(pi, cache, cond, poses, f)
+        else:
+            for pi, cache, cond, poses in pending:
+                (frames,) = self._complete_wave([cond], [pi], cycle, None)
+                finish(pi, cache, cond, poses, frames)
 
         return (torch.stack([results[pi][0] for pi in range(num_pairs)]),
                 torch.stack([results[pi][1] for pi in range(num_pairs)]))

@@ -291,14 +291,39 @@ def _ffn_args(c, dtype=torch.bfloat16, rows=16):
 
 
 def test_geglu_kernel_refuses_unsupported_inputs():
-    assert G.check_geglu_args(*_ffn_args(24)) == (16, 24)
-    with pytest.raises(ValueError, match="C % 8"):
+    assert G.check_geglu_args(*_ffn_args(24)) == (16, 24, 96)
+    with pytest.raises(ValueError, match="multiples of 8"):
         G.check_geglu_args(*_ffn_args(12))
     with pytest.raises(TypeError, match="bfloat16"):
         G.check_geglu_args(*_ffn_args(32, torch.float32))
     x, w1, b1, w2, b2 = _ffn_args(32)
     with pytest.raises(ValueError, match="weight shapes"):
         G.check_geglu_args(x, w1[:-8], b1, w2, b2)
+
+
+def _ffn_shard_args(c, inner, rows=16):
+    x, w1, b1, w2, b2 = _ffn_args(c, rows=rows)
+    units = torch.cat([torch.arange(inner), 4 * c + torch.arange(inner)])
+    return x, w1[units], b1[units], w2[:, :inner].contiguous(), b2
+
+
+@pytest.mark.parametrize("c, parts", [(320, 2), (320, 4), (640, 2),
+                                      (640, 4), (1280, 2), (1280, 4)])
+def test_geglu_kernel_takes_tensor_parallel_shards(c, parts):
+    """The SVD UNet's FF split by GEGLU units over 2 or 4 cards: each
+    shard's inner width (4C / N) is taken, and its GEMM-1 tiles are the
+    whole FF's over N (4C / N is a multiple of the 80-column tile)."""
+    inner = 4 * c // parts
+    assert G.check_geglu_args(*_ffn_shard_args(c, inner)) == (16, c, inner)
+    whole = G.geglu_plan(75 * 576, c, H100_SMS)
+    shard = G.geglu_plan(75 * 576, c, H100_SMS, inner)
+    assert shard["tiles1"] * parts == whole["tiles1"]
+    assert shard["tiles2"] == whole["tiles2"] and shard["bn2"] == whole["bn2"]
+
+
+def test_geglu_kernel_refuses_shard_widths_off_8():
+    with pytest.raises(ValueError, match="multiples of 8"):
+        G.check_geglu_args(*_ffn_shard_args(32, 44))
 
 
 def test_flash_kernel_refuses_unsupported_inputs():
@@ -589,3 +614,84 @@ def test_group_norm_plan_refuses(c, dtype, groups, err, match):
     with pytest.raises(err, match=match):
         N.group_norm_plan(3, 64, c, dtype, H100_SMS, 4, kernel=kernel,
                           groups=groups)
+
+
+def _cpu_routes():
+    """(name, wrapper call on CPU tensors, its plain version or None where
+    the wrapper is a launch that takes CUDA tensors only)."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((16, 32), generator=g)
+    w1, b1 = torch.randn((256, 32), generator=g), torch.randn(256, generator=g)
+    w2, b2 = torch.randn((32, 128), generator=g), torch.randn(32, generator=g)
+    q, k, v = (torch.randn((1, 2, 600, 64), generator=g) for _ in range(3))
+    x3 = torch.randn((2, 40, 64), generator=g)
+    gw, gb = torch.randn(64, generator=g), torch.randn(64, generator=g)
+    T, px, cap, K = 2, 64, 128, 64
+    P = torch.rand((6, px), generator=g)
+    Gm, Cm = torch.rand((T, 6, cap), generator=g), torch.rand((T, 5, cap),
+                                                              generator=g)
+    Om = torch.rand((T, 1, cap), generator=g)
+    return [
+        ("geglu_ffn", lambda: G.geglu_ffn(x, w1, b1, w2, b2),
+         lambda: G.geglu_ffn_reference(x, w1, b1, w2, b2)),
+        ("geglu_launch", lambda: G._geglu_launch(
+            x.bfloat16(), w1, b1, w2, b2), None),
+        ("flash_attention", lambda: A.flash_attention(q, k, v, 0.125),
+         lambda: A.attention_chunked(q, k, v, 0.125)),
+        ("flash_forward", lambda: A._flash_forward(
+            q.bfloat16(), k.bfloat16(), v.bfloat16(), 0.125, False), None),
+        ("flash_attention_bwd", lambda: A.flash_attention_bwd(
+            *(t.bfloat16() for t in (q, k, v, q)),
+            torch.zeros((1, 2, 600)), q.bfloat16(), 0.125), None),
+        ("group_norm", lambda: N.group_norm(x3, gw, gb, 32, 1e-6, True),
+         lambda: N.group_norm_reference(x3, gw, gb, 32, 1e-6, True)),
+        ("group_norm_stats", lambda: N.group_norm_stats(x3, gw, gb, 32,
+                                                        1e-6),
+         lambda: N.group_norm_affine_reference(x3, gw, gb, 32, 1e-6)),
+        ("group_norm_sums", lambda: N.group_norm_sums(x3),
+         lambda: N.group_norm_sums_reference(x3)),
+        ("group_norm_apply", lambda: N.group_norm_apply(
+            x3, gw[None].expand(2, -1), gb[None].expand(2, -1), True),
+         lambda: N.group_norm_apply_reference(
+            x3, gw[None].expand(2, -1), gb[None].expand(2, -1), True)),
+        ("layer_norm", lambda: N.layer_norm(x, w2[:, 0], b2, 1e-5),
+         lambda: N.layer_norm_reference(x, w2[:, 0], b2, 1e-5)),
+        ("composite_fwd", lambda: TC.composite_fwd(P, Gm, Cm, Om, K),
+         lambda: TC.composite_fwd_reference(P, Gm, Cm, Om, K)),
+        ("composite_fwd_launch", lambda: TC.composite_fwd_launch(
+            P, Gm, Cm, Om, K), None),
+        ("composite_bwd_launch", lambda: TC.composite_bwd_launch(
+            P, Gm, Cm, Om, torch.zeros((T, cap // K, px)),
+            torch.zeros((T, 6, px)), K), None),
+    ]
+
+
+@pytest.mark.parametrize("case", range(len(_cpu_routes())),
+                         ids=[c[0] for c in _cpu_routes()])
+def test_wrappers_route_cpu_tensors_as_before(case):
+    """Every kernel wrapper, now launching under its tensor's device
+    guard, still takes its plain version for CPU tensors, and a launch
+    that takes CUDA tensors only still refuses them."""
+    name, call, plain = _cpu_routes()[case]
+    if plain is None:
+        with pytest.raises((ValueError, RuntimeError, AssertionError)):
+            call()
+        return
+    got, want = call(), plain()
+    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert torch.equal(a, b), name
+
+
+def test_group_norm_affine_from_sums_is_the_affine_of_the_whole():
+    """A GroupNorm's rows split over shards: the shards' sums added in
+    order and folded give the whole tensor's affine (the frame-sharded
+    GroupNorm's route)."""
+    g = torch.Generator().manual_seed(6)
+    x3 = torch.randn((2, 50, 64), generator=g) * 1.5 + 0.2
+    w, b = torch.randn(64, generator=g), torch.randn(64, generator=g)
+    sums = N.group_norm_sums(x3[:, :27]) + N.group_norm_sums(x3[:, 27:])
+    got = N.group_norm_affine_from_sums(sums, 50, w, b, 32, 1e-6)
+    want = N.group_norm_affine_reference(x3, w, b, 32, 1e-6)
+    for a, e in zip(got, want):
+        torch.testing.assert_close(a, e, rtol=1e-5, atol=1e-6)

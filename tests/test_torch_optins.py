@@ -136,11 +136,18 @@ def test_direction_parallel_with_reuse_matches_jax(unets):
 
 
 def test_config_rules():
-    """JAX's __post_init__ rule (guidance_through_unet turns
-    direction_parallel off) and the one multi-GPU field, which raises."""
+    """JAX's __post_init__ rules: guidance_through_unet turns
+    direction_parallel off, a dir placement turns it on (and must split
+    its axis over 2 devices)."""
+    from syn3r_tpu_torch.parallel.mesh import make_mesh, sharded
     assert not GuidedSVDConfig(guidance_through_unet=True,
                                direction_parallel=True).direction_parallel
     assert GuidedSVDConfig(direction_parallel=True).direction_parallel
     assert GuidedSVDConfig().fused_guidance_cfg
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        GuidedSVDConfig(direction_sharding=object())
+    dir2 = sharded(make_mesh(axis_name="dir", devices=["cpu"] * 2), "dir")
+    assert GuidedSVDConfig(direction_sharding=dir2).direction_parallel
+    assert GuidedSVDConfig(direction_sharding=dir2,
+                           guidance_through_unet=True).direction_parallel
+    with pytest.raises(ValueError, match="over 2 devices"):
+        GuidedSVDConfig(direction_sharding=sharded(make_mesh(
+            axis_name="dir", devices=["cpu"] * 4), "dir"))

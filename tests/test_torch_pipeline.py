@@ -269,8 +269,13 @@ def test_prob_denoise_matches_jax(pipelines):
 
 
 def test_deferred_options_raise():
-    with pytest.raises(NotImplementedError):
-        GuidedSVDConfig(direction_sharding=object())
+    """direction_sharding, once deferred, turns direction_parallel on as
+    JAX's does; an unknown variant still raises."""
+    from syn3r_tpu_torch.parallel.mesh import make_scene_topology
+    _, dir_sh = make_scene_topology(["cpu"] * 2)
+    cfg = GuidedSVDConfig(direction_sharding=dir_sh)
+    assert cfg.direction_parallel and dir_sh.mesh.shape == {"pair": 1,
+                                                            "dir": 2}
     with pytest.raises(ValueError, match="unknown variant"):
         GuidedSVDConfig(variant="pro")
 

@@ -20,6 +20,7 @@ absolute (the bound of tests/test_torch_gs_segments.py).
 """
 import dataclasses
 import os
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -458,17 +459,24 @@ def test_cli_train_dtu_flags_on_cpu(scene_dir, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--scene_parallel", "on"]])
-def test_deferred_flags_raise(tmp_path, flags):
-    """Each deferred flag raises before the scene is read."""
-    with pytest.raises(NotImplementedError, match="not ported"):
+def test_deferred_flags_raise(tmp_path, flags, monkeypatch):
+    """--scene_parallel on with one device exits with JAX's message (the
+    scene itself is read first, as JAX's main does)."""
+    import syn3r_tpu_torch.gs.scene as scene_mod
+    monkeypatch.setattr(scene_mod, "load_colmap_scene",
+                        lambda *a, **k: types.SimpleNamespace(
+                            train_cameras=[], test_cameras=[],
+                            points_xyz=np.zeros((0, 3))))
+    with pytest.raises(SystemExit, match="requires >= 2 devices"):
         CLI.main(["-s", str(tmp_path / "missing"), "-m", str(tmp_path / "m"),
                   "--device", "cpu", *flags])
 
 
 def test_deferred_options_raise(cloud, tmp_path):
+    """pair_parallel, once deferred, now builds (its waves are held in
+    tests/test_torch_scene_parallel.py)."""
     _, ttr, _ = _trainers(cloud, tmp_path)
-    with pytest.raises(NotImplementedError):
-        TO.DiffusionGSConfig(pair_parallel=True)
+    assert TO.DiffusionGSConfig(pair_parallel=True).pair_parallel
     runner = TO.DiffusionGS(ttr, TO.DiffusionGSConfig(),
                             save_dir=str(tmp_path / "d"))
     assert runner.densify_pcds(None, None, 0) is None
