@@ -1,0 +1,15 @@
+"""denoise.geglu_roofline: the GEGLU feed-forward kernel (ffn_wgmma_kernel, both GEMMs): its roofline bound
+(counts/unet.py: the larger of operations over the bf16 peak and bytes over
+the HBM peak), at the shapes of the traced call's forwards, over its device
+time in the profiler's trace of that call."""
+
+KERNELS = ("ffn_wgmma_kernel",)
+
+
+def read(ctx):
+    if ctx.get("kind") != "denoise":
+        return None
+    spent = ctx["profile"].kernel_s(*KERNELS)
+    if spent <= 0:
+        return None
+    return 100.0 * ctx["traced_bound_s"]["geglu"] / spent

@@ -1,0 +1,8 @@
+"""denoise.idle_share: the share of the traced call's wall time in which no
+operation ran on the device (1 - busy / wall, one stream)."""
+
+
+def read(ctx):
+    if ctx.get("kind") != "denoise" or ctx["traced_wall_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - ctx["busy_s"] / ctx["traced_wall_s"])
