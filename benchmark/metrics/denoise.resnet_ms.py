@@ -1,0 +1,14 @@
+"""denoise.resnet_ms: the device time of the kernels launched inside the
+port's ``unet.resnet`` spans (the spatial and temporal resnets of each
+SpatioTemporalResBlock and their mixer) in the profiler's trace of one
+call, per UNet forward (``unet.forward`` span) of that call
+(``harness/spans.py``)."""
+
+from harness import spans
+
+
+def read(ctx):
+    if ctx.get("kind") != "denoise":
+        return None
+    s = spans.of(ctx["profile"])
+    return s.per(s.under("unet.resnet"), "unet.forward")

@@ -280,6 +280,7 @@ from syn3r_tpu_torch.utils import colmap as CM
 from syn3r_tpu_torch.utils.camera import (camera_from_fov, look_at_w2c,
                                           stack_cameras)
 from syn3r_tpu_torch.utils.params import load_params, save_params
+from syn3r_tpu_torch.utils.profiling import counters
 from syn3r_tpu_torch.utils.ply import read_ply_points
 from syn3r_tpu_torch.vision import dust3r as D3
 from syn3r_tpu_torch.vision import gmflow_public as GF
@@ -520,26 +521,37 @@ def say(phase, **kv):
           flush=True)
 
 
+# each kernel's key in the launch counters (utils.profiling.counters)
+LAUNCH_KEYS = {"geglu_ffn": "launches.geglu_ffn",
+               "flash_attention": "launches.flash",
+               "flash_attention_bwd_dkv": "launches.flash_bwd.dkv",
+               "flash_attention_bwd_dq": "launches.flash_bwd.dq",
+               "composite_fwd": "launches.composite_fwd",
+               "composite_bwd": "launches.composite_bwd",
+               "gn_stats": "launches.gn_stats",
+               "gn_apply": "launches.gn_apply",
+               "layer_norm": "launches.layer_norm"}
+
+
 def launch_counts():
     """Every kernel wrapper's launch count."""
-    return {"geglu_ffn": geglu_ffn.launches,
-            "flash_attention": A.flash_attention.launches,
-            "flash_attention_bwd_dkv": A.flash_attention_bwd.launches["dkv"],
-            "flash_attention_bwd_dq": A.flash_attention_bwd.launches["dq"],
-            "composite_fwd": TC.composite_tiles.launches["fwd"],
-            "composite_bwd": TC.composite_tiles.launches["bwd"],
-            "gn_stats": N.group_norm.launches["stats"],
-            "gn_apply": N.group_norm.launches["apply"],
-            "layer_norm": N.layer_norm.launches}
+    return {name: counters[key] for name, key in LAUNCH_KEYS.items()}
 
 
 def zero_counts():
-    geglu_ffn.launches = 0
-    A.flash_attention.launches = 0
-    A.flash_attention_bwd.launches.update(dkv=0, dq=0)
-    TC.composite_tiles.launches.update(fwd=0, bwd=0)
-    N.group_norm.launches.update(stats=0, apply=0)
-    N.layer_norm.launches = 0
+    for key in LAUNCH_KEYS.values():
+        counters[key] = 0
+
+
+def composite_launches() -> dict:
+    """The composite wrappers' launches, {"fwd": n, "bwd": n}."""
+    return {"fwd": counters["launches.composite_fwd"],
+            "bwd": counters["launches.composite_bwd"]}
+
+
+def zero_composite():
+    counters["launches.composite_fwd"] = 0
+    counters["launches.composite_bwd"] = 0
 
 
 def norm_modules(module):
@@ -753,7 +765,7 @@ def run_unit(dev):
     census.watch(pipe.m.vae.decoder, "vae_decode")
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    N.contiguous_counted.copies = 0
+    counters["norm.copies"] = 0
     stage = {}
     t0 = time.perf_counter()
     clip_s, clip_e, cond, _, _ = pipe.encode_conditioning(
@@ -771,7 +783,7 @@ def run_unit(dev):
     torch.cuda.synchronize()
     stage["decode_s"] = time.perf_counter() - t0
     launches = launch_counts()
-    norm_copies = N.contiguous_counted.copies
+    norm_copies = counters["norm.copies"]
     census.close()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -1013,10 +1025,11 @@ def check_bwd_layouts(gen, dev):
                 q.shape, q.stride(), q.data_ptr(), A.FLASH_BWD_ROWS):
             raise AssertionError("misaligned backward input maps as it is")
         out, lse = A._flash_forward(q, k, v, 0.125, with_lse=True)
-        before = dict(A.flash_attention_bwd.launches)
+        before = {n: counters[f"launches.flash_bwd.{n}"]
+                  for n in ("dkv", "dq")}
         got = A.flash_attention_bwd(q, k, v, out, lse, dout, 0.125)
         torch.cuda.synchronize()
-        launched = {n: A.flash_attention_bwd.launches[n] - before[n]
+        launched = {n: counters[f"launches.flash_bwd.{n}"] - before[n]
                     for n in before}
         want = A.flash_attention_bwd_reference(q, k, v, out, lse, dout,
                                                0.125)
@@ -1484,14 +1497,14 @@ def check_gs_small(dev):
     st, cam, target = small_gs_state("cpu")
     cfg = TrainConfig(tile_cap=256, chunk=128, densify_from_iter=10 ** 9)
     views = make_viewset([cam], target[None])
-    TC.composite_tiles.launches.update(fwd=0, bwd=0)
+    zero_composite()
     out = {}
     for d in ("cpu", dev):
         tr = GSTrainer(views, cfg, st, model_path=os.path.join(
             BUILD_OUT, "gs_small"), device=d)
         cam_d, img_d = tr.train_views.view(0)
         out[str(d)] = tr._train_step(tr.state, cam_d, img_d)
-    launches = dict(TC.composite_tiles.launches)
+    launches = composite_launches()
     (ts_c, m_c), (ts_d, m_d) = out["cpu"], out[str(dev)]
     res = {"loss": check_close("gs_small loss", m_d["loss"].cpu(),
                                m_c["loss"], 0.0, 1e-5)}
@@ -1594,14 +1607,14 @@ def run_gs(dev, iters=GS_ITERS):
     torch.cuda.reset_peak_memory_stats()
     active0, cap0 = tr.gaussians.num_active, tr.gaussians.capacity
     builds0 = dict(tr.graph_builds)
-    TC.composite_tiles.launches.update(fwd=0, bwd=0)
+    zero_composite()
     loss0 = view_loss()
     t0 = time.perf_counter()
     last = tr.training(log_every=50)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     loss1 = view_loss()
-    launches = dict(TC.composite_tiles.launches)
+    launches = composite_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     active1, cap1 = tr.gaussians.num_active, tr.gaussians.capacity
     captures = {k: tr.graph_builds[k] - builds0[k] for k in builds0}
@@ -2527,7 +2540,7 @@ def run_lpips(dev):
     runs = {}
     for name, per_step in (("graph", False), ("eager", True)):
         from_start(tr, s0, per_step)
-        TC.composite_tiles.launches.update(fwd=0, bwd=0)
+        zero_composite()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss = tr._run_loop(0, LPIPS_STEPS, densify=False,
@@ -2535,7 +2548,7 @@ def run_lpips(dev):
         torch.cuda.synchronize()
         runs[name] = dict(state=tr.state, loss=loss,
                           seconds=time.perf_counter() - t0,
-                          launches=dict(TC.composite_tiles.launches))
+                          launches=composite_launches())
     tr.__dict__.pop("_merged_views", None)
     seg_on = tr._segments
     errs = state_errors(runs["graph"]["state"], runs["eager"]["state"])
@@ -2868,7 +2881,7 @@ def run_mono(dev):
     for name, per_step in (("graph", False), ("eager", True)):
         from_start(tr, s0, per_step)
         calls.clear()
-        TC.composite_tiles.launches.update(fwd=0, bwd=0)
+        zero_composite()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss = tr._run_loop(0, MONO_ITERS, densify=False,
@@ -2876,7 +2889,7 @@ def run_mono(dev):
         torch.cuda.synchronize()
         runs[name] = dict(state=tr.state, loss=loss,
                           seconds=time.perf_counter() - t0,
-                          launches=dict(TC.composite_tiles.launches),
+                          launches=composite_launches(),
                           pseudo_steps=len(calls))
     tr.__dict__.pop("_merged_views", None)
     n_pseudo = MONO_ITERS // MONO_INTERVAL
@@ -3291,9 +3304,7 @@ def run_parallel(dev, unit, scene_total_s, known_shapes, known_norms):
 class ShapeRecorder:
     """A kernel wrapper that counts its calls by the shape of the first
     argument in ``calls`` (a GEGLU call of a tensor-parallel shard adds its
-    inner width) and passes each on; ``launches`` is the wrapper's own
-    count (the wrapper adds to it under its module-level name, which the
-    recorder takes while active)."""
+    inner width) and passes each on."""
 
     def __init__(self, name, fn, calls):
         self.name, self.fn, self.calls = name, fn, calls
@@ -3304,14 +3315,6 @@ class ShapeRecorder:
             key = (self.name, tuple(x.shape) + (args[2].shape[1],))
         self.calls[key] = self.calls.get(key, 0) + 1
         return self.fn(x, *args)
-
-    @property
-    def launches(self):
-        return self.fn.launches
-
-    @launches.setter
-    def launches(self, n):
-        self.fn.launches = n
 
 
 class KernelShapes:

@@ -45,6 +45,13 @@ a lambda schedule, and returns the completed frames.
     chunk size changes the pixels).
 
 Images are (H, W, 3) in [0, 1], latents (F, h, w, 4), as in JAX.
+
+Spans (``utils.profiling.span``) mark the denoise loop's layers in a
+profiler's trace: ``denoise.call`` (every draw and step of a call),
+``denoise.step`` (one step of every pair and direction, and the merge), in
+it ``denoise.unet`` (a UNet call with its stacking and casts),
+``denoise.guidance`` (the guidance gradient), ``denoise.update`` (the CFG
+combination and the scheduler step) and ``denoise.merge``.
 """
 
 from __future__ import annotations
@@ -64,6 +71,7 @@ from ..models.vae import AutoencoderKLTemporalDecoder
 from ..parallel.mesh import Mesh, module_replicas, to_device
 from ..utils.image import resize_antialiased, to_01, to_neg1_1
 from ..utils.params import load_params
+from ..utils.profiling import span
 from . import scheduler as S
 
 FACTOR_S = 5.6  # reference SVD_2pass_prob_uncertain_post.py:609
@@ -297,11 +305,12 @@ class GuidedSVDPipeline:
         batch, with ``groups`` its batch_groups; the eps of each part,
         float32."""
         dt = self.cfg.compute_dtype
-        sample = torch.cat([x for x, _ in parts])
-        ehs = torch.cat([e for _, e in parts])
-        eps = self.m.unet(sample.to(dt), t, ehs.to(dt),
-                          self._added_time_ids(sample.shape[0]),
-                          tuple(groups)).float()
+        with span("denoise.unet"):
+            sample = torch.cat([x for x, _ in parts])
+            ehs = torch.cat([e for _, e in parts])
+            eps = self.m.unet(sample.to(dt), t, ehs.to(dt),
+                              self._added_time_ids(sample.shape[0]),
+                              tuple(groups)).float()
         return list(eps.split([x.shape[0] for x, _ in parts]))
 
     def _unet_remat(self, sample, t, ehs, tids):
@@ -309,8 +318,9 @@ class GuidedSVDPipeline:
         live activations stay one block's, so the full-resolution
         (25 x 72x128) guided step fits the card."""
         dt = self.cfg.compute_dtype
-        return self.m.unet(sample.to(dt), t, ehs.to(dt), tids,
-                           remat_blocks=True).float()
+        with span("denoise.unet"):
+            return self.m.unet(sample.to(dt), t, ehs.to(dt), tids,
+                               remat_blocks=True).float()
 
     def _unet_guidance_grad(self, latents, step_i, clip_emb, cond, msk, lam,
                             img_lat):
@@ -358,11 +368,12 @@ class GuidedSVDPipeline:
             # (F, C, h, w)
             out = []
             for e2, d in zip(cfg_pair(), dirs):
-                eps = e2[0] + guidance * (e2[1] - e2[0])
-                prev, _ = S.step_interp_prob_uncertain(
-                    sch, eps.permute(0, 3, 1, 2),
-                    d.latents.permute(0, 3, 1, 2), step_i,
-                    d.cond.permute(0, 3, 1, 2), d.mask, d.lam)
+                with span("denoise.update"):
+                    eps = e2[0] + guidance * (e2[1] - e2[0])
+                    prev, _ = S.step_interp_prob_uncertain(
+                        sch, eps.permute(0, 3, 1, 2),
+                        d.latents.permute(0, 3, 1, 2), step_i,
+                        d.cond.permute(0, 3, 1, 2), d.mask, d.lam)
                 out.append(prev.permute(0, 2, 3, 1))
             return out
         if cfg.guidance_through_unet:
@@ -371,11 +382,15 @@ class GuidedSVDPipeline:
             # from the POST-grad ones (one direction: direction_parallel
             # is off)
             (d,) = dirs
-            grad = self._unet_guidance_grad(d.latents, step_i, d.clip_emb,
-                                            d.cond, d.mask, d.lam, d.img_lat)
+            with span("denoise.guidance"):
+                grad = self._unet_guidance_grad(
+                    d.latents, step_i, d.clip_emb, d.cond, d.mask, d.lam,
+                    d.img_lat)
             (e2,) = cfg_pair()
-            eps = e2[0] + guidance * (e2[1] - e2[0])
-            return [S.step_interp(sch, eps, d.latents - grad, step_i)[0]]
+            with span("denoise.update"):
+                eps = e2[0] + guidance * (e2[1] - e2[0])
+                return [S.step_interp(sch, eps, d.latents - grad,
+                                      step_i)[0]]
         if cfg.guidance_reuse_cfg_uncond:
             # opt-in speed knob (documented divergence, see the config):
             # ONE batch-2 CFG forward at the pre-grad latents serves BOTH
@@ -409,14 +424,16 @@ class GuidedSVDPipeline:
         for g_eps, e2, d in zip(guide, pairs, dirs):
             # the closed-form 4-tile guidance gradient moves the latents;
             # the Euler step starts from the POST-grad latents
-            x0 = S.pred_original_sample(g_eps, d.latents, sigma)
-            grad = S.guidance_grad_tiled(
-                x0.permute(0, 3, 1, 2), d.cond.permute(0, 3, 1, 2), d.mask,
-                d.lam[step_i], sigma, lr=cfg.guidance_lr,
-                tile_mode=self._tile_mode(d.latents))
-            latents = d.latents - grad.permute(0, 2, 3, 1)
-            eps = e2[0] + guidance * (e2[1] - e2[0])
-            out.append(S.step_interp(sch, eps, latents, step_i)[0])
+            with span("denoise.guidance"):
+                x0 = S.pred_original_sample(g_eps, d.latents, sigma)
+                grad = S.guidance_grad_tiled(
+                    x0.permute(0, 3, 1, 2), d.cond.permute(0, 3, 1, 2),
+                    d.mask, d.lam[step_i], sigma, lr=cfg.guidance_lr,
+                    tile_mode=self._tile_mode(d.latents))
+            with span("denoise.update"):
+                latents = d.latents - grad.permute(0, 2, 3, 1)
+                eps = e2[0] + guidance * (e2[1] - e2[0])
+                out.append(S.step_interp(sch, eps, latents, step_i)[0])
         return out
 
     def _pair_state(self, units, noise_latents, clip_start, clip_end,
@@ -457,44 +474,49 @@ class GuidedSVDPipeline:
         issued before any merge."""
         cfg = self.cfg
         stack_dirs = cfg.direction_parallel and cfg.direction_sharding is None
-        # the directions' UNet calls, in issue order: {key: (unit, items)}
-        calls = {}
-        for i, (st, lat) in enumerate(zip(states, lats)):
-            for which, unit, lt, consts in (
-                    (0, st.units[0], lat, st.fwd),
-                    (1, st.units[1], to_device(lat.flip(0),
-                                               st.units[1].device), st.bwd)):
-                key = ((id(unit),) + (() if stack_dirs else (which,))
-                       + (() if stack_pairs else (i,)))
-                calls.setdefault(key, (unit, []))[1].append(
-                    (i, which, _Direction(lt, *consts)))
-        outs = [[None, None] for _ in states]
-        for unit, items in calls.values():
-            if cfg.guidance_through_unet:     # one direction a call
-                groups = [[it] for it in items]
-            else:
-                groups = [items]
-            for group in groups:
-                res = unit._step([d for _, _, d in group], step_i,
-                                 unit.guidance)
-                for (i, which, _), r in zip(group, res):
-                    outs[i][which] = r
-        return [st.weight_fw * fwd + (1 - st.weight_fw)
-                * to_device(bwd, fwd.device).flip(0)
-                for st, (fwd, bwd) in zip(states, outs)]
+        with span("denoise.step"):
+            # the directions' UNet calls, in issue order: {key: (unit,
+            # items)}
+            calls = {}
+            for i, (st, lat) in enumerate(zip(states, lats)):
+                for which, unit, lt, consts in (
+                        (0, st.units[0], lat, st.fwd),
+                        (1, st.units[1], to_device(lat.flip(0),
+                                                   st.units[1].device),
+                         st.bwd)):
+                    key = ((id(unit),) + (() if stack_dirs else (which,))
+                           + (() if stack_pairs else (i,)))
+                    calls.setdefault(key, (unit, []))[1].append(
+                        (i, which, _Direction(lt, *consts)))
+            outs = [[None, None] for _ in states]
+            for unit, items in calls.values():
+                if cfg.guidance_through_unet:     # one direction a call
+                    groups = [[it] for it in items]
+                else:
+                    groups = [items]
+                for group in groups:
+                    res = unit._step([d for _, _, d in group], step_i,
+                                     unit.guidance)
+                    for (i, which, _), r in zip(group, res):
+                        outs[i][which] = r
+            with span("denoise.merge"):
+                return [st.weight_fw * fwd + (1 - st.weight_fw)
+                        * to_device(bwd, fwd.device).flip(0)
+                        for st, (fwd, bwd) in zip(states, outs)]
 
     def _denoise_states(self, states: list,
                         stack_pairs: bool = False) -> list:
         """Every draw of every pair of ``states``, the pairs' steps in
         lock-step; each pair's mean over its draws."""
         outs = [[] for _ in states]
-        for li in range(states[0].draws.shape[0]):
-            lats = [st.draws[li] for st in states]
-            for step_i in range(self.cfg.num_inference_steps):
-                lats = self._advance(states, lats, step_i, stack_pairs)
-            for o, lat in zip(outs, lats):
-                o.append(lat)
-        return [torch.stack(o).mean(dim=0) for o in outs]
+        with span("denoise.call"):
+            for li in range(states[0].draws.shape[0]):
+                lats = [st.draws[li] for st in states]
+                for step_i in range(self.cfg.num_inference_steps):
+                    lats = self._advance(states, lats, step_i, stack_pairs)
+                for o, lat in zip(outs, lats):
+                    o.append(lat)
+            return [torch.stack(o).mean(dim=0) for o in outs]
 
     @torch.no_grad()
     def denoise(self, noise_latents, clip_start, clip_end, cond_latents,

@@ -16,16 +16,18 @@ real state after building the holder), captures one call with
 fails raises: nothing falls back to the eager step. On the CPU ``run(n)``
 calls ``body`` n times.
 
-A replay runs no Python, so the kernel wrappers' launch counters (dicts of
-ints such as ``composite_tiles.launches``) would stop: the holder records
-what the captured call added to each counter and adds it once per replay.
-The warm-up's and the capture's own additions are taken back, so the
-counters read as if only the replayed steps had run.
+A replay runs no Python, so the kernel wrappers' launch counts in
+``utils.profiling.counters`` would stop: the holder records what the
+captured call added to the registry and adds it once per replay. The
+warm-up's and the capture's own additions are taken back, so the
+registry reads as if only the replayed steps had run.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..utils.profiling import counters
 
 
 class StepGraph:
@@ -35,31 +37,30 @@ class StepGraph:
     holder when its key changes."""
 
     def __init__(self, key, bufs: dict, body, device: torch.device,
-                 counters=(), warmup: int = 3):
+                 warmup: int = 3):
         self.key = key
         self.bufs = bufs
         self.body = body
-        self.counters = list(counters)
         self.graph = None
-        self.per_replay = [{} for _ in self.counters]
+        self.per_replay = {}
         if device.type != "cuda":
             return
-        before = [dict(c) for c in self.counters]
+        before = dict(counters)
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
             for _ in range(warmup):
                 body(bufs)
         torch.cuda.current_stream(device).wait_stream(side)
-        start = [dict(c) for c in self.counters]
+        start = dict(counters)
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
             body(bufs)
-        self.per_replay = [{k: c[k] - s.get(k, 0) for k in c}
-                           for c, s in zip(self.counters, start)]
-        for c, b in zip(self.counters, before):
-            c.clear()
-            c.update(b)
+        self.per_replay = {k: v - start.get(k, 0)
+                           for k, v in counters.items()
+                           if v != start.get(k, 0)}
+        counters.clear()
+        counters.update(before)
 
     def run(self, n: int):
         """``n`` steps: graph replays on the card, eager calls on the CPU."""
@@ -69,9 +70,8 @@ class StepGraph:
             return
         for _ in range(n):
             self.graph.replay()
-        for c, add in zip(self.counters, self.per_replay):
-            for k, v in add.items():
-                c[k] += n * v
+        for k, v in self.per_replay.items():
+            counters[k] += n * v
 
 
 def upload(dst: torch.Tensor, values) -> torch.Tensor:

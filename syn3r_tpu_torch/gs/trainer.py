@@ -62,7 +62,6 @@ from ..device import resolve_device
 from ..models import gaussians as G
 from ..models.lpips import LPIPS, lpips_module
 from ..ops import rasterize as rz
-from ..ops.composite import composite_tiles
 from ..utils import se3
 from ..utils.camera import Camera, make_camera, stack_cameras
 from . import losses
@@ -663,7 +662,7 @@ class GSTrainer:
             seg = StepGraph(key, bufs,
                             lambda b: self._static_step(b, use_depth,
                                                         use_lpips),
-                            self.device, [composite_tiles.launches])
+                            self.device)
             self._segments = seg
             self.graph_builds["step"] += 1
         b = seg.bufs
@@ -822,8 +821,7 @@ class GSTrainer:
                 depth=torch.zeros((RENDER_FRAMES, h, w), device=dev))
             # the warm-up renders the batch's first cameras
             self._load_render_batch(bufs, cameras, 0)
-            rg = StepGraph(key, bufs, self._static_render, dev,
-                           [composite_tiles.launches])
+            rg = StepGraph(key, bufs, self._static_render, dev)
             self._renders[(h, w)] = rg
             self.graph_builds["render"] += 1
         b = rg.bufs

@@ -16,6 +16,18 @@ The modules that hold frame-coupled work (the temporal resnets and
 transformers, and the blocks above them) write their forward as a
 generator ``steps`` (``layers.run_local``): a frame-sharded forward
 (``parallel/sequence_parallel.py``) runs the same code on each shard.
+
+Spans (``utils.profiling.span``) split a forward in a profiler's trace:
+``unet.forward`` holds ``unet.embed`` (the time and added embeddings,
+``conv_in``, the repeats over frames), each ``unet.resnet`` (children
+``unet.resnet.spatial`` and ``unet.resnet.temporal``; the mixer is the
+parent's own), each ``unet.transformer`` (children
+``unet.transformer.spatial`` and ``unet.transformer.temporal``; the
+GroupNorm, ``proj_in`` / ``proj_out``, the position embedding, reshapes
+and mixer are the parent's own), each down- or upsampler
+(``unet.sample``), each skip concatenation (``unet.skip``) and
+``unet.out`` (``conv_norm_out``, ``conv_out``). SVD-XT's forward has 22
+resnets, 16 transformers, 6 samplers and 12 skips.
 """
 
 from __future__ import annotations
@@ -26,6 +38,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..utils.profiling import span
 from .layers import (AlphaBlender, Attention, Conv2d, Downsample2D,
                      FeedForward, GroupNorm, LayerNorm, Linear, ResnetBlock2D,
                      Stepped, TemporalResnetBlock, TimestepEmbedding,
@@ -68,13 +81,17 @@ class SpatioTemporalResBlock(Stepped):
         self.time_mixer = AlphaBlender(switch_spatial_to_temporal_mix)
 
     def steps(self, x, temb, num_frames: int):
-        x = self.spatial_res_block(x, temb)
-        bf, h, w, c = x.shape
-        b = bf // num_frames
-        x5 = x.reshape(b, num_frames, h, w, c)
-        temb5 = temb.reshape(b, num_frames, -1) if temb is not None else None
-        xt = yield from self.temporal_res_block.steps(x5, temb5)
-        return self.time_mixer(x5, xt).reshape(bf, h, w, c)
+        with span("unet.resnet"):
+            with span("unet.resnet.spatial"):
+                x = self.spatial_res_block(x, temb)
+            bf, h, w, c = x.shape
+            b = bf // num_frames
+            x5 = x.reshape(b, num_frames, h, w, c)
+            temb5 = (temb.reshape(b, num_frames, -1) if temb is not None
+                     else None)
+            with span("unet.resnet.temporal"):
+                xt = yield from self.temporal_res_block.steps(x5, temb5)
+            return self.time_mixer(x5, xt).reshape(bf, h, w, c)
 
 
 class BasicTransformerBlock(nn.Module):
@@ -140,42 +157,47 @@ class TransformerSpatioTemporalModel(Stepped):
 
     def steps(self, x, context, num_frames: int,
               batch_groups: Optional[Tuple[int, ...]] = None):
-        bf, height, width, channels = x.shape
-        b = bf // num_frames
-        s = height * width
-        if isinstance(batch_groups, BatchWindow):
-            w = batch_groups
-            rows = time_context_rows(w.groups, s, x.device)[
-                w.offset * s:(w.offset + b) * s]
-            time_context = w.first_context.to(x.device, x.dtype)[rows]
-        else:
-            tc_first = context.reshape(b, num_frames, context.shape[1],
-                                       context.shape[2])[:, 0]
-            groups = batch_groups if batch_groups is not None else (b,)
-            if sum(groups) != b:
-                raise ValueError(f"batch_groups {groups} != batch {b}")
-            time_context = tc_first[time_context_rows(groups, s, x.device)]
+        with span("unet.transformer"):
+            bf, height, width, channels = x.shape
+            b = bf // num_frames
+            s = height * width
+            if isinstance(batch_groups, BatchWindow):
+                w = batch_groups
+                rows = time_context_rows(w.groups, s, x.device)[
+                    w.offset * s:(w.offset + b) * s]
+                time_context = w.first_context.to(x.device, x.dtype)[rows]
+            else:
+                tc_first = context.reshape(b, num_frames, context.shape[1],
+                                           context.shape[2])[:, 0]
+                groups = batch_groups if batch_groups is not None else (b,)
+                if sum(groups) != b:
+                    raise ValueError(f"batch_groups {groups} != batch {b}")
+                time_context = tc_first[time_context_rows(groups, s,
+                                                          x.device)]
 
-        residual = x
-        h = self.norm(x).reshape(bf, s, channels)
-        h = self.proj_in(h)
-        inner = h.shape[-1]
-        # the frame ids are frame-coupled: a shard's are its global ones
-        ids = yield frame_ids, num_frames, b, x.device
-        t_emb = timestep_embedding(ids, channels).to(x.dtype)
-        emb = self.time_pos_embed(t_emb)[:, None, :]          # (B*F, 1, C)
+            residual = x
+            h = self.norm(x).reshape(bf, s, channels)
+            h = self.proj_in(h)
+            inner = h.shape[-1]
+            # the frame ids are frame-coupled: a shard's are its global ones
+            ids = yield frame_ids, num_frames, b, x.device
+            t_emb = timestep_embedding(ids, channels).to(x.dtype)
+            emb = self.time_pos_embed(t_emb)[:, None, :]      # (B*F, 1, C)
 
-        for block, temporal in zip(self.transformer_blocks,
-                                   self.temporal_transformer_blocks):
-            h = block(h, context)
-            mix = (h + emb).reshape(b, num_frames, s, inner).transpose(1, 2)
-            mix = yield from temporal.steps(
-                mix.reshape(b * s, num_frames, inner), time_context)
-            mix = mix.reshape(b, s, num_frames, inner).transpose(1, 2)
-            h = self.time_mixer(h, mix.reshape(bf, s, inner))
+            for block, temporal in zip(self.transformer_blocks,
+                                       self.temporal_transformer_blocks):
+                with span("unet.transformer.spatial"):
+                    h = block(h, context)
+                mix = (h + emb).reshape(b, num_frames, s,
+                                        inner).transpose(1, 2)
+                with span("unet.transformer.temporal"):
+                    mix = yield from temporal.steps(
+                        mix.reshape(b * s, num_frames, inner), time_context)
+                mix = mix.reshape(b, s, num_frames, inner).transpose(1, 2)
+                h = self.time_mixer(h, mix.reshape(bf, s, inner))
 
-        h = self.proj_out(h)
-        return h.reshape(bf, height, width, channels) + residual
+            h = self.proj_out(h)
+            return h.reshape(bf, height, width, channels) + residual
 
 
 class CrossAttnDownBlockSpatioTemporal(Stepped):
@@ -201,7 +223,8 @@ class CrossAttnDownBlockSpatioTemporal(Stepped):
             x = yield from attn.steps(x, context, num_frames, batch_groups)
             outputs.append(x)
         for down in self.downsamplers:
-            x = down(x)
+            with span("unet.sample"):
+                x = down(x)
             outputs.append(x)
         return x, outputs
 
@@ -265,13 +288,15 @@ class UpBlockSpatioTemporal(Stepped):
     def steps(self, x, res_states, temb, context, num_frames,
               batch_groups=None):
         for i, res in enumerate(self.resnets):
-            x = torch.cat([x, res_states[-1 - i]], dim=-1)
+            with span("unet.skip"):
+                x = torch.cat([x, res_states[-1 - i]], dim=-1)
             x = yield from res.steps(x, temb, num_frames)
             if self.attentions is not None:
                 x = yield from self.attentions[i].steps(
                     x, context, num_frames, batch_groups)
         for up in self.upsamplers:
-            x = up(x)
+            with span("unet.sample"):
+                x = up(x)
         return x
 
 
@@ -350,35 +375,41 @@ class UNetSpatioTemporalConditionModel(Stepped):
                                   preserve_rng_state=False)
             return (yield from block.steps(*args))
 
-        b, f, h, w, c = sample.shape
-        dt = sample.dtype
-        ts = torch.as_tensor(timestep, dtype=torch.float32,
-                             device=sample.device).expand(b)
-        emb = self.time_embedding(
-            timestep_embedding(ts, self.block_out_channels[0]).to(dt))
-        add = timestep_embedding(added_time_ids.reshape(-1),
-                                 self.addition_time_embed_dim)
-        emb = emb + self.add_embedding(add.reshape(b, -1).to(dt))
+        with span("unet.forward"):
+            b, f, h, w, c = sample.shape
+            dt = sample.dtype
+            with span("unet.embed"):
+                ts = torch.as_tensor(timestep, dtype=torch.float32,
+                                     device=sample.device).expand(b)
+                emb = self.time_embedding(
+                    timestep_embedding(ts,
+                                       self.block_out_channels[0]).to(dt))
+                add = timestep_embedding(added_time_ids.reshape(-1),
+                                         self.addition_time_embed_dim)
+                emb = emb + self.add_embedding(add.reshape(b, -1).to(dt))
 
-        x = self.conv_in(sample.reshape(b * f, h, w, c))
-        emb = emb.repeat_interleave(f, dim=0)                     # (B*F, D)
-        context = encoder_hidden_states.repeat_interleave(f, dim=0)
+                x = self.conv_in(sample.reshape(b * f, h, w, c))
+                emb = emb.repeat_interleave(f, dim=0)             # (B*F, D)
+                context = encoder_hidden_states.repeat_interleave(f, dim=0)
 
-        res_stack = [x]
-        for block in self.down_blocks:
-            if isinstance(block, CrossAttnDownBlockSpatioTemporal):
-                x, outs = yield from run(block, x, emb, context, f,
-                                         batch_groups)
-            else:
-                x, outs = yield from run(block, x, emb, f)
-            res_stack.extend(outs)
+            res_stack = [x]
+            for block in self.down_blocks:
+                if isinstance(block, CrossAttnDownBlockSpatioTemporal):
+                    x, outs = yield from run(block, x, emb, context, f,
+                                             batch_groups)
+                else:
+                    x, outs = yield from run(block, x, emb, f)
+                res_stack.extend(outs)
 
-        x = yield from run(self.mid_block, x, emb, context, f, batch_groups)
+            x = yield from run(self.mid_block, x, emb, context, f,
+                               batch_groups)
 
-        for block in self.up_blocks:
-            n_lay = len(block.resnets)
-            res = tuple(res_stack.pop() for _ in range(n_lay))[::-1]
-            x = yield from run(block, x, res, emb, context, f, batch_groups)
+            for block in self.up_blocks:
+                n_lay = len(block.resnets)
+                res = tuple(res_stack.pop() for _ in range(n_lay))[::-1]
+                x = yield from run(block, x, res, emb, context, f,
+                                   batch_groups)
 
-        x = self.conv_out(self.conv_norm_out(x))
-        return x.reshape(b, f, h, w, -1)
+            with span("unet.out"):
+                x = self.conv_out(self.conv_norm_out(x))
+                return x.reshape(b, f, h, w, -1)

@@ -27,6 +27,7 @@ import ctypes
 import torch
 
 from ..kernels import build
+from ..utils.profiling import counters
 
 # Query rows of the kernel's work item, keys of its K/V stage, head dim.
 FLASH_BQ, FLASH_BKV, FLASH_D = 128, 192, 64
@@ -166,7 +167,7 @@ def _flash_forward(q, k, v, scale: float, with_lse: bool):
     if err != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed: cudaError {err}")
-    flash_attention.launches += 1
+    counters["launches.flash"] += 1
     return out, lse
 
 
@@ -270,7 +271,7 @@ def flash_bwd_launch(name: str, plan: dict, views: dict, lse, delta, outs,
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd {name} kernel launch "
                            f"failed: cudaError {err}")
-    flash_attention_bwd.launches[name] += 1
+    counters[f"launches.flash_bwd.{name}"] += 1
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, scale: float):
@@ -278,8 +279,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, scale: float):
     ``csrc/flash_attention_bwd.cu`` (which also forms D = rowsum(dout *
     out)), then its dkv kernel. q, k, v, out and dout are bf16 (B, H, S, 64)
     views, lse the forward's f32 (B, H, S); the gradients are views of
-    (B, S, H, 64) tensors. ``flash_attention_bwd.launches`` counts each
-    kernel's launches."""
+    (B, S, H, 64) tensors. ``counters`` counts each kernel's launches
+    (``launches.flash_bwd.dq``, ``launches.flash_bwd.dkv``)."""
     check_flash_args(q, k, v)
     if (dout.shape != q.shape or dout.dtype != q.dtype
             or out.shape != q.shape or out.dtype != q.dtype
@@ -299,9 +300,6 @@ def flash_attention_bwd(q, k, v, out, lse, dout, scale: float):
     flash_bwd_launch("dq", plan, views, lse, delta, (dq,), scale)
     flash_bwd_launch("dkv", plan, views, lse, delta, (dk, dv), scale)
     return dq, dk, dv
-
-
-flash_attention_bwd.launches = {"dkv": 0, "dq": 0}
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -327,7 +325,7 @@ def flash_attention(q, k, v, scale: float) -> torch.Tensor:
     through the autograd Function ``_FlashAttention`` where a gradient will
     be taken (the forward then also writes lse), the forward kernel alone
     otherwise; ``attention_chunked`` (autograd's gradient) for CPU tensors.
-    ``flash_attention.launches`` counts forward kernel launches. Returns
+    ``counters["launches.flash"]`` counts forward kernel launches. Returns
     (B, H, S, D), a view of a (B, S, H, D) tensor on CUDA."""
     if q.device.type == "cpu":
         return attention_chunked(q, k, v, scale)
@@ -337,9 +335,6 @@ def flash_attention(q, k, v, scale: float) -> torch.Tensor:
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, scale)
     return _flash_forward(q, k, v, scale, with_lse=False)[0]
-
-
-flash_attention.launches = 0
 
 
 def attention_lse_reference(q, k, scale: float) -> torch.Tensor:

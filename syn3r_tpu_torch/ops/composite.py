@@ -19,9 +19,10 @@ On CUDA tensors ``composite_tiles`` launches the hand-written kernels in
 ``csrc/composite_fwd.cu`` and ``csrc/composite_bwd.cu`` (replacing
 ``_fwd_kernel`` and ``_bwd_kernel``); on CPU tensors it runs
 ``composite_fwd_reference`` and ``composite_bwd_reference``. A CUDA tensor
-never falls back: the wrappers launch or raise. ``composite_tiles.launches``
-counts wrapper calls that launched, ``{"fwd": n, "bwd": n}`` (a backward
-call is three CUDA launches: ``composite_bwd_plan``).
+never falls back: the wrappers launch or raise. ``utils.profiling.counters``
+counts wrapper calls that launched, ``launches.composite_fwd`` and
+``launches.composite_bwd`` (a backward call is three CUDA launches:
+``composite_bwd_plan``).
 
 Both kernels take four pixels a thread (``bwd_pixel_map``) and skip, per
 warp of pixels, the entries whose alpha stays below 1/255 over the warp's
@@ -41,6 +42,7 @@ import math
 import torch
 
 from ..kernels import build
+from ..utils.profiling import counters
 
 ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
@@ -303,7 +305,7 @@ def composite_fwd_launch(P, G, C, O, K: int, keep_bits: bool = False):
     if err != 0:
         raise RuntimeError(f"composite_fwd kernel launch failed: "
                            f"cudaError {err}")
-    composite_tiles.launches["fwd"] += 1
+    counters["launches.composite_fwd"] += 1
     return out, ltc, keep
 
 
@@ -342,7 +344,7 @@ def composite_bwd_launch(P, G, C, O, ltc, dout, K: int):
     if err != 0:
         raise RuntimeError(f"composite_bwd kernel launch failed: "
                            f"cudaError {err}")
-    composite_tiles.launches["bwd"] += 1
+    counters["launches.composite_bwd"] += 1
     return dG, dC, dO, keep
 
 
@@ -377,5 +379,3 @@ def composite_tiles(P, G, C, O, K: int = 128) -> torch.Tensor:
     backward kernel takes chunks of K <= 128 (``bin_tiles``' K)."""
     return _CompositeTiles.apply(P, G, C, O, K)
 
-
-composite_tiles.launches = {"fwd": 0, "bwd": 0}

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import build
+from ..utils.profiling import counters
 
 # Rows of a GEMM tile (128 for each of the two consumer warpgroups);
 # GEMM-1's tiles are 80 output columns (with their 80 g columns); GEMM-2's
@@ -106,7 +107,7 @@ def _geglu_launch(x2: torch.Tensor, w1, b1, w2, b2) -> torch.Tensor:
             torch.cuda.current_stream(x2.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"geglu_ffn kernel launch failed: cudaError {err}")
-    geglu_ffn.launches += 1
+    counters["launches.geglu_ffn"] += 1
     return y
 
 
@@ -135,13 +136,11 @@ def geglu_ffn(x2: torch.Tensor, w1, b1, w2, b2) -> torch.Tensor:
     """GEGLU FF on (R, C): the CUDA kernel for a CUDA tensor, through the
     autograd Function ``_GegluFFN`` (the backward recomputes through the
     plain version); the plain version for a CPU tensor.
-    ``geglu_ffn.launches`` counts kernel launches (one per call, which
-    runs both GEMMs)."""
+    ``counters["launches.geglu_ffn"]`` counts kernel launches (one per
+    call, which runs both GEMMs)."""
     if x2.device.type == "cpu":
         return geglu_ffn_reference(x2, w1, b1, w2, b2)
     if x2.device.type != "cuda":
         raise ValueError(f"geglu_ffn: unsupported device {x2.device}")
     return _GegluFFN.apply(x2, w1, b1, w2, b2)
 
-
-geglu_ffn.launches = 0

@@ -20,8 +20,8 @@ warps over groups of rows, weight and bias held in registers in their own
 dtype; its launch plan is ``layer_norm_plan``) replacing ``_ln_kernel``.
 On a CPU tensor they run the plain versions. A CUDA tensor never falls
 back: the wrappers launch or raise, and no switch turns the kernels off.
-Launches are counted in ``group_norm.launches`` (``{"stats": n, "apply":
-n}``) and ``layer_norm.launches``.
+Launches are counted in ``utils.profiling.counters``: ``launches.gn_stats``,
+``launches.gn_apply`` and ``launches.layer_norm``.
 
 ``group_norm`` and ``layer_norm`` are ``torch.autograd.Function``s whose
 backward recomputes through the plain version, as ``_gn_bwd`` and
@@ -29,7 +29,7 @@ backward recomputes through the plain version, as ``_gn_bwd`` and
 
 The kernels read their input in place and take float32 or bf16 only. The
 modules hand them ``contiguous_counted(x)``: a non-contiguous activation is
-copied once and counted in ``contiguous_counted.copies``, never silently.
+copied once and counted in ``counters["norm.copies"]``, never silently.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import build
+from ..utils.profiling import counters
 from .geglu_ffn import _num_sms
 
 # GroupNorm kernels (csrc/group_norm.cu): threads a block are a multiple
@@ -59,14 +60,11 @@ LN_BLOCKS_PER_SM = {torch.bfloat16: 2, torch.float32: 1}
 
 def contiguous_counted(x: torch.Tensor) -> torch.Tensor:
     """``x`` itself when contiguous, else a contiguous copy, counted in
-    ``contiguous_counted.copies``."""
+    ``counters["norm.copies"]``."""
     if x.is_contiguous():
         return x
-    contiguous_counted.copies += 1
+    counters["norm.copies"] += 1
     return x.contiguous()
-
-
-contiguous_counted.copies = 0
 
 
 # -- plain versions ----------------------------------------------------------
@@ -323,14 +321,14 @@ def _gn_buffers(device, n_part: int, b: int):
     ``n_part`` values) and int32 arrival counters (at least ``b``), kept
     between calls. The kernel leaves the counters at zero and reads only
     the partials its own launch wrote: one stream, as the whole port."""
-    part, counters = _gn_scratch.get(device, (None, None))
+    part, arrivals = _gn_scratch.get(device, (None, None))
     if part is None or part.numel() < n_part:
         part = torch.empty(max(n_part, 1 << 20), dtype=torch.float32,
                            device=device)
-    if counters is None or counters.numel() < b:
-        counters = torch.zeros(max(b, 128), dtype=torch.int32, device=device)
-    _gn_scratch[device] = (part, counters)
-    return part, counters
+    if arrivals is None or arrivals.numel() < b:
+        arrivals = torch.zeros(max(b, 128), dtype=torch.int32, device=device)
+    _gn_scratch[device] = (part, arrivals)
+    return part, arrivals
 
 
 def _gn_params(weight, bias, c: int, device):
@@ -355,16 +353,16 @@ def group_norm_stats(x3: torch.Tensor, weight, bias, num_groups: int,
     w, bi = _gn_params(weight, bias, c, x3.device)
     w_bf16 = w.dtype == torch.bfloat16
     plan = _gn_launch_plan(0, x3, w_bf16, num_groups)
-    part, counters = _gn_buffers(x3.device, plan["slots"] * 2 * c, b)
+    part, arrivals = _gn_buffers(x3.device, plan["slots"] * 2 * c, b)
     ab = torch.empty((2, b, c), dtype=torch.float32, device=x3.device)
     err = _launch("group_norm", "syn3r_gn_stats", x3.device, x3, w, bi,
-                  part, counters, ab[0], ab[1], b, s, c, num_groups,
+                  part, arrivals, ab[0], ab[1], b, s, c, num_groups,
                   float(eps), int(x3.dtype == torch.bfloat16), int(w_bf16),
                   plan["threads"], plan["grid"])
     if err != 0:
         raise RuntimeError(f"group_norm stats kernel launch failed: "
                            f"cudaError {err}")
-    group_norm.launches["stats"] += 1
+    counters["launches.gn_stats"] += 1
     return ab[0], ab[1]
 
 
@@ -377,16 +375,16 @@ def group_norm_sums(x3: torch.Tensor) -> torch.Tensor:
     _check_input("group_norm", x3, 3)
     b, s, c = x3.shape
     plan = _gn_launch_plan(0, x3, False, 1)
-    part, counters = _gn_buffers(x3.device, plan["slots"] * 2 * c, b)
+    part, arrivals = _gn_buffers(x3.device, plan["slots"] * 2 * c, b)
     out = torch.empty((2, b, c), dtype=torch.float32, device=x3.device)
     err = _launch("group_norm", "syn3r_gn_sums", x3.device, x3, part,
-                  counters, out[0], out[1], b, s, c,
+                  arrivals, out[0], out[1], b, s, c,
                   int(x3.dtype == torch.bfloat16), plan["threads"],
                   plan["grid"])
     if err != 0:
         raise RuntimeError(f"group_norm sums kernel launch failed: "
                            f"cudaError {err}")
-    group_norm.launches["stats"] += 1
+    counters["launches.gn_stats"] += 1
     return out
 
 
@@ -411,7 +409,7 @@ def group_norm_apply(x3: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"group_norm apply kernel launch failed: "
                            f"cudaError {err}")
-    group_norm.launches["apply"] += 1
+    counters["launches.gn_apply"] += 1
     return y
 
 
@@ -473,7 +471,7 @@ def _layer_norm_forward(x2: torch.Tensor, weight, bias,
     if err != 0:
         raise RuntimeError(f"layer_norm kernel launch failed: cudaError "
                            f"{err}")
-    layer_norm.launches += 1
+    counters["launches.layer_norm"] += 1
     return y
 
 
@@ -530,6 +528,3 @@ def layer_norm(x2: torch.Tensor, weight, bias, eps: float) -> torch.Tensor:
     ``layer_norm_reference`` for a CPU tensor."""
     return _LayerNorm.apply(x2, weight, bias, eps)
 
-
-group_norm.launches = {"stats": 0, "apply": 0}
-layer_norm.launches = 0

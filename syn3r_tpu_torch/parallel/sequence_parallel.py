@@ -30,6 +30,11 @@ The temporal cross-attention's context is frame 0's, the CLIP embedding
 every shard holds, and frame shards of a batch element stay in its (B, F)
 order, so ``batch_groups``' time-context quirk is each shard's as in the
 whole forward.
+
+The forward's spans (``utils.profiling.span``) open and close inside the
+shards' generators, so under a profiler the shards' spans overlap instead
+of nesting, and a call made across the shards is linked to the last
+shard's innermost span.
 """
 
 from __future__ import annotations

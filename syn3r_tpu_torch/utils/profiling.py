@@ -1,12 +1,36 @@
-"""Per-phase wall-clock timing, device traces and memory statistics.
+"""Spans, counters, per-phase wall-clock timing, device traces and
+memory statistics.
 
-Counterpart of ``syn3r_tpu/utils/profiling.py``: ``PhaseTimer`` sums the
-wall time per named pipeline phase (init_gs, densify, refine); a phase
-with ``sync=True`` waits for the card (``torch.cuda.synchronize``) before
-it stops the clock, so queued kernels are charged to it. ``trace`` (JAX's
-``xla_trace``) records a ``torch.profiler`` trace of its block and writes
-it as a Chrome trace under ``log_dir``; ``device_memory_stats`` gives the
-card's allocator statistics under JAX's keys, or None off a card.
+Counterpart of ``syn3r_tpu/utils/profiling.py``, plus the port's spans and
+counters:
+
+- ``span(name)`` marks a stretch of the host's work for ``torch.profiler``.
+  While a profiler records, it is a host op (``_RecordFunctionFast``) in
+  the same session as the kernels, on the trace's clock: the ops and
+  kernels issued inside it are its children, kernels launched by the
+  hand-written wrappers' ctypes entry points included (the profiler links
+  a kernel to the innermost op open when it was launched). It is never a
+  user annotation, so it adds no event to the device's timeline. With no
+  profiler recording it is one shared null context. The names are dotted,
+  layer first: ``denoise.*`` in ``diffusion/pipeline.py``, ``unet.*`` in
+  ``models/svd_unet.py``. A span may enclose a ``yield`` of a ``steps``
+  generator (``models.layers.run_local``): on one device the generators
+  nest and so do their spans; under ``parallel/sequence_parallel.py`` the
+  shards' generators run in lock-step, so their spans overlap and a kernel
+  of a call across the shards is linked to the last shard's.
+- ``counters``: one process-wide ``collections.Counter`` of dotted names,
+  ``launches.<kernel>`` for each hand-written kernel's launches and
+  ``norm.copies`` for the norms' input copies. ``gs/step_graph.py`` adds
+  a captured step's share to it on each replay.
+- ``PhaseTimer`` sums the wall time per named pipeline phase (init_gs,
+  densify, refine); a phase with ``sync=True`` waits for the card
+  (``torch.cuda.synchronize``) before it stops the clock, so queued
+  kernels are charged to it. Each phase is also a span.
+- ``trace`` (JAX's ``xla_trace``) records a ``torch.profiler`` trace of
+  its block, spans included, and writes it as a Chrome trace under
+  ``log_dir``, for an operator to open in Perfetto or ``chrome://tracing``.
+- ``device_memory_stats`` gives the card's allocator statistics under
+  JAX's keys, or None off a card.
 """
 
 from __future__ import annotations
@@ -15,10 +39,22 @@ import contextlib
 import json
 import os
 import time
-from collections import defaultdict
+from collections import Counter, defaultdict
 from typing import Optional
 
 import torch
+
+counters: Counter = Counter()
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager marking its block as ``name`` in a profiler's
+    trace; the shared null context while no profiler records."""
+    if torch._C._autograd._profiler_enabled():
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _NO_SPAN
 
 
 class PhaseTimer:
@@ -32,7 +68,8 @@ class PhaseTimer:
     def phase(self, name: str, sync: bool = False):
         t0 = time.perf_counter()
         try:
-            yield
+            with span(name):
+                yield
         finally:
             if sync and torch.cuda.is_available() \
                     and torch.cuda.is_initialized():

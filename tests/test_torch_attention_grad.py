@@ -24,6 +24,7 @@ from syn3r_tpu.ops.pallas_ffn import geglu_ffn as jax_geglu_ffn
 from syn3r_tpu_torch.device import resolve_device
 from syn3r_tpu_torch.ops import attention as A
 from syn3r_tpu_torch.ops import geglu_ffn as G
+from syn3r_tpu_torch.utils.profiling import counters
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -142,12 +143,12 @@ def test_kernel_route_takes_only_cuda_tensors():
         A._FlashAttention.apply(q.clone().requires_grad_(True), q, q, 0.125)
     # the CPU route of the public wrapper stays the plain version, with
     # autograd's gradient and no kernel launch
-    A.flash_attention.launches = 0
-    A.flash_attention_bwd.launches.update(dkv=0, dq=0)
+    counters.clear()
     qf = torch.randn((1, 2, 64, 64), requires_grad=True)
     A.flash_attention(qf, qf, qf, 0.125).sum().backward()
-    assert qf.grad is not None and A.flash_attention.launches == 0
-    assert A.flash_attention_bwd.launches == {"dkv": 0, "dq": 0}
+    assert qf.grad is not None and counters["launches.flash"] == 0
+    assert (counters["launches.flash_bwd.dkv"],
+            counters["launches.flash_bwd.dq"]) == (0, 0)
     if torch.cuda.is_available():
         assert resolve_device("cuda").type == "cuda"
         return

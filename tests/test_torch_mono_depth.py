@@ -28,7 +28,7 @@ from syn3r_tpu.gs import trainer as JT
 from syn3r_tpu.models import gaussians as JG
 from syn3r_tpu_torch.gs import trainer as TT
 from syn3r_tpu_torch.models import gaussians as TG
-from syn3r_tpu_torch.ops.composite import composite_tiles
+from syn3r_tpu_torch.utils.profiling import counters
 from syn3r_tpu_torch.utils.camera import camera_from_numpy
 from test_torch_gs_segments import (FIELDS, TO_PER_STEP, _assert_states,
                                     _toy_scene)
@@ -120,7 +120,7 @@ def test_mono_pseudo_step_runs_at_its_cadence(tmp_path, toy3):
         return torch.full(rgb.shape[:2], DEPTH)
     tr.set_mono_depth_fn(estimator)
     before = tr.state.gaussians.means.clone()
-    composite_tiles.launches.update(fwd=0, bwd=0)
+    counters.clear()
     tr.training(log_every=0)
     assert calls == [(36, 48, 3)] * 5
     assert len(tr._get_mono_pseudo_cams()) == 6
@@ -129,7 +129,8 @@ def test_mono_pseudo_step_runs_at_its_cadence(tmp_path, toy3):
     assert tr.state.step == 30 and tr.state.adam.count == 35
     # the CPU takes the plain composite, which counts no launch (the
     # card's launches per pseudo step are held in chip_smoke.py)
-    assert composite_tiles.launches == {"fwd": 0, "bwd": 0}
+    assert (counters["launches.composite_fwd"],
+            counters["launches.composite_bwd"]) == (0, 0)
 
 
 def test_mono_pseudo_cams_match_jax(tmp_path, toy3):

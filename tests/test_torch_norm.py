@@ -25,6 +25,7 @@ from syn3r_tpu.ops import pallas_norm as JN
 from syn3r_tpu_torch.models import layers as TL
 from syn3r_tpu_torch.models.convert import load_flax_params
 from syn3r_tpu_torch.ops import norm as N
+from syn3r_tpu_torch.utils.profiling import counters
 
 F32 = dict(rtol=2e-5, atol=2e-5)
 BF16 = dict(rtol=2.0 ** -7, atol=1e-5)
@@ -161,22 +162,22 @@ def test_norm_modules_bridge_from_flax():
 def test_cpu_tensors_take_plain_versions_and_copies_are_counted():
     x, w, b = _inputs((2, 128, 64), seed=14)
     tx, tw, tb = (torch.from_numpy(a) for a in (x, w, b))
-    N.group_norm.launches.update(stats=0, apply=0)
-    N.layer_norm.launches = 0
+    counters.clear()
     assert torch.equal(N.group_norm(tx, tw, tb, 8, 1e-6, True),
                        N.group_norm_reference(tx, tw, tb, 8, 1e-6, True))
     x2 = tx.reshape(-1, 64)
     assert torch.equal(N.layer_norm(x2, tw, tb, 1e-5),
                        N.layer_norm_reference(x2, tw, tb, 1e-5))
-    assert N.group_norm.launches == {"stats": 0, "apply": 0}
-    assert N.layer_norm.launches == 0
+    assert (counters["launches.gn_stats"],
+            counters["launches.gn_apply"]) == (0, 0)
+    assert counters["launches.layer_norm"] == 0
     # a non-contiguous activation is copied once and counted
-    N.contiguous_counted.copies = 0
+    counters.clear()
     ln = TL.LayerNorm(128)
     with torch.no_grad():
         got = ln(tx.transpose(1, 2))
         want = ln(tx.transpose(1, 2).contiguous())
-    assert N.contiguous_counted.copies == 1
+    assert counters["norm.copies"] == 1
     assert torch.equal(got, want)
 
 

@@ -26,6 +26,7 @@ from syn3r_tpu_torch.device import resolve_device
 from syn3r_tpu_torch.ops import attention as A
 from syn3r_tpu_torch.ops.geglu_ffn import geglu_ffn, geglu_ffn_reference \
     as torch_geglu_reference
+from syn3r_tpu_torch.utils.profiling import counters
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -110,8 +111,7 @@ def test_flash_dispatch_rule():
 
 
 def test_cpu_tensors_take_plain_versions():
-    geglu_ffn.launches = 0
-    A.flash_attention.launches = 0
+    counters.clear()
     args = _ffn_inputs(64, 32, seed=3)
     got = _torch_ffn(geglu_ffn, *args)
     want = _torch_ffn(torch_geglu_reference, *args)
@@ -119,8 +119,8 @@ def test_cpu_tensors_take_plain_versions():
     q, k, v = _as_torch(_qkv((1, 2, 576, 16), seed=4))
     np.testing.assert_array_equal(A.flash_attention(q, k, v, 0.25).numpy(),
                                   A.attention_chunked(q, k, v, 0.25).numpy())
-    assert geglu_ffn.launches == 0
-    assert A.flash_attention.launches == 0
+    assert counters["launches.geglu_ffn"] == 0
+    assert counters["launches.flash"] == 0
 
 
 def test_cuda_device_raises_without_card():

@@ -27,6 +27,7 @@ from syn3r_tpu_torch.models.gaussians import gaussians_from_numpy
 from syn3r_tpu_torch.ops import composite as TC
 from syn3r_tpu_torch.ops import rasterize as rz
 from syn3r_tpu_torch.utils.camera import camera_from_numpy
+from syn3r_tpu_torch.utils.profiling import counters
 
 FWD = dict(atol=2e-5, rtol=1e-4)
 DEPTH = dict(atol=1e-4, rtol=1e-4)
@@ -99,7 +100,7 @@ def test_composite_plain_versions_match_pallas(tiles):
 def test_function_backward_matches_autograd(tiles):
     """The analytic backward against autograd through the plain forward."""
     tl, dout = tiles
-    TC.composite_tiles.launches.update(fwd=0, bwd=0)
+    counters.clear()
     leaves = [x.clone().requires_grad_(True) for x in (tl.G, tl.C, tl.O)]
     out = TC.composite_tiles(tl.P, *leaves, tl.K)
     got = torch.autograd.grad(out, leaves, dout)
@@ -111,7 +112,8 @@ def test_function_backward_matches_autograd(tiles):
     for g, w in zip(got, want):
         _grad_close(g.numpy(), w.numpy())
     # CPU tensors take the plain versions: no kernel launched
-    assert TC.composite_tiles.launches == {"fwd": 0, "bwd": 0}
+    assert (counters["launches.composite_fwd"],
+            counters["launches.composite_bwd"]) == (0, 0)
 
 
 def _two_stage_bwd(P, G, C, O, ltc, dout, K):
