@@ -15,7 +15,10 @@ Phases, one result line each; any failure raises and the exit code is not 0:
               timed in turns (kernel, library, library, kernel) with the SM
               clock and power draw (nvidia-smi, sampled every 20 ms) of
               each timing window; GEGLU also at the small UNet's C = 64
-              and 128 (GEMM-2's 128-column tile), untimed.
+              and 128 (GEMM-2's 128-column tile), untimed. The frame-
+              attention kernel at the temporal self-attention's shapes
+              (FRAME_ATTN_SHAPES, split projection views) against the
+              packed version, SDPA on the same views its library call.
   4. small    a small bf16 UNet (widths 64/128, d = 64, 1024 tokens) on the
               card, through the kernels, against the same UNet in float32 on
               the CPU (the plain path); one GroupNorm and LayerNorm launch
@@ -24,7 +27,8 @@ Phases, one result line each; any failure raises and the exit code is not 0:
               with random weights from a seed: 25 frames at 576x1024, post
               variant, fused batch-3 forward, num_inference_steps=2 (the one
               cut from 100). Launch counts are zeroed just before and read
-              just after and must be exact: GEGLU and flash per forward, the
+              just after and must be exact: GEGLU and flash per forward,
+              16 frame-attention launches per forward, the
               norms one per call of a norm module, 105 GroupNorms and 112
               LayerNorms per UNet forward (the module tree). Forward
               pre-hooks record every norm call's shape (the census).
@@ -284,7 +288,8 @@ from syn3r_tpu_torch.utils.profiling import counters
 from syn3r_tpu_torch.utils.ply import read_ply_points
 from syn3r_tpu_torch.vision import dust3r as D3
 from syn3r_tpu_torch.vision import gmflow_public as GF
-from scripts.kernel_timing import (ATTN_SHAPES, FFN_SHAPES, GN_SHAPES,
+from scripts.kernel_timing import (ATTN_SHAPES, FFN_SHAPES,
+                                   FRAME_ATTN_SHAPES, GN_SHAPES,
                                    GRAD_ATTN_SHAPES, GS_CAP, GS_H, GS_W,
                                    LN_SHAPES,
                                    SmiSampler, cuda_ms, gs_points,
@@ -311,7 +316,11 @@ FFN_SMALL_SHAPES = [(15 * 1024, 64), (15 * 256, 128)]
 # one ulp (2^-8 relative) apart and move through the second product.
 # Attention: the kernel rounds exp(s - running max) to bf16 before the
 # rescale, the plain version the normalized probabilities.
-TOL = {"geglu_ffn": (5e-2, 1e-2), "flash_attention": (2e-2, 1e-2)}
+# The frame-attention kernel against the packed version: the same
+# roundings (P normalised, then bf16; the output bf16), exp2 and f32 sums in
+# another order: flash's tolerance.
+TOL = {"geglu_ffn": (5e-2, 1e-2), "flash_attention": (2e-2, 1e-2),
+       "frame_attention": (2e-2, 1e-2)}
 # The guided phase. The forward's lse against the plain logsumexp, absolute:
 # both f32 (the kernel's exp2.approx terms, relative error ~2^-22, summed in
 # another order), on logits of O(10). The backward kernels against the plain
@@ -716,6 +725,39 @@ def check_attention(gen, dev, smi):
     return rows_out
 
 
+def check_frame_attention(gen, dev, smi):
+    """The frame-attention kernel at the temporal self-attention's shapes
+    (FRAME_ATTN_SHAPES: q, k, v split views of (rows, 25, C) projections,
+    as the UNet's), against the packed version, timed in turns against
+    SDPA on the same views (the yardstick; the port never calls it)."""
+    rows_out = []
+    for rows, h, s, calls in FRAME_ATTN_SHAPES:
+        q, k, v = (torch.randn((rows, s, h * 64), generator=gen, device=dev)
+                   .to(torch.bfloat16).unflatten(-1, (h, 64)).transpose(1, 2)
+                   for _ in range(3))
+        got = A.frame_attention(q, k, v, 0.125)
+        want = A.attention_packed_heads(q, k, v, 0.125)
+        torch.cuda.synchronize()
+        max_abs, rel_rms = check("frame_attention", got, want)
+        del got, want
+        turns = timed_turns(
+            lambda: A.frame_attention(q, k, v, 0.125),
+            lambda: F.scaled_dot_product_attention(q, k, v, scale=0.125), smi)
+        plain = cuda_ms(lambda: A.attention_packed_heads(q, k, v, 0.125), 3)
+        flops = 4 * rows * h * s * s * 64
+        nbytes = 4 * rows * h * s * 64 * 2
+        bms, by = bound_ms(flops, nbytes)
+        row = dict(rows=rows, heads=h, frames=s, calls_per_forward=calls,
+                   max_abs_err=max_abs, rel_rms_err=rel_rms, plain_ms=plain,
+                   bound_ms=bms, bound_by=by, **turns_row(turns))
+        row["gb_per_s"] = nbytes / row["ms"] / 1e6
+        say("kernels", name="frame_attention", **row)
+        rows_out.append(row)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows_out
+
+
 def check_small_unet(dev):
     """A small UNet through the kernels (bf16, card) against the plain path
     (float32, CPU): the kernels as the modules call them."""
@@ -766,6 +808,7 @@ def run_unit(dev):
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     counters["norm.copies"] = 0
+    counters["launches.frame_attn"] = 0
     stage = {}
     t0 = time.perf_counter()
     clip_s, clip_e, cond, _, _ = pipe.encode_conditioning(
@@ -784,6 +827,7 @@ def run_unit(dev):
     stage["decode_s"] = time.perf_counter() - t0
     launches = launch_counts()
     norm_copies = counters["norm.copies"]
+    frame_launches = counters["launches.frame_attn"]
     census.close()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -833,6 +877,11 @@ def run_unit(dev):
             "layer_norm": calls["layer_norm"]}
     if launches != want:
         raise AssertionError(f"launches {launches}, expected {want}")
+    # the temporal self-attention: the frame-attention kernel, 16 a forward
+    frame_calls = sum(c for *_, c in FRAME_ATTN_SHAPES)
+    if frame_launches != frame_calls * forwards:
+        raise AssertionError(f"frame_attention launches {frame_launches}, "
+                             f"expected {frame_calls} x {forwards}")
 
     # stage split of the encode (outside the counted run): CLIP of both
     # endpoints and the f32 VAE encode of all frames
@@ -849,9 +898,11 @@ def run_unit(dev):
     stage["s_per_denoise_step"] = stage["denoise_s"] / STEPS
     say("unit", frames=tuple(frames.shape), min=lo, max=hi,
         peak_mem_gb=peak_gb, launches=launches,
+        frame_attention_launches=frame_launches,
         unet_norms_per_forward=(n_gn, n_ln), norm_input_copies=norm_copies,
         **stage)
     res = dict(stage, peak_mem_gb=peak_gb, launches=launches,
+               frame_attention_launches=frame_launches,
                frame_range=[lo, hi], load_s=load_s,
                unet_norms_per_forward=[n_gn, n_ln], forwards=forwards,
                norm_input_copies=norm_copies)
@@ -3643,6 +3694,7 @@ def main():
         ffn_rows = check_geglu(gen, dev, smi_sampler)
         ffn_small = check_geglu_small(gen, dev)
         attn_rows = check_attention(gen, dev, smi_sampler)
+        frame_rows = check_frame_attention(gen, dev, smi_sampler)
     finally:
         smi_sampler.close()
     small = check_small_unet(dev)
@@ -3703,6 +3755,10 @@ def main():
                      "syn3r_tpu_torch/csrc/flash_attention.cu",
                      "syn3r_tpu/models/layers.py:185", attn_rows,
                      scene["launches"]["flash_attention"]),
+        kernel_entry("frame_attention",
+                     "syn3r_tpu_torch/csrc/frame_attention.cu",
+                     "none (XLA: syn3r_tpu/models/layers.py:137)",
+                     frame_rows, unit["frame_attention_launches"]),
     ]
     for name, line in (("composite_fwd", 67), ("composite_bwd", 140)):
         r = comp[name]
@@ -3737,6 +3793,7 @@ def main():
                    "hgmma_in_sass": hgmma,
                    "geglu_ffn": ffn_rows, "geglu_ffn_small": ffn_small,
                    "flash_attention": attn_rows,
+                   "frame_attention": frame_rows,
                    "small_unet": small, "unit": unit, "guided": guided,
                    "norms": norm_rows,
                    "composite": comp, "gs_small": gs_small, "gs": gs,

@@ -1,7 +1,7 @@
 """The main path's kernel call shapes (the UNet's GEGLU-FFN,
-flash-attention, LayerNorm and GroupNorm calls, the GS scene whose tile
-lists feed the composite kernels) and the timing helpers shared by
-chip_smoke.py and scripts/time_kernels.py.
+flash-attention, frame-attention, LayerNorm and GroupNorm calls, the GS
+scene whose tile lists feed the composite kernels) and the timing helpers
+shared by chip_smoke.py and scripts/time_kernels.py.
 
 At import it loads torch and numpy only, so that time_kernels.py can take
 it from this checkout and the kernels from another; ``gs_scene`` imports
@@ -24,6 +24,11 @@ FFN_SHAPES = [(75 * 9216, 320, 15), (75 * 2304, 640, 15),
 # (batch*heads, tokens, calls per forward): spatial self-attention at the
 # three levels with >= 512 tokens, 5 transformers each.
 ATTN_SHAPES = [(75 * 5, 9216, 5), (75 * 10, 2304, 5), (75 * 20, 576, 5)]
+# (rows, H, frames, calls per forward): the temporal self-attention over
+# 25 frames, rows = batch 3 x pixels, heads of 64, 5 transformers a level
+# and the mid block's one = 16 calls.
+FRAME_ATTN_SHAPES = [(3 * 9216, 5, 25, 5), (3 * 2304, 10, 25, 5),
+                     (3 * 576, 20, 25, 5), (3 * 144, 20, 25, 1)]
 # (B, H, tokens, calls per grad pass) of the grad-through-UNet guidance's
 # batch-1 forward (B = 25 frames): the same 15 spatial self-attention calls,
 # each with a backward.

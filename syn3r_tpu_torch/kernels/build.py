@@ -36,6 +36,11 @@ SIGNATURES = {
     "flash_attention": {"syn3r_flash_attention":
                         [_P] * 5 + [ctypes.POINTER(_LL), _I, _I, _I, _LL,
                                     _LL, _LL, _F, _I, _P]},
+    # q, k, v, o; 3 x 12 map values; B, H, S; o strides; scale; grid;
+    # stream
+    "frame_attention": {"syn3r_frame_attention":
+                        [_P] * 4 + [ctypes.POINTER(_LL), _I, _I, _I, _LL,
+                                    _LL, _LL, _F, _I, _P]},
     "flash_attention_bwd": {
         # q, k, v, dout, lse, D, dk, dv; 4 x 12 map values; dk and dv
         # (sb, sh, ss); B, H, S, ld; scale; grid; stream

@@ -14,8 +14,13 @@ pass through the UNet), the dq and dkv kernels of
 ``csrc/flash_attention_bwd.cu``, both through one autograd Function; on a
 CPU tensor the exact chunked version, whose gradient is autograd's (as
 JAX differentiates ``_attention_chunked`` off the TPU). A CUDA tensor
-never takes a plain fallback: the wrappers launch or raise. The packed,
-dense and chunked paths stay plain torch, as they stay XLA in JAX.
+never takes a plain fallback: the wrappers launch or raise. The short
+path of ``attention`` (the UNet's temporal self-attention over <= 32
+frames) takes ``frame_attention`` on a CUDA tensor with heads of 64 and
+no gradient taken, the hand-written kernel of ``csrc/frame_attention.cu``
+(JAX leaves that path to XLA); otherwise, and on the CPU, the packed
+version. The packed, dense and chunked paths stay plain torch, as they
+stay XLA in JAX.
 ``attention_lse_reference`` and ``flash_attention_bwd_reference`` are the
 plain versions of the forward's lse and of the backward.
 """
@@ -27,7 +32,7 @@ import ctypes
 import torch
 
 from ..kernels import build
-from ..utils.profiling import counters
+from ..utils.profiling import counters, span
 
 # Query rows of the kernel's work item, keys of its K/V stage, head dim.
 FLASH_BQ, FLASH_BKV, FLASH_D = 128, 192, 64
@@ -39,6 +44,9 @@ FLASH_BWD_INPUTS = {"dkv": ("q", "k", "v", "dout"),
                     "dq": ("q", "k", "v", "dout", "out")}
 # dynamic shared memory a block may use on an H100 (227 KB)
 SMEM_BYTES = 232448
+# The frame-attention kernel: frames of a tile (S <= 32, padded), (row,
+# head) pairs of a work item (one a consumer warp), stages of its ring.
+FRAME_ROWS, FRAME_PAIRS, FRAME_STAGES = 32, 8, 2
 
 
 def attention_dense(q, k, v, scale: float) -> torch.Tensor:
@@ -110,21 +118,21 @@ def flash_grid(b: int, h: int, s: int, num_sms: int) -> int:
     return min(b * h * -(-s // FLASH_BQ), num_sms)
 
 
-def check_flash_args(q, k, v) -> None:
+def check_flash_args(q, k, v, kernel: str = "flash_attention") -> None:
     """Raises unless q, k, v are bf16 (B, H, S, 64) of one shape."""
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise TypeError("flash_attention kernel takes bfloat16 q, k, v")
+        raise TypeError(f"{kernel} kernel takes bfloat16 q, k, v")
     if (q.dim() != 4 or q.shape[3] != FLASH_D or k.shape != q.shape
             or v.shape != q.shape):
-        raise ValueError("flash_attention kernel needs q, k, v of one shape "
+        raise ValueError(f"{kernel} kernel needs q, k, v of one shape "
                          f"with d = 64, got {q.shape} {k.shape} {v.shape}")
 
 
-def check_cuda(q) -> None:
+def check_cuda(q, kernel: str = "flash_attention") -> None:
     """Raises unless q lies on a CUDA device: the kernel route takes no
     CPU tensor."""
     if q.device.type != "cuda":
-        raise ValueError("flash_attention kernels take CUDA tensors, got "
+        raise ValueError(f"{kernel} kernels take CUDA tensors, got "
                          f"{q.device}")
 
 
@@ -169,6 +177,84 @@ def _flash_forward(q, k, v, scale: float, with_lse: bool):
             f"flash_attention kernel launch failed: cudaError {err}")
     counters["launches.flash"] += 1
     return out, lse
+
+
+def frame_attention_plan(b: int, h: int, s: int, num_sms: int,
+                         d: int = FLASH_D) -> dict:
+    """Launch plan of ``csrc/frame_attention.cu`` for (B, H, S, d) on a
+    card of ``num_sms`` SMs: the (row, head) pairs, the work items of
+    FRAME_PAIRS pairs, the persistent grid (a block an SM, at most one an
+    item) and the dynamic shared bytes (a ring of FRAME_STAGES stages of
+    q, k, v tiles of FRAME_ROWS rows, and a tile a consumer warp for o).
+    Raises ValueError on what the kernel does not take."""
+    if d != FLASH_D:
+        raise ValueError(f"frame_attention kernel takes d = 64, got {d}")
+    if not 1 <= s <= FRAME_ROWS:
+        raise ValueError(f"frame_attention kernel takes 1 <= S <= "
+                         f"{FRAME_ROWS} frames, got {s}")
+    if min(b, h, num_sms) <= 0:
+        raise ValueError(f"frame_attention kernel needs B, H and SMs > 0, "
+                         f"got {(b, h, num_sms)}")
+    pairs = b * h
+    if pairs >= 2 ** 31:
+        raise ValueError(f"frame_attention kernel: {pairs} (row, head) "
+                         "pairs pass its 32-bit indices")
+    tile = FRAME_ROWS * d * 2
+    smem = (1024 + FRAME_STAGES * 3 * FRAME_PAIRS * tile
+            + FRAME_PAIRS * tile + 2 * FRAME_STAGES * 8)
+    if smem > SMEM_BYTES:
+        raise ValueError(f"frame_attention kernel: {smem} bytes of shared "
+                         f"memory, over the {SMEM_BYTES} a block may use")
+    items = -(-pairs // FRAME_PAIRS)
+    return {"pairs": pairs, "items": items, "grid": min(items, num_sms),
+            "smem": smem}
+
+
+def frame_attention(q, k, v, scale: float) -> torch.Tensor:
+    """Exact per-head attention over S <= 32 frames on CUDA tensors: one
+    launch of ``csrc/frame_attention.cu`` on q's card (its current device
+    and stream). q, k, v are bf16 (B, H, S, 64) views read in place where
+    TMA can (``mapped``: a contiguous head axis, 16-byte strides and
+    start), such as the UNet's projections split into heads. Returns
+    (B, H, S, 64), a view of a (B, S, H, 64) tensor (``like_projection``),
+    so the merge of the heads before ``to_out`` copies nothing.
+    ``counters["launches.frame_attn"]`` counts launches."""
+    check_cuda(q, "frame_attention")
+    check_flash_args(q, k, v, "frame_attention")
+    b, h, s, d = q.shape
+    plan = frame_attention_plan(b, h, s, torch.cuda.get_device_properties(
+        q.device).multi_processor_count, d)
+    (q, mq), (k, mk), (v, mv) = (mapped(t, FRAME_ROWS) for t in (q, k, v))
+    geom = (ctypes.c_longlong * 36)(*(
+        x for m in (mq, mk, mv)
+        for x in (*m["dims"], *m["strides"], *m["box"], m["s_dim"])))
+    out = like_projection(q)
+    ob, oh, os_, _ = out.stride()
+    with torch.cuda.device(q.device):
+        err = build.entry("frame_attention")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), geom,
+            b, h, s, ob, oh, os_, float(scale), plan["grid"],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"frame_attention kernel launch failed: cudaError {err}")
+    counters["launches.frame_attn"] += 1
+    return out
+
+
+def grad_taken(q, k, v) -> bool:
+    """Whether autograd will take a gradient through q, k or v."""
+    return torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
+
+
+def takes_frame_kernel(q, k, v) -> bool:
+    """Whether the short path of ``attention`` launches the frame-attention
+    kernel: CUDA tensors with heads of 64 and no gradient taken. A gradient
+    keeps the packed version under autograd; the kernel has no
+    backward."""
+    return (q.device.type == "cuda" and q.shape[3] == FLASH_D
+            and not grad_taken(q, k, v))
 
 
 def like_projection(t: torch.Tensor) -> torch.Tensor:
@@ -331,8 +417,7 @@ def flash_attention(q, k, v, scale: float) -> torch.Tensor:
         return attention_chunked(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
+    if grad_taken(q, k, v):
         return _FlashAttention.apply(q, k, v, scale)
     return _flash_forward(q, k, v, scale, with_lse=False)[0]
 
@@ -384,10 +469,15 @@ def takes_flash(sq: int, sk: int, d: int) -> bool:
 
 
 def attention(q, k, v, scale: float) -> torch.Tensor:
-    """Pick the implementation by shape, as ``_attention`` does."""
+    """Pick the implementation by shape, as ``_attention`` does; the short
+    path (span ``unet.frame_attention``) takes the frame-attention kernel
+    where ``takes_frame_kernel``, else the packed version."""
     sq, sk = q.shape[2], k.shape[2]
     if sq == sk and sq <= 32 and q.shape[1] > 1:
-        return attention_packed_heads(q, k, v, scale)
+        with span("unet.frame_attention"):
+            if takes_frame_kernel(q, k, v):
+                return frame_attention(q, k, v, scale)
+            return attention_packed_heads(q, k, v, scale)
     if sq < 512 and sk < 512:
         return attention_dense(q, k, v, scale)
     if takes_flash(sq, sk, q.shape[3]):

@@ -1,7 +1,8 @@
 """Host-side launch plans of the port's GEGLU-FFN, flash-attention,
-composite forward and backward, LayerNorm and GroupNorm kernels, on the
-CPU: the tile and grid choices, the TMA tensor-map geometry and the scratch
-the wrappers hand to the CUDA code, what they copy, and what they refuse.
+frame-attention, composite forward and backward, LayerNorm and GroupNorm
+kernels, on the CPU: the tile and grid choices, the TMA tensor-map geometry
+and the scratch the wrappers hand to the CUDA code, what they copy, and
+what they refuse.
 The kernels themselves run only on the card (chip_smoke.py); these are the
 plain-Python parts of their wrappers.
 """
@@ -109,6 +110,115 @@ def test_flash_misaligned_views_are_copied_once():
     assert view.data_ptr() % 16 != 0
     t, m = A.mapped(view, A.FLASH_BQ)
     assert t is not view and t.data_ptr() % 16 == 0 and m is not None
+
+
+# (rows, H) of the temporal self-attention (S 25 frames) of an SVD-XT
+# forward over 72x128 latents: batch 3 (the post cell's fused forward) and
+# batch 2 (the prob cell's CFG pair) at 9216, 2304, 576 and 144 pixels a
+# frame; and tensor-parallel shards of the 5 heads of the top level
+FRAME_SHAPES = ([(b * px, h) for b in (3, 2)
+                 for px, h in ((9216, 5), (2304, 10), (576, 20), (144, 20))]
+                + [(3 * 9216, 3), (3 * 9216, 2)])
+
+
+@pytest.mark.parametrize("rows, h", FRAME_SHAPES)
+def test_frame_attention_plan(rows, h):
+    """Work items of 8 (row, head) pairs over a persistent grid of one
+    block a SM; the ring of q, k, v tiles (32 rows of 128 bytes) and a
+    tile a consumer warp for o within the 227 KB a block may use."""
+    plan = A.frame_attention_plan(rows, h, 25, H100_SMS)
+    tile = A.FRAME_ROWS * 64 * 2
+    assert plan["pairs"] == rows * h
+    assert plan["items"] == -(-rows * h // A.FRAME_PAIRS)
+    assert plan["grid"] == min(plan["items"], H100_SMS) == H100_SMS
+    assert plan["smem"] == (1024 + A.FRAME_STAGES * 3 * A.FRAME_PAIRS * tile
+                            + A.FRAME_PAIRS * tile + 2 * A.FRAME_STAGES * 8)
+    assert plan["smem"] <= A.SMEM_BYTES == 232448
+
+
+@pytest.mark.parametrize("rows, h, items, grid", [
+    (1, 2, 1, 1), (4, 2, 1, 1), (5, 3, 2, 2), (432, 20, 1080, H100_SMS)])
+def test_frame_attention_grid_is_persistent(rows, h, items, grid):
+    plan = A.frame_attention_plan(rows, h, 25, H100_SMS)
+    assert (plan["items"], plan["grid"]) == (items, grid)
+
+
+@pytest.mark.parametrize("rows, h", FRAME_SHAPES)
+def test_frame_attention_maps_of_projection_views(rows, h):
+    """The temporal attention's q, k, v are split() views of (rows, F, C)
+    Linear outputs, strides (F C, 64, C, 1): the map walks them as they
+    lie (H before S), a box of one head's 32 frames, with no copy."""
+    c = h * 64
+    m = A.flash_tensor_map((rows, h, 25, 64), (25 * c, 64, c, 1), 4096,
+                           A.FRAME_ROWS)
+    assert m == {"dims": (64, h, 25, rows),
+                 "strides": (128, c * 2, 25 * c * 2),
+                 "box": (64, 1, A.FRAME_ROWS, 1), "s_dim": 2}
+
+
+@pytest.mark.parametrize("layout", ["projection", "fused_qkv", "contiguous"])
+def test_frame_attention_maps_real_views_without_a_copy(layout):
+    """Split views of a projection, of a fused QKV projection (row stride
+    3 C) and contiguous (B, H, S, 64) tensors are all read in place."""
+    rows, s, h = 6, 25, 5
+    c = h * 64
+    if layout == "contiguous":
+        q = torch.empty((rows, h, s, 64), dtype=torch.bfloat16)
+    else:
+        width = 3 * c if layout == "fused_qkv" else c
+        proj = torch.empty((rows, s, width), dtype=torch.bfloat16)
+        q = proj[..., c:2 * c] if layout == "fused_qkv" else proj
+        q = q.view(rows, s, h, 64).transpose(1, 2)
+    t, m = A.mapped(q, A.FRAME_ROWS)
+    assert t is q
+    assert m["box"][m["s_dim"]] == A.FRAME_ROWS and m["dims"][0] == 64
+
+
+def test_frame_attention_output_merges_heads_as_a_view():
+    """o is a (B, H, S, 64) view of a (B, S, H, 64) tensor, so the
+    transpose and reshape before to_out copy nothing."""
+    q = torch.empty((6, 5, 25, 64), dtype=torch.bfloat16)
+    out = A.like_projection(q)
+    assert out.shape == q.shape and out.transpose(1, 2).is_contiguous()
+    merged = out.transpose(1, 2).reshape(6, 25, -1)
+    assert merged.data_ptr() == out.data_ptr() and merged._is_view()
+
+
+@pytest.mark.parametrize("args, match", [
+    ((3, 5, 25, H100_SMS, 32), "d = 64"),
+    ((3, 5, 25, H100_SMS, 128), "d = 64"),
+    ((3, 5, 33, H100_SMS), "S <= 32"),
+    ((3, 5, 0, H100_SMS), "S <= 32"),
+    ((0, 5, 25, H100_SMS), "> 0"),
+    ((2 ** 28, 8, 25, H100_SMS), "32-bit"),
+])
+def test_frame_attention_plan_refuses(args, match):
+    with pytest.raises(ValueError, match=match):
+        A.frame_attention_plan(*args)
+
+
+def test_frame_attention_plan_refuses_shared_memory_over_227_kb(
+        monkeypatch):
+    monkeypatch.setattr(A, "SMEM_BYTES", 200 * 1024)
+    with pytest.raises(ValueError, match="shared memory"):
+        A.frame_attention_plan(3, 5, 25, H100_SMS)
+
+
+def test_frame_attention_kernel_refuses_unsupported_inputs():
+    def qkv(d=64, s=25, dtype=torch.bfloat16):
+        return [torch.zeros((2, 5, s, d), dtype=dtype) for _ in range(3)]
+    A.check_flash_args(*qkv(), "frame_attention")
+    with pytest.raises(ValueError, match="d = 64"):
+        A.check_flash_args(*qkv(d=32), "frame_attention")
+    with pytest.raises(TypeError, match="frame_attention kernel takes "
+                       "bfloat16"):
+        A.check_flash_args(*qkv(dtype=torch.float32), "frame_attention")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        A.frame_attention(*qkv(), 0.125)
+    # the CPU never takes the kernel, with or without a gradient
+    assert not A.takes_frame_kernel(*qkv())
+    assert not A.takes_frame_kernel(*(t.float().requires_grad_()
+                                      for t in qkv()))
 
 
 BWD_SHAPES = [(25, 5, 9216), (25, 10, 2304), (25, 20, 576), (2, 3, 200),
@@ -491,6 +601,7 @@ def test_plans_decide_nothing_about_a_card():
     assert G.geglu_plan(10, 8, 1)["grid1"] == 1
     assert A.flash_grid(1, 1, 1, 1) == 1
     assert A.flash_bwd_plan(1, 1, 1, 1)["dkv"]["grid"] == 1
+    assert A.frame_attention_plan(1, 2, 1, 1)["grid"] == 1
     assert TC.composite_bwd_plan(1, 1, 1, 1)["grid"] == (1, 1, 1)
     assert N.layer_norm_plan(1, 8, torch.bfloat16, 1)["grid"] == 1
     assert N.group_norm_plan(1, 1, 8, torch.bfloat16, 1, 1,
@@ -624,6 +735,7 @@ def _cpu_routes():
     w1, b1 = torch.randn((256, 32), generator=g), torch.randn(256, generator=g)
     w2, b2 = torch.randn((32, 128), generator=g), torch.randn(32, generator=g)
     q, k, v = (torch.randn((1, 2, 600, 64), generator=g) for _ in range(3))
+    fq, fk, fv = (torch.randn((6, 5, 25, 64), generator=g) for _ in range(3))
     x3 = torch.randn((2, 40, 64), generator=g)
     gw, gb = torch.randn(64, generator=g), torch.randn(64, generator=g)
     T, px, cap, K = 2, 64, 128, 64
@@ -640,6 +752,10 @@ def _cpu_routes():
          lambda: A.attention_chunked(q, k, v, 0.125)),
         ("flash_forward", lambda: A._flash_forward(
             q.bfloat16(), k.bfloat16(), v.bfloat16(), 0.125, False), None),
+        ("attention_short_path", lambda: A.attention(fq, fk, fv, 0.125),
+         lambda: A.attention_packed_heads(fq, fk, fv, 0.125)),
+        ("frame_attention", lambda: A.frame_attention(
+            fq.bfloat16(), fk.bfloat16(), fv.bfloat16(), 0.125), None),
         ("flash_attention_bwd", lambda: A.flash_attention_bwd(
             *(t.bfloat16() for t in (q, k, v, q)),
             torch.zeros((1, 2, 600)), q.bfloat16(), 0.125), None),

@@ -99,6 +99,22 @@ def test_attention_dispatch_matches_jax(shape):
     np.testing.assert_allclose(got, want, **TOL)
 
 
+@pytest.mark.parametrize("shape", [(4, 5, 25, 64), (3, 3, 7, 64),
+                                   (2, 2, 32, 64)])
+def test_short_path_on_cpu_is_packed_heads(shape):
+    """On the CPU the temporal attention's short path stays the packed
+    version, as JAX's ``_attention_packed_heads``, and launches no
+    frame-attention kernel."""
+    counters.clear()
+    q, k, v = _qkv(shape, seed=shape[2])
+    scale = shape[3] ** -0.5
+    want = np.asarray(_attention_packed_heads(
+        *(jnp.asarray(a) for a in (q, k, v)), scale))
+    got = A.attention(*_as_torch((q, k, v)), scale).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    assert counters["launches.frame_attn"] == 0
+
+
 def test_flash_dispatch_rule():
     """The port takes its flash kernel exactly where the JAX package takes
     the Pallas flash kernel on a TPU."""

@@ -3,7 +3,8 @@ of SVD-XT's depth (four levels, two layers a block) and a tiny guided
 denoise, post and prob, run under ``torch.profiler``.
 
 Checked: each span of the denoise step and of the UNet appears, a forward
-has SVD-XT's 22 resnets, 16 transformers, 6 samplers and 12 skips, spans
+has SVD-XT's 22 resnets, 16 transformers, 6 samplers and 12 skips and a
+``unet.frame_attention`` span for each call of the short attention path, spans
 nest, every aten op of a forward lies under exactly one of the forward's
 block spans, no span is a user annotation (which would add an event to a
 card's timeline), outputs are bit for bit those of a run without the
@@ -35,7 +36,12 @@ PER_FORWARD = {"unet.embed": 1, "unet.resnet": 22, "unet.resnet.spatial": 22,
                "unet.resnet.temporal": 22, "unet.transformer": 16,
                "unet.transformer.spatial": 16,
                "unet.transformer.temporal": 16, "unet.sample": 6,
-               "unet.skip": 12, "unet.out": 1}
+               "unet.skip": 12, "unet.out": 1,
+               # the short attention path (S <= 32, more than one head):
+               # the temporal self-attention of the 11 transformers with 2
+               # heads, and at these tiny latents their spatial one too
+               # (8x16 pixels: 32 tokens at the second level, fewer below)
+               "unet.frame_attention": 22}
 PARENT = {"unet.resnet.spatial": "unet.resnet",
           "unet.resnet.temporal": "unet.resnet",
           "unet.transformer.spatial": "unet.transformer",
