@@ -139,7 +139,10 @@ def test_load_cell(cell):
     entry, config, traffic, per_layer = load_cell(cell)
     assert entry["name"] == cell
     assert per_layer
-    assert traffic["kind"] == "denoise"
+    assert traffic["kind"] in ("denoise", "gs")
+    if traffic["kind"] == "gs":         # test_benchmark_gs.test_entries
+        assert config["check"]["densify_rows_off"] == 0
+        return
     assert config["check"]["unet_rows_off"] == 0
     assert config["check"]["steps"]
     for step, limits in config["check"]["steps"].items():
