@@ -13,12 +13,18 @@ degree 3 136, sigmoid 5) and its backward twice that, 870; binning ~860
 Per pixel of the frame: L1 9, SSIM ~765 (15 maps, two 11-tap passes of 2
 operations, the combination) and their backward twice that, the depth
 term ~20: about 2,300.
+Where the step has the LPIPS term, plus its products (``counts/lpips.py``).
 """
+
+from .lpips import step_ops as lpips_ops
 
 OPS_PER_SLOT = 3000
 OPS_PER_PIXEL = 2300
 
 
-def step_ops(capacity: int, pixels: int) -> float:
-    """Operations of one step outside the composite kernels."""
-    return OPS_PER_SLOT * capacity + OPS_PER_PIXEL * pixels
+def step_ops(capacity: int, height: int, width: int,
+             lpips: bool = False) -> float:
+    """Operations of one step outside the composite kernels, on a (height,
+    width) frame, with the LPIPS term where ``lpips``."""
+    ops = OPS_PER_SLOT * capacity + OPS_PER_PIXEL * height * width
+    return ops + (lpips_ops(height, width) if lpips else 0)

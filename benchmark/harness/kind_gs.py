@@ -23,6 +23,13 @@ made) and ends with at most ``SETTLED`` of it live. Every episode of the
 window restores the start at that capacity, so the window holds no
 capture and no growth.
 
+Where ``train`` has an ``lpips_weight`` above 0, set-up draws LPIPS
+weights from the seed (``lpips_weights``) before the fit, installs them
+through the port's ``set_lpips`` and keeps ``use_lpips_loss`` on for the
+fit and every episode, as ``refine_GS`` keeps it on for its whole
+``finetune``; the reference is handed the same weights. Without the key
+nothing is installed and the step has no LPIPS term.
+
 The window (``gs_step_ms``): episodes back to back until ``seconds`` have
 passed, ending with the episode in which they passed; its whole time
 (every segment's replays, densify, opacity reset, segment upload and
@@ -84,6 +91,7 @@ import torch
 from counts import composite as cc
 from counts.gs_step import step_ops
 from reference import gs as ref
+from reference import lpips as ref_lpips
 
 from . import common
 from .gs_traffic import make_scene
@@ -98,6 +106,14 @@ WARM_EPISODES = 4
 # capacity live is the last: an episode from the start at that capacity
 # stays below the growth limit (0.85) too
 SETTLED = 0.75
+# the seeded LPIPS weights: biases N(0, BIAS_STD^2), lin weights
+# |N(0, LIN_STD^2)|. At a lin std of 0.1 the distance of the tiny scene's
+# start renders to their targets read 0.02-0.05 (L1 0.05-0.12, 1 - SSIM
+# 0.17-0.32), a tenth of the 0.2-0.3 that sparse-view papers report for
+# LPIPS-VGG at such errors (FSGS, LLFF at 3 views: 0.248 at SSIM 0.682);
+# at 1 it reads 0.2-0.5, so the term weighs in the loss as in the refine
+LPIPS_BIAS_STD = 0.01
+LPIPS_LIN_STD = 1.0
 
 
 def model_dir() -> Path:
@@ -119,6 +135,30 @@ def train_config(config: dict):
     kw = dict(train)
     kw["bg_color"] = tuple(kw["bg_color"])
     return TrainConfig(**kw)
+
+
+def lpips_weights(seed: int, device) -> dict:
+    """LPIPS weights drawn from the run's seed, on ``device`` in one call:
+    a state dict under the ``lpips`` package's names
+    (``reference/lpips.shapes``), its convolutions He-normal (std sqrt(2 /
+    fan in)), biases small, ``lin`` weights non-negative, as the released
+    ones are."""
+    shapes = ref_lpips.shapes()
+    gen = torch.Generator(device=device).manual_seed(sub_seed(seed, "lpips"))
+    flat = torch.randn(sum(math.prod(s) for s in shapes.values()),
+                       generator=gen, device=device)
+    out, off = {}, 0
+    for name, shape in shapes.items():
+        w = flat[off:off + math.prod(shape)].view(shape)
+        off += w.numel()
+        if name.startswith("lin"):
+            w.abs_().mul_(LPIPS_LIN_STD)
+        elif name.endswith(".bias"):
+            w.mul_(LPIPS_BIAS_STD)
+        else:
+            w.mul_(math.sqrt(2.0 / math.prod(shape[1:])))
+        out[name] = w
+    return out
 
 
 def port_cameras(cams: list, device):
@@ -313,6 +353,7 @@ class Program:
     capacity: int
     scene: object
     active: dict           # live counts and capacities, for the log
+    lpips: dict | None     # the LPIPS weights, where the step has the term
 
 
 def build(run: common.Run) -> Program:
@@ -338,6 +379,13 @@ def build(run: common.Run) -> Program:
     model_dir().mkdir(parents=True, exist_ok=True)
     trainer = GSTrainer(views, tcfg, init, model_path=str(model_dir()),
                         device=dev)
+    lpips = None
+    if train.get("lpips_weight", 0) > 0:
+        from syn3r_tpu_torch.models.lpips import convert_lpips_torch
+        lpips = lpips_weights(run.seed, dev)
+        trainer.set_lpips(convert_lpips_torch({k: v.cpu()
+                                               for k, v in lpips.items()}))
+        trainer.use_lpips_loss = True
     rec = Recorder(trainer, followed_boundary(train, run.seed),
                    follow_from(train, run.seed))
     lo, hi = train["start_sample_svd_iter"], train["iterations"]
@@ -381,7 +429,7 @@ def build(run: common.Run) -> Program:
               "start_capacity": start.state.gaussians.capacity,
               "capacity": capacity}
     return Program(trainer=trainer, rec=rec, start=start, capacity=capacity,
-                   scene=scene, active=active)
+                   scene=scene, active=active, lpips=lpips)
 
 
 def episode(prog: Program, end: int | None = None):
@@ -468,7 +516,8 @@ def traced_counts(run: common.Run, prog: Program) -> dict:
     traced stretch's steps: each step's view binned from the state its
     segment began with by the reference's projection and tile rules, its
     live entries and hit pairs counted (``counts/composite.py``), the rest
-    of the step by ``counts/gs_step.py``."""
+    of the step by ``counts/gs_step.py``, its LPIPS term with it where the
+    step has one."""
     train = run.config["train"]
     scene = prog.scene
     cams = scene.train_cams + scene.pseudo_cams
@@ -503,7 +552,7 @@ def traced_counts(run: common.Run, prog: Program) -> dict:
                 fwd_s += int(n) * f_s
                 bwd_s += int(n) * b_s
                 ops += int(n) * (f_ops + b_ops + step_ops(
-                    st["active"].shape[0], h * w))
+                    st["active"].shape[0], h, w, prog.lpips is not None))
                 bound_by |= {("fwd", f_by), ("bwd", b_by)}
     return {"fwd_s": fwd_s, "bwd_s": bwd_s, "ops": ops,
             "bound_by": sorted(bound_by)}
@@ -529,12 +578,14 @@ class Kept:
     growth: tuple
     start: dict            # the start (the pseudo depth targets' source)
     scene: object
+    lpips: dict | None     # the LPIPS weights both sides were given
 
     @staticmethod
     def of(prog: Program) -> "Kept":
         return Kept(steps=prog.rec.steps, densify=prog.rec.densify,
                     growth=prog.rec.growth(),
-                    start=as_state(prog.start.state), scene=prog.scene)
+                    start=as_state(prog.start.state), scene=prog.scene,
+                    lpips=prog.lpips)
 
 
 def reference_view(run: common.Run, kept: Kept, index: int, flag: float,
@@ -569,7 +620,8 @@ def reference_steps(run: common.Run, kept: Kept, prec=None) -> Followed:
     depths = {}
     for index, flag in kept.steps.picks:
         view = reference_view(run, kept, index, flag, depths, prec)
-        state, loss, _ = ref.train_step(state, view, train, extent, prec)
+        state, loss, _ = ref.train_step(state, view, train, extent, prec,
+                                        kept.lpips)
         out.losses.append(loss)
         out.after.append(state)
     return out

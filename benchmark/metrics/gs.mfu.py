@@ -1,6 +1,7 @@
 """gs.mfu: the traced stretch's counted operations (the composite kernels'
 from each step's live entries and hit pairs, ``counts/composite.py``, and
-the rest of each step, ``counts/gs_step.py``) over its wall time x the
+the rest of each step, ``counts/gs_step.py``, with the LPIPS term's
+products where the step has one, ``counts/lpips.py``) over its wall time x the
 card's float32 peak outside the tensor cores (67 TFLOP/s): the whole
 step's share, which bounds the composite rooflines' gains; nothing where
 no operation ran on the device."""

@@ -1,7 +1,8 @@
 """Plain float32 reference of the GS refine's train step.
 
 3D Gaussian Splatting (Kerbl et al., SIGGRAPH 2023) as FSGS trains it
-(confidence-weighted pseudo views, the Pearson depth term), written from
+(confidence-weighted pseudo views, the Pearson depth term) and SYN3R's
+refine adds to it (the LPIPS term, ``reference/lpips.py``), written from
 the published description and the port's documented rasterizer rules
 (``syn3r_tpu_torch/ops/rasterize.py`` and ``ops/composite.py`` docstrings:
 32x64 tiles, 3-sigma boxes, a tile cap whose overflow drops the rearmost,
@@ -42,6 +43,7 @@ back through the projection by autograd.
 ``Precision("tf32")`` is the control: every matrix product's and
 convolution's operands rounded to TF32 (10 mantissa bits) and both of
 torch's TF32 switches on; the default is float32 with both switches off.
+LPIPS's convolutions take the same ``Precision``.
 """
 
 from __future__ import annotations
@@ -50,6 +52,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from . import lpips as lp
 
 TILE_H, TILE_W = 32, 64
 ALPHA_MIN, ALPHA_MAX = 1.0 / 255.0, 0.99
@@ -76,6 +80,11 @@ def _any(value) -> bool:
     return True
 
 
+def _non_negative(value) -> bool:
+    return (isinstance(value, (int, float)) and not isinstance(value, bool)
+            and math.isfinite(value) and value >= 0)
+
+
 # The train configuration's keys that this reference implements, each with
 # the test of the values it implements: a key outside this table, or a
 # value the test refuses, stops the run.
@@ -100,6 +109,8 @@ SUPPORTED = {
     # the seed draws the view picks, which the reference is handed
     "chunk": _any, "group": _any, "seed": _any,
     "bg_color": lambda v: len(v) == 3,
+    # the LPIPS term's weight; the term runs where LPIPS weights are given
+    "lpips_weight": _non_negative,
 }
 
 
@@ -407,14 +418,20 @@ def pearson_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
                                    + 1e-12)
 
 
-def view_loss(out: dict, view: dict, train: dict, prec: Precision):
-    """The camera's confidence x ((1 - l) L1 + l (1 - SSIM)), plus on a
-    view with a depth target ``depth_loss_weight`` x the Pearson term."""
+def view_loss(out: dict, view: dict, train: dict, prec: Precision,
+              lpips: dict | None = None):
+    """The camera's confidence x ((1 - l) L1 + l (1 - SSIM)); where LPIPS
+    weights ``lpips`` are given, plus the confidence x ``lpips_weight`` x
+    LPIPS(rgb, target); on a view with a depth target, plus
+    ``depth_loss_weight`` x the Pearson term."""
     lam = train["lambda_dssim"]
     target = view["image"]
-    loss = view["cam"]["confidence"] * (
-        (1.0 - lam) * (out["rgb"] - target).abs().mean()
-        + lam * (1.0 - ssim(out["rgb"], target, prec)))
+    conf = view["cam"]["confidence"]
+    loss = conf * ((1.0 - lam) * (out["rgb"] - target).abs().mean()
+                   + lam * (1.0 - ssim(out["rgb"], target, prec)))
+    if lpips is not None:
+        loss = loss + conf * train["lpips_weight"] * lp.distance(
+            lpips, out["rgb"], target, prec)
     if view.get("depth") is not None:
         loss = loss + train["depth_loss_weight"] * pearson_loss(
             out["depth"], view["depth"])
@@ -422,9 +439,9 @@ def view_loss(out: dict, view: dict, train: dict, prec: Precision):
 
 
 def loss_and_grads(params: dict, active, view: dict, train: dict,
-                   prec: Precision):
+                   prec: Precision, lpips: dict | None = None):
     """(loss, {field: gradient}, d loss / d screen centre (N, 2), the
-    projection) of one view."""
+    projection) of one view; ``lpips`` as ``view_loss`` takes it."""
     cam = view["cam"]
     h, w = cam["height"], cam["width"]
     leaves = {k: v.detach().clone().requires_grad_(True)
@@ -435,7 +452,7 @@ def loss_and_grads(params: dict, active, view: dict, train: dict,
     feat = {k: proj[k].detach().requires_grad_(True) for k in FEATURES}
     img = composite(feat, ids, counts, h, w, prec).clone().requires_grad_(
         True)
-    loss = view_loss(_outputs(img, train), view, train, prec)
+    loss = view_loss(_outputs(img, train), view, train, prec, lpips)
     (d_img,) = torch.autograd.grad(loss, img)
     d_tiles = _tiles(d_img, h, w)
     ty, tx = tile_grid(h, w)
@@ -472,13 +489,14 @@ def scene_extent(train_cams: list) -> float:
 
 
 def train_step(state: dict, view: dict, train: dict, extent: float,
-               prec: Precision | None = None):
+               prec: Precision | None = None, lpips: dict | None = None):
     """One step: (new state, loss, gradients). ``view``: ``cam``,
-    ``image`` (H, W, 3), ``depth`` (H, W) or None."""
+    ``image`` (H, W, 3), ``depth`` (H, W) or None; ``lpips``: the LPIPS
+    weights (``reference/lpips.py``) where the step has that term."""
     prec = prec or Precision()
     loss, grads, g_off, proj = loss_and_grads(state["params"],
                                               state["active"], view, train,
-                                              prec)
+                                              prec, lpips)
     cam = view["cam"]
     h, w = cam["height"], cam["width"]
     count = state["count"] + 1

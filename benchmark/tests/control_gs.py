@@ -1,7 +1,13 @@
-"""Readings that the limits of the GS cell's check are set from.
+"""Readings that the limits of a GS cell's check are set from.
 
     python benchmark/tests/control_gs.py --seeds 1,2,3 [--fault-seeds 3]
+        [--workload llff_gs_refine] [--train lpips_weight=1.0]
         [--faults a,b] [--no-control] [--out control.json]
+
+``--workload`` names the cell (``llff_gs_refine`` by default); each
+``--train key=value`` (a JSON value) sets a key of the configuration's
+``train`` for this process only, as a cell that a later configuration
+adds would state it.
 
 For each seed, in one process: the cell's set-up (``kind_gs.build``: the
 scene, the fit, the warm episodes) and one episode of the window,
@@ -13,8 +19,8 @@ recorded as a run records it; then, against the float32 reference:
     program's place for the three steps and the densify, from the same
     program state (a growth does no arithmetic: it has no control);
   - on the first ``--fault-seeds`` seeds, ``faults``: one more episode
-    with each fault of ``gs_faults.py`` (or of ``--faults``) planted in
-    the program (the
+    with each fault of ``gs_faults.py`` whose code the configuration runs
+    (or each of ``--faults``) planted in the program (the
     growth fault in an episode from the start at its own capacity, which
     grows as the first warm episode did), its numbers.
 
@@ -113,14 +119,22 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seeds", required=True)
     ap.add_argument("--fault-seeds", type=int, default=0)
-    ap.add_argument("--faults", default=",".join(gs_faults.FAULTS))
+    ap.add_argument("--workload", default=CELL)
+    ap.add_argument("--train", action="append", default=[],
+                    metavar="KEY=VALUE")
+    ap.add_argument("--faults", default=None)
     ap.add_argument("--no-control", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
-    cell, config, traffic, per_layer = load_cell(CELL)
+    cell, config, traffic, per_layer = load_cell(args.workload)
+    for item in args.train:
+        key, _, value = item.partition("=")
+        config["train"][key] = json.loads(value)
+    names = (args.faults.split(",") if args.faults
+             else gs_faults.applicable(config["train"]))
     print(f"card: {common.power_limit()}", file=sys.stderr)
     rows = []
     for i, seed in enumerate(int(s) for s in args.seeds.split(",")):
@@ -128,8 +142,7 @@ def main(argv=None) -> int:
                          per_layer=per_layer, seed=seed, seconds=0.0,
                          trace=False, device=torch.device("cuda", 0),
                          t0=time.perf_counter())
-        faults = tuple(args.faults.split(",")) if i < args.fault_seeds \
-            else ()
+        faults = tuple(names) if i < args.fault_seeds else ()
         row = readings(run, faults, control=not args.no_control)
         print(json.dumps(row), flush=True)
         rows.append(row)

@@ -1,12 +1,14 @@
 """Faults planted in the GS program for the check to catch: each is a
 function of the original method or function (a ``GSTrainer`` method, a
-loss of ``gs.losses``, ``ops.rasterize.rasterize_tiled``) that returns the
-faulty replacement. The first four are the cell's own (Adam's moments,
-the depth term, the densify statistics, the growth); the last three are
-the faults any training cell can have (a step that returns its state
-unchanged, half the batch left out with the mean over the rest, an
-answer altered where it is made); one card, so no exchange between cards
-can be left out.
+loss of ``gs.losses``, ``ops.rasterize.rasterize_tiled``, a method of the
+LPIPS module) that returns the faulty replacement. The first four are the
+cell's own (Adam's moments, the depth term, the densify statistics, the
+growth); the next three are the faults any training cell can have (a step
+that returns its state unchanged, half the batch left out with the mean
+over the rest, an answer altered where it is made); one card, so no
+exchange between cards can be left out. The last two (``LPIPS_FAULTS``)
+are the LPIPS term's, and only a configuration with an ``lpips_weight``
+above 0 runs the code they sit in.
 ``planted(name)`` puts one on the class for the length of a ``with``
 block; a fault inside the captured step (all but the densify and growth
 ones) reaches the card only once a trainer captures again
@@ -89,6 +91,22 @@ def render_altered(orig):
     return faulty
 
 
+def lpips_term_dropped(orig):
+    """The LPIPS term reads 0."""
+    def faulty(self, a, b):
+        return a.new_zeros(())
+    return faulty
+
+
+def lpips_tap_dropped(orig):
+    """The relu5_3 tap's distance is left out: that tap reads zero in both
+    images, so its normalised difference is zero."""
+    def faulty(self, x):
+        feats = orig(self, x)
+        return feats[:-1] + [torch.zeros_like(feats[-1])]
+    return faulty
+
+
 # fault -> (module path of the owner, attribute)
 TARGETS = {
     "stale_adam_moments": ("syn3r_tpu_torch.gs.trainer:GSTrainer",
@@ -103,12 +121,23 @@ TARGETS = {
                         "_static_step"),
     "half_batch": ("syn3r_tpu_torch.gs.losses", "photometric_loss"),
     "render_altered": ("syn3r_tpu_torch.ops.rasterize", "rasterize_tiled"),
+    "lpips_term_dropped": ("syn3r_tpu_torch.models.lpips:LPIPS", "forward"),
+    "lpips_tap_dropped": ("syn3r_tpu_torch.models.lpips:VGG16Features",
+                          "forward"),
 }
 FAULTS = {f.__name__: f for f in (stale_adam_moments,
                                   previous_boundary_stats,
                                   growth_resets_count, depth_term_dropped,
                                   state_unchanged, half_batch,
-                                  render_altered)}
+                                  render_altered, lpips_term_dropped,
+                                  lpips_tap_dropped)}
+LPIPS_FAULTS = ("lpips_term_dropped", "lpips_tap_dropped")
+
+
+def applicable(train: dict) -> list:
+    """The faults whose code a configuration's ``train`` runs."""
+    lpips = train.get("lpips_weight", 0) > 0
+    return [n for n in FAULTS if lpips or n not in LPIPS_FAULTS]
 
 
 def owner(name: str):

@@ -1,8 +1,9 @@
 """The GS cell at a tiny size on the CPU (``tiny_gs.py``): its entries in
 BENCHMARK.json, whole runs and their result lines, the reference against
-the port's plain tile path through a densify and a growth, each planted
-fault and the TF32 control failing the check, keys the run does not
-implement, and no JAX in the process."""
+the port's plain tile path through a densify and a growth (also with the
+LPIPS term), the reference's LPIPS against the port's, each planted fault
+and the TF32 control failing the check, keys the run does not implement,
+and no JAX in the process."""
 
 import json
 import math
@@ -15,6 +16,7 @@ from control_gs import readings
 from harness import cli, common, kind_gs
 from harness.cli import load_cell, run_cell
 from reference import gs as ref
+from reference import lpips as ref_lpips
 from tiny_gs import CELL, tiny_gs_run
 
 ROOT = common.BENCH_DIR.parent
@@ -114,14 +116,21 @@ def test_no_card_no_result(capsys, monkeypatch):
     assert capsys.readouterr().out == ""
 
 
-@pytest.mark.parametrize("rasterizer", ["tiled", "kernel"])
-def test_reference_agrees_with_the_ports_plain_path(rasterizer):
+@pytest.mark.parametrize("rasterizer, lpips_weight", [
+    ("tiled", None), ("kernel", None), ("kernel", 1.0)])
+def test_reference_agrees_with_the_ports_plain_path(rasterizer, lpips_weight):
     """Seed 5 grows in its warm episode; its followed densify writes
-    slots."""
-    run = tiny_gs_run(seed=5, rasterizer=rasterizer)
+    slots. With an ``lpips_weight`` the port has the seeded LPIPS weights
+    installed and on, and the reference the same weights; without, the
+    port has none."""
+    train = {} if lpips_weight is None else {"lpips_weight": lpips_weight}
+    run = tiny_gs_run(seed=5, rasterizer=rasterizer, **train)
     prog = kind_gs.build(run)
+    assert (prog.trainer._lpips is not None) == bool(train)
+    assert prog.trainer.use_lpips_loss == bool(train)
     kind_gs.episode(prog)
     kept = kind_gs.Kept.of(prog)
+    assert (kept.lpips is not None) == bool(train)
     assert kept.growth[0] == "warm"
     assert int(kept.densify[2].gaussians.active.sum()) > int(
         kept.densify[0].gaussians.active.sum())
@@ -134,16 +143,30 @@ def test_reference_agrees_with_the_ports_plain_path(rasterizer):
 
 @pytest.mark.parametrize("fault", sorted(gs_faults.FAULTS))
 def test_fault_comes_out_not_correct(fault):
-    """The cell's four faults and the three any training cell can have
+    """The cell's four faults, the three any training cell can have and
+    the LPIPS term's two, these with an ``lpips_weight`` of 1
     (``gs_faults.py``); one chip, so no exchange between chips can be left
     out."""
+    train = ({"lpips_weight": 1.0} if fault in gs_faults.LPIPS_FAULTS
+             else {})
     with gs_faults.planted(fault):
-        result = run_cell(tiny_gs_run(seed=5))
+        result = run_cell(tiny_gs_run(seed=5, **train))
     assert result["correct"] is False and result["failed"] == 1
 
 
-def test_control_fails_a_limit():
-    row = readings(tiny_gs_run(seed=7), control=True)
+def test_faults_applicable():
+    assert gs_faults.applicable({}) == [
+        n for n in gs_faults.FAULTS if n not in gs_faults.LPIPS_FAULTS]
+    assert gs_faults.applicable({"lpips_weight": 0.0}) \
+        == gs_faults.applicable({})
+    assert gs_faults.applicable({"lpips_weight": 1.0}) == list(
+        gs_faults.FAULTS)
+
+
+@pytest.mark.parametrize("lpips_weight", [None, 1.0])
+def test_control_fails_a_limit(lpips_weight):
+    train = {} if lpips_weight is None else {"lpips_weight": lpips_weight}
+    row = readings(tiny_gs_run(seed=7, **train), control=True)
     limits = load_cell(CELL)[1]["check"]
     assert all(row["program"][k] <= limits[k] for k in NUMBERS), row
     assert any(v > limits[k] for k, v in row["control"].items()), row
@@ -152,7 +175,7 @@ def test_control_fails_a_limit():
 @pytest.mark.parametrize("section, key, value", [
     ("train", "use_proximity_densify", True),
     ("train", "rasterizer", "dense"),
-    ("train", "lpips_weight", 1.0),
+    ("train", "lpips_weight", -1.0),
     ("train", "no_such_key", 1),
 ])
 def test_a_key_the_run_does_not_implement_stops_it(section, key, value):
@@ -160,6 +183,60 @@ def test_a_key_the_run_does_not_implement_stops_it(section, key, value):
     run.config[section][key] = value
     with pytest.raises(ValueError, match=key):
         run_cell(run)
+
+
+@pytest.mark.parametrize("value, ok", [
+    (0, True), (0.0, True), (1.0, True), (2, True), (-1.0, False),
+    (-1e-9, False), (math.nan, False), (math.inf, False), (True, False),
+    ("1", False)])
+def test_lpips_weight_values(value, ok):
+    if ok:
+        ref.refuse_unknown({"lpips_weight": value})
+    else:
+        with pytest.raises(ValueError, match="lpips_weight"):
+            ref.refuse_unknown({"lpips_weight": value})
+
+
+def test_lpips_weights_drawn_from_the_seed():
+    cpu = torch.device("cpu")
+    a = kind_gs.lpips_weights(11, cpu)
+    b = kind_gs.lpips_weights(11, cpu)
+    c = kind_gs.lpips_weights(12, cpu)
+    assert {k: tuple(v.shape) for k, v in a.items()} == ref_lpips.shapes()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert not torch.equal(a["net.slice1.0.weight"],
+                           c["net.slice1.0.weight"])
+    assert all(bool((v >= 0).all()) for k, v in a.items()
+               if k.startswith("lin"))
+    w = a["net.slice5.28.weight"]            # conv5_3, fan in 512 x 9
+    assert abs(float(w.std()) - (2.0 / (512 * 9)) ** 0.5) < 1e-3
+
+
+def test_reference_lpips_agrees_with_the_ports():
+    """``reference/lpips.py`` against the port's ``LPIPS`` on the seeded
+    weights installed as ``kind_gs`` installs them, at a 60x90 frame (odd
+    sizes after the pools): value and input gradient; and each tap's
+    share."""
+    from syn3r_tpu_torch.models.lpips import (convert_lpips_torch,
+                                              lpips_module)
+    cpu = torch.device("cpu")
+    weights = kind_gs.lpips_weights(3, cpu)
+    port = lpips_module(convert_lpips_torch(weights), cpu)
+    gen = torch.Generator().manual_seed(0)
+    a = torch.rand(60, 90, 3, generator=gen)
+    b = (a + 0.2 * torch.rand(60, 90, 3, generator=gen)).clamp(0, 1)
+    a1, a2 = (a.clone().requires_grad_(True) for _ in range(2))
+    mine = port(a1, b)
+    theirs = ref_lpips.distance(weights, a2, b, ref.Precision())
+    assert abs(float(mine.detach()) - float(theirs.detach())) \
+        <= 1e-5 * abs(float(theirs.detach()))
+    (g1,) = torch.autograd.grad(mine, a1)
+    (g2,) = torch.autograd.grad(theirs, a2)
+    assert float((g1 - g2).norm()) <= 1e-5 * float(g2.norm())
+    taps = ref_lpips.tap_distances(weights, a, b, ref.Precision())
+    assert len(taps) == 5 and all(float(t) > 0 for t in taps)
+    assert math.isclose(float(sum(taps)), float(theirs.detach()),
+                        rel_tol=1e-6)
 
 
 def test_precision_rounds_to_tf32():

@@ -3,13 +3,18 @@
 at the table's shapes: the GS scene of ``scripts/kernel_timing.py``
 (65,536 points from numpy seed 0 in a slab before one 504x378 camera),
 binned by the port into T 96 tiles of 2048 pixels, cap 1024, K 128; and
-the reference's tile lists against the port's on it."""
+the reference's tile lists against the port's on it. ``counts/lpips.py``
+against VGG-16's published 15.35 GMAC at 224x224 and the reference's tap
+shapes, and the step's count with and without the LPIPS term."""
 
 import numpy as np
 import torch
 
 from counts import composite as cc
+from counts import gs_step
+from counts import lpips as lc
 from reference import gs as ref
+from reference import lpips as ref_lpips
 from syn3r_tpu_torch.models.gaussians import from_points
 from syn3r_tpu_torch.ops import rasterize as RZ
 from syn3r_tpu_torch.utils.camera import camera_from_fov, look_at_w2c
@@ -67,3 +72,33 @@ def test_reference_tile_lists_match_the_ports():
     assert torch.equal(counts, (tl.O[:, 0] > 0).sum(1))
     assert torch.allclose(depth, tl.C[:, 3, :ids.shape[1]], rtol=1e-6,
                           atol=0)
+
+
+def test_lpips_products():
+    assert lc.conv_macs(224, 224) == 15_346_630_656
+    assert lc.lin_macs(224, 224) == 6_121_472
+    # the render's forward and its input gradient, two operations a product
+    assert lc.step_ops(540, 960) == 4 * (157_883_351_040 + 63_191_040)
+    assert lc.step_ops(378, 504) == 4 * (57_862_702_080 + 23_202_304)
+    for h, w in ((540, 960), (378, 504), (64, 128)):
+        assert gs_step.step_ops(1024, h, w, lpips=True) \
+            - gs_step.step_ops(1024, h, w) == lc.step_ops(h, w)
+    assert gs_step.step_ops(1024, 378, 504) == 3000 * 1024 + 2300 * 378 * 504
+
+
+def test_lpips_counts_follow_the_reference_shapes():
+    """The taps' shapes of ``reference/lpips.py`` at an odd frame give
+    ``lin_macs``; the convolutions' inputs give ``conv_macs``."""
+    h, w = 45, 71
+    weights = {k: torch.zeros(s) for k, s in ref_lpips.shapes().items()}
+    taps = ref_lpips.taps(weights, torch.zeros(1, 3, h, w), ref.Precision())
+    assert lc.lin_macs(h, w) == sum(t.shape[1] * t.shape[2] * t.shape[3]
+                                    for t in taps)
+    macs, size = 0, (h, w)
+    for _, kind, c_in, c_out in ref_lpips.layers():
+        if kind == "pool":
+            size = (size[0] // 2, size[1] // 2)
+        else:
+            macs += size[0] * size[1] * c_in * c_out * 9
+    assert size == tuple(taps[-1].shape[2:])
+    assert lc.conv_macs(h, w) == macs
