@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (syn3r_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--geglu-parent DIR]
 
 Phases, one result line each; any failure raises and the exit code is not 0:
   1. device   the card's name and power limit (nvidia-smi), torch version.
@@ -15,7 +15,14 @@ Phases, one result line each; any failure raises and the exit code is not 0:
               timed in turns (kernel, library, library, kernel) with the SM
               clock and power draw (nvidia-smi, sampled every 20 ms) of
               each timing window; GEGLU also at the small UNet's C = 64
-              and 128 (GEMM-2's 128-column tile), untimed. The frame-
+              and 128 (GEMM-2's 128-column tile), at an inner width off
+              GEMM-1's 64-column tile and at the UNet FFs' tensor-parallel
+              shards (inner 4C / 2 and 4C / 4), untimed; with
+              --geglu-parent DIR, GEGLU's output at FFN_SHAPES against the
+              kernel of the checkout at DIR (built from its csrc/ and
+              called through its C entry) on the same inputs, max-abs
+              difference per shape (0 where the two agree bit for bit).
+              The frame-
               attention kernel at the temporal self-attention's shapes
               (FRAME_ATTN_SHAPES, split projection views) against the
               packed version, SDPA on the same views its library call.
@@ -229,6 +236,8 @@ nvidia-smi line, and the last line is {"ok": true, "device": {...}}.
 Details also go to chiprun_out/chip_smoke.json.
 """
 
+import argparse
+import ctypes
 import dataclasses
 import json
 import math
@@ -307,10 +316,17 @@ PEAK_HBM_BYTES = 3.35e12
 PEAK_MUFU_EXPS = 3.9e12
 STEPS = 2
 FRAMES, HEIGHT, WIDTH = 25, 576, 1024
-# GEGLU widths off the main path, checked only against the plain version:
-# the small UNet's C = 64 and 128 (rows 3 x 5 frames x 1024 and 256
-# tokens), which take GEMM-2's 128-column tile.
-FFN_SMALL_SHAPES = [(15 * 1024, 64), (15 * 256, 128)]
+# GEGLU widths off the main path, checked only against the plain version
+# (rows, C, inner): the small UNet's C = 64 and 128 (rows 3 x 5 frames x
+# 1024 and 256 tokens), which take GEMM-2's 128-column tile, and an inner
+# width off GEMM-1's 64-column tile (a ragged column tile and a ragged row
+# tile, both masked).
+FFN_SMALL_SHAPES = [(15 * 1024, 64, 256), (15 * 256, 128, 512),
+                    (1000, 64, 200)]
+# The UNet FFs' tensor-parallel shards (parallel/tensor_parallel.py) at
+# each width's rows: inner 4C / 2 and 4C / 4.
+FFN_SHARD_SHAPES = [(r, c, 4 * c // parts) for r, c, _ in FFN_SHAPES[:3]
+                    for parts in (2, 4)]
 # Kernel vs plain tolerance in bf16. GEGLU: both round the products to bf16,
 # but their f32 sums run in another order, so a bf16 pre-activation may land
 # one ulp (2^-8 relative) apart and move through the second product.
@@ -674,22 +690,62 @@ def check_geglu(gen, dev, smi):
 
 def check_geglu_small(gen, dev):
     """GEGLU against its plain version at FFN_SMALL_SHAPES (GEMM-2's
-    128-column tile; not timed)."""
+    128-column tile) and FFN_SHARD_SHAPES (not timed)."""
     rows_out = []
-    for r, c in FFN_SMALL_SHAPES:
-        bn2 = geglu_plan(r, c, torch.cuda.get_device_properties(dev)
-                         .multi_processor_count)["bn2"]
-        args = geglu_inputs(gen, dev, r, c)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for r, c, inner in FFN_SMALL_SHAPES + FFN_SHARD_SHAPES:
+        bn2 = geglu_plan(r, c, sms, inner)["bn2"]
+        args = geglu_inputs(gen, dev, r, c, inner)
         got = geglu_ffn(*args)
         want = geglu_ffn_reference(*args)
         torch.cuda.synchronize()
         max_abs, rel_rms = check("geglu_ffn", got, want)
-        row = dict(rows=r, c=c, bn2=bn2, max_abs_err=max_abs,
+        row = dict(rows=r, c=c, inner=inner, bn2=bn2, max_abs_err=max_abs,
                    rel_rms_err=rel_rms)
         say("kernels", name="geglu_ffn", what="off the main path", **row)
-        if bn2 != 128:
+        if (r, c, inner) in FFN_SMALL_SHAPES and bn2 != 128:
             raise AssertionError(f"geglu_ffn at C={c} took bn2={bn2}")
         rows_out.append(row)
+        del args, got, want
+    return rows_out
+
+
+def geglu_parity(root, gen, dev):
+    """GEGLU's output at FFN_SHAPES against the kernel of the checkout at
+    ``root`` (a ``git archive`` of another commit): its csrc/geglu_ffn.cu
+    built as it stands there, with this checkout's flags, and called
+    through its C entry (the same signature) with one block per SM for
+    both GEMMs, which every version of the kernel takes (a block with no
+    tile of its own does nothing); GEMM-2's tile from this checkout's
+    plan. The max-abs difference per shape (0: bit for bit)."""
+    src = os.path.join(os.path.abspath(root), "syn3r_tpu_torch", "csrc")
+    out = build.BUILD_DIR / "other" / "geglu_ffn.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I", src, "-o",
+                    str(out), os.path.join(src, "geglu_ffn.cu")],
+                   check=True, capture_output=True, text=True)
+    fn = ctypes.CDLL(str(out)).syn3r_geglu_ffn
+    fn.argtypes = build.SIGNATURES["geglu_ffn"]["syn3r_geglu_ffn"]
+    fn.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows_out = []
+    for r, c, _ in FFN_SHAPES:
+        x, w1, b1, w2, b2 = geglu_inputs(gen, dev, r, c)
+        got = geglu_ffn(x, w1, b1, w2, b2)
+        h = torch.empty((r, 4 * c), dtype=torch.bfloat16, device=dev)
+        y = torch.empty((r, c), dtype=torch.bfloat16, device=dev)
+        err = fn(*(t.data_ptr() for t in (x, w1, b1, w2, b2)), h.data_ptr(),
+                 y.data_ptr(), r, c, 4 * c, geglu_plan(r, c, sms)["bn2"],
+                 sms, sms, torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.synchronize()
+        if err != 0:
+            raise RuntimeError(f"{root}'s geglu_ffn failed: cudaError {err}")
+        row = dict(rows=r, c=c, max_abs_diff=float(
+            (got.float() - y.float()).abs().max()))
+        say("kernels", name="geglu_ffn", against=root, **row)
+        rows_out.append(row)
+        del x, w1, b1, w2, b2, got, h, y
+        torch.cuda.empty_cache()
     return rows_out
 
 
@@ -809,6 +865,7 @@ def run_unit(dev):
     zero_counts()
     counters["norm.copies"] = 0
     counters["launches.frame_attn"] = 0
+    counters["launches.geglu_ffn.overlap"] = 0
     stage = {}
     t0 = time.perf_counter()
     clip_s, clip_e, cond, _, _ = pipe.encode_conditioning(
@@ -828,6 +885,7 @@ def run_unit(dev):
     launches = launch_counts()
     norm_copies = counters["norm.copies"]
     frame_launches = counters["launches.frame_attn"]
+    geglu_overlap = counters["launches.geglu_ffn.overlap"]
     census.close()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -877,6 +935,11 @@ def run_unit(dev):
             "layer_norm": calls["layer_norm"]}
     if launches != want:
         raise AssertionError(f"launches {launches}, expected {want}")
+    # every GEGLU launch at the UNet's widths runs GEMM-1's epilogue under
+    # the next tile's wgmmas
+    if geglu_overlap != launches["geglu_ffn"]:
+        raise AssertionError(f"launches.geglu_ffn.overlap {geglu_overlap}, "
+                             f"expected {launches['geglu_ffn']}")
     # the temporal self-attention: the frame-attention kernel, 16 a forward
     frame_calls = sum(c for *_, c in FRAME_ATTN_SHAPES)
     if frame_launches != frame_calls * forwards:
@@ -899,10 +962,12 @@ def run_unit(dev):
     say("unit", frames=tuple(frames.shape), min=lo, max=hi,
         peak_mem_gb=peak_gb, launches=launches,
         frame_attention_launches=frame_launches,
+        geglu_overlap_launches=geglu_overlap,
         unet_norms_per_forward=(n_gn, n_ln), norm_input_copies=norm_copies,
         **stage)
     res = dict(stage, peak_mem_gb=peak_gb, launches=launches,
                frame_attention_launches=frame_launches,
+               geglu_overlap_launches=geglu_overlap,
                frame_range=[lo, hi], load_s=load_s,
                unet_norms_per_forward=[n_gn, n_ln], forwards=forwards,
                norm_input_copies=norm_copies)
@@ -3660,6 +3725,10 @@ def kernel_entry(name, source, replaces, rows, launches):
 
 
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--geglu-parent", metavar="DIR",
+                    help="a checkout whose GEGLU kernel to compare with")
+    opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
@@ -3693,6 +3762,8 @@ def main():
     try:
         ffn_rows = check_geglu(gen, dev, smi_sampler)
         ffn_small = check_geglu_small(gen, dev)
+        ffn_parent = (geglu_parity(opts.geglu_parent, gen, dev)
+                      if opts.geglu_parent else None)
         attn_rows = check_attention(gen, dev, smi_sampler)
         frame_rows = check_frame_attention(gen, dev, smi_sampler)
     finally:
@@ -3792,6 +3863,7 @@ def main():
         json.dump({"device": smi, "torch": torch.__version__,
                    "hgmma_in_sass": hgmma,
                    "geglu_ffn": ffn_rows, "geglu_ffn_small": ffn_small,
+                   "geglu_ffn_against_parent": ffn_parent,
                    "flash_attention": attn_rows,
                    "frame_attention": frame_rows,
                    "small_unet": small, "unit": unit, "guided": guided,

@@ -27,11 +27,37 @@ from ..kernels import build
 from ..utils.profiling import counters
 
 # Rows of a GEMM tile (128 for each of the two consumer warpgroups);
-# GEMM-1's tiles are 80 output columns (with their 80 g columns); GEMM-2's
-# N tile is one of GEMM2_TILES (the kernel is built for these): 160 for the
-# SVD UNet's C = 320/640/1280, 128 for narrower UNets (C = 64, 128, as in
-# chip_smoke.py's small UNet, which holds it against the plain version).
-TILE_ROWS, GEMM1_TN, GEMM2_TILES = 256, 80, (160, 128)
+# GEMM-1's tiles are 64 output columns (a 128-row B tile: their 64 a rows
+# of W1 and their 64 g rows), whose GEGLU epilogue runs under the next
+# tile's wgmmas; GEMM-2's N tile is one of GEMM2_TILES (the kernel is
+# built for these): 160 for the SVD UNet's C = 320/640/1280, 128 for
+# narrower UNets (C = 64, 128, as in chip_smoke.py's small UNet, which
+# holds it against the plain version).
+TILE_ROWS, GEMM1_TN, GEMM2_TILES = 256, 64, (160, 128)
+# The budgets of csrc/geglu_ffn.cu: K per ring stage, the ring's share of
+# shared memory (as many stages of an A and a B tile as fit 220 KB; GEMM-1
+# adds the staging tile its TMA stores of h read from), a block's threads
+# (a producer and two consumer warpgroups) and the registers setmaxnreg
+# gives a thread of each; what one H100 SM offers a block (227 KB of
+# shared memory, 65,536 registers).
+GEMM_BK, RING_BYTES, THREADS = 64, 220 * 1024, 384
+PRODUCER_REGS, CONSUMER_REGS = 40, 232
+SMEM_PER_BLOCK, REGS_PER_SM = 232_448, 65_536
+
+
+def gemm_smem(bn: int, geglu: bool = False) -> dict:
+    """Shared memory of a GEMM whose B tile has ``bn`` rows (GEMM-1, the
+    GEGLU one: 2 x GEMM1_TN; GEMM-2: its N tile), as ``Cfg`` in the .cu
+    file lays it out: its ring's stages and the dynamic shared memory a
+    block asks for (1 KB of alignment slack, the ring, GEMM-1's staging
+    tile of h, TILE_ROWS x bn / 2 bf16, a full and an empty mbarrier a
+    stage, GEMM-1's order word for each of the 8 consumer warps)."""
+    stage = (TILE_ROWS + bn) * GEMM_BK * 2
+    stages = RING_BYTES // stage
+    staging = TILE_ROWS * (bn // 2) * 2 if geglu else 0
+    return dict(stages=stages, staging=staging,
+                smem=1024 + stages * stage + staging + 2 * stages * 8
+                + (8 * 4 if geglu else 0))
 
 
 def geglu_plan(rows: int, c: int, num_sms: int,
@@ -108,6 +134,7 @@ def _geglu_launch(x2: torch.Tensor, w1, b1, w2, b2) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"geglu_ffn kernel launch failed: cudaError {err}")
     counters["launches.geglu_ffn"] += 1
+    counters["launches.geglu_ffn.overlap"] += 1
     return y
 
 
@@ -137,7 +164,8 @@ def geglu_ffn(x2: torch.Tensor, w1, b1, w2, b2) -> torch.Tensor:
     autograd Function ``_GegluFFN`` (the backward recomputes through the
     plain version); the plain version for a CPU tensor.
     ``counters["launches.geglu_ffn"]`` counts kernel launches (one per
-    call, which runs both GEMMs)."""
+    call, which runs both GEMMs), ``"launches.geglu_ffn.overlap"`` those
+    whose GEMM-1 ran its epilogue under the next tile's wgmmas."""
     if x2.device.type == "cpu":
         return geglu_ffn_reference(x2, w1, b1, w2, b2)
     if x2.device.type != "cuda":

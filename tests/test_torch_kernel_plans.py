@@ -40,16 +40,74 @@ def test_geglu_n_tile_fewest_columns_then_larger(c, bn2, wasted):
 
 
 @pytest.mark.parametrize("rows, c, tiles1, tiles2", [
-    (75 * 9216, 320, 2700 * 16, 2700 * 2),
-    (75 * 2304, 640, 675 * 32, 675 * 4),
-    (75 * 576, 1280, 169 * 64, 169 * 8),
-    (75 * 144, 1280, 43 * 64, 43 * 8),
+    (75 * 9216, 320, 2700 * 20, 2700 * 2),
+    (75 * 2304, 640, 675 * 40, 675 * 4),
+    (75 * 576, 1280, 169 * 80, 169 * 8),
+    (75 * 144, 1280, 43 * 80, 43 * 8),
     (100, 64, 4, 1)])
 def test_geglu_persistent_grid(rows, c, tiles1, tiles2):
     plan = G.geglu_plan(rows, c, H100_SMS)
     assert (plan["tiles1"], plan["tiles2"]) == (tiles1, tiles2)
     assert plan["grid1"] == min(tiles1, H100_SMS)
     assert plan["grid2"] == min(tiles2, H100_SMS)
+
+
+# GEMM-1's shapes in the two denoise cells: rows = batch x 25 frames x
+# tokens (batch 3 post, batch 2 prob), C of the UNet level with that many
+# tokens; inner 4C for the whole FF, 4C / 2 and 4C / 4 for its
+# tensor-parallel shards.
+UNET_FFN = [(9216, 320), (2304, 640), (576, 1280), (144, 1280)]
+
+
+@pytest.mark.parametrize("parts", [1, 2, 4])
+@pytest.mark.parametrize("batch", [3, 2])
+@pytest.mark.parametrize("tokens, c", UNET_FFN)
+def test_geglu_plan_fits_the_card_at_unet_shapes(tokens, c, batch, parts):
+    """At every GEMM-1 shape the denoise cells run and at its shards: the
+    64-column tile divides the inner width (no column masked), each GEMM's
+    ring (GEMM-1's with its staging tile) fits a block's shared memory, and
+    the producer's and the two consumers' registers fit an SM's."""
+    rows, inner = batch * 25 * tokens, 4 * c // parts
+    plan = G.geglu_plan(rows, c, H100_SMS, inner)
+    assert inner % G.GEMM1_TN == 0
+    assert plan["tiles1"] == -(-rows // G.TILE_ROWS) * inner // G.GEMM1_TN
+    for ring in (G.gemm_smem(2 * G.GEMM1_TN, geglu=True),
+                 G.gemm_smem(plan["bn2"])):
+        assert ring["stages"] >= 2 and ring["smem"] <= G.SMEM_PER_BLOCK
+    threads = G.THREADS // 3
+    assert threads * (G.PRODUCER_REGS + 2 * G.CONSUMER_REGS) <= G.REGS_PER_SM
+
+
+def test_geglu_budgets_mirror_the_kernel():
+    """The .cu file's shared memory (Cfg): GEMM-1's 128-row B tile (64 a
+    and 64 g rows of W1) and GEMM-2's 160-row one, each with the 256-row A
+    tile, 64 deep: 4 stages within 220 KB; GEMM-1 adds its 256 x 64 bf16
+    staging tile of h and its consumer warps' order words and still fits a
+    block's 227 KB; setmaxnreg's counts
+    are multiples of 8 from 24 to 256."""
+    one = G.gemm_smem(2 * G.GEMM1_TN, geglu=True)
+    assert one == {"stages": 4, "staging": 32768,
+                   "smem": 1024 + 4 * (256 + 128) * 128 + 32768 + 64
+                   + 32}
+    assert one["smem"] <= G.SMEM_PER_BLOCK
+    assert G.gemm_smem(160) == {"stages": 4, "staging": 0,
+                                "smem": 1024 + 4 * (256 + 160) * 128 + 64}
+    for regs in (G.PRODUCER_REGS, G.CONSUMER_REGS):
+        assert regs % 8 == 0 and 24 <= regs <= 256
+    assert G.THREADS == 3 * 128
+
+
+@pytest.mark.parametrize("c, inner, ragged", [(64, 256, 0), (128, 512, 0),
+                                              (64, 200, 56), (24, 96, 32),
+                                              (8, 8, 56)])
+def test_geglu_column_tiles_of_narrow_ffs(c, inner, ragged):
+    """The small UNet's C = 64 (inner 256) and 128 (512) fill whole
+    64-column tiles; an inner width off the tile plans a last tile whose
+    columns past h's edge its TMA store does not write."""
+    plan = G.geglu_plan(1000, c, H100_SMS, inner)
+    col_tiles = plan["tiles1"] // 4       # 1000 rows: 4 row tiles
+    assert col_tiles == -(-inner // G.GEMM1_TN)
+    assert col_tiles * G.GEMM1_TN - inner == ragged
 
 
 def test_flash_persistent_grid():
@@ -422,7 +480,7 @@ def _ffn_shard_args(c, inner, rows=16):
 def test_geglu_kernel_takes_tensor_parallel_shards(c, parts):
     """The SVD UNet's FF split by GEGLU units over 2 or 4 cards: each
     shard's inner width (4C / N) is taken, and its GEMM-1 tiles are the
-    whole FF's over N (4C / N is a multiple of the 80-column tile)."""
+    whole FF's over N (4C / N is a multiple of the 64-column tile)."""
     inner = 4 * c // parts
     assert G.check_geglu_args(*_ffn_shard_args(c, inner)) == (16, c, inner)
     whole = G.geglu_plan(75 * 576, c, H100_SMS)
