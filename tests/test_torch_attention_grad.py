@@ -13,6 +13,8 @@ sides and differs only in summation order (explicit formulas against
 autodiff, query chunks of 512 against JAX's scan), so 1e-5 absolute and
 relative on O(1) gradients.
 """
+import torch_threads  # noqa: F401  (torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -8,6 +8,8 @@ The scene is tests/test_cli.py's (written by tests/test_torch_eval_cli.py's
 ``_write_scene``), cut to a few iterations, 3 frames a pair and a 64x48
 diffusion size.
 """
+import torch_threads  # noqa: F401  (torch's threads under xdist)
+
 import os
 import subprocess
 

@@ -17,6 +17,8 @@
 
 Conversions are transposes and copies: equality is exact.
 """
+import torch_threads  # noqa: F401  (torch's threads under xdist)
+
 import json
 import os
 

@@ -16,6 +16,8 @@ Tolerances:
 - the eval_res.txt blocks to 7 decimals and the summary table: as strings,
   the same when the numbers are.
 """
+import torch_threads  # noqa: F401  (torch's threads under xdist)
+
 import os
 import shutil
 

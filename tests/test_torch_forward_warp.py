@@ -13,6 +13,8 @@ e^50 cancels in the normalization) and the validity masks, the dilation
 and the binary latent masks exactly; geometry 1e-5; the numpy helpers
 exactly, and the covisibility weight (float32) within 1e-6.
 """
+import torch_threads  # noqa: F401  (torch's threads under xdist)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -13,6 +13,8 @@ JAX, which that machine lacks)::
     python -m pytest --noconftest -p no:cacheprovider -q \\
         tests/test_torch_frame_attention.py
 """
+import torch_threads  # noqa: F401  (torch's threads under xdist)
+
 import pytest
 import torch
 

@@ -9,6 +9,8 @@ attention 1e-5 absolute; flows 1e-3 px (three softmaxes over
 correlations, sums in another order); the cycle-consistency masks
 identical, their means exact; the bridge round trip exact.
 """
+import torch_threads  # noqa: F401  (torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -12,6 +12,8 @@ gradient rule of tests/test_pallas_rasterize.py
 (atol 1e-6 + 1e-3 max|g|, rtol 2e-3) for densify statistics and Adam
 moments, and 1e-4 for five steps and for renders.
 """
+import torch_threads  # noqa: F401  (torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -19,6 +19,8 @@ Tolerances, float32 on both sides:
   computed by the per-step path's code, and a train view inside a segment
   adds 0 x the depth term.
 """
+import torch_threads  # noqa: F401  (torch's threads under xdist)
+
 import types
 
 import jax

@@ -14,6 +14,8 @@ The same port run in float64 lies 1.6e-4 from the port's float32 result
 and 1.2e-4 from JAX's (latents up to 3.1), and the two float32 results lie
 1.2e-4 apart, so 1e-4 would hold float32 noise, not the port.
 """
+import torch_threads  # noqa: F401  (torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -6,6 +6,8 @@ what they refuse.
 The kernels themselves run only on the card (chip_smoke.py); these are the
 plain-Python parts of their wrappers.
 """
+import torch_threads  # noqa: F401  (torch's threads under xdist)
+
 import math
 
 import pytest

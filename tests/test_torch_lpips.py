@@ -19,6 +19,8 @@ with sums in another order:
 - the port's segmented run against its per-step path, both with LPIPS:
   bit for bit, as without it (tests/test_torch_gs_segments.py).
 """
+import torch_threads  # noqa: F401  (torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

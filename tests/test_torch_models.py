@@ -6,6 +6,8 @@ inputs at the tiny sizes of tests/test_pipeline.py. Tolerance: f32 on both
 sides, the same operations in another summation order; 1e-4 absolute and
 relative bounds that with margin at these depths.
 """
+import torch_threads  # noqa: F401  (torch's threads under xdist)
+
 import functools
 
 import jax

@@ -19,6 +19,8 @@ steps); the 5 pseudo steps add 1.1e-6 there. The port's segmented loop
 against its per-step loop bit for bit (both run the same operations on the
 same float32 values).
 """
+import torch_threads  # noqa: F401  (torch's threads under xdist)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

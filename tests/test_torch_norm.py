@@ -14,6 +14,8 @@ references). bf16 outputs: both compute in float32 and round to bf16, so a
 value may land on the neighbouring bf16: relative 2^-7 (one bf16 ulp at a
 binade's lower edge), 1e-5 absolute. Gradients: float32, 1e-4.
 """
+import torch_threads  # noqa: F401  (torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

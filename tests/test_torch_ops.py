@@ -8,6 +8,8 @@ packages. Tolerance: f32 on both sides; the two only sum in another order
 (and the Pallas kernel's erf is the A&S 7.1.26 approximation, 1.5e-7), so
 1e-4 absolute and relative bounds the difference with margin.
 """
+import torch_threads  # noqa: F401  (torch's threads under xdist)
+
 import os
 import subprocess
 import sys

@@ -15,6 +15,8 @@ Tolerances:
 - the unfused post step against the fused one, and the reuse step against
   the default with zero CLIP embeddings: JAX's rtol 1e-3, atol 1e-5.
 """
+import torch_threads  # noqa: F401  (torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

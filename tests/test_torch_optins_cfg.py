@@ -5,6 +5,8 @@ tests/test_torch_optins.py, with its tolerances: port against JAX 1e-4
 absolute and relative; against the port's default step JAX's own bound,
 rtol 1e-3, atol 1e-5.
 """
+import torch_threads  # noqa: F401  (torch's threads under xdist)
+
 import numpy as np
 import pytest
 

@@ -8,6 +8,8 @@ Tolerances are JAX's own tests' (tests/test_parallel.py): the DP step's
 loss rtol 1e-5 and means atol 1e-5 (float32, the views' losses summed in
 another order), the DP UNet atol 2e-5, GPipe atol 1e-5.
 """
+import torch_threads  # noqa: F401  (torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -8,6 +8,8 @@ Tolerances are JAX's own tests' (tests/test_parallel.py): the SP forward
 atol 2e-5 (float32, the frame shards' GroupNorm sums added in another
 order), the dir x TP denoise atol 2e-4.
 """
+import torch_threads  # noqa: F401  (torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -7,6 +7,8 @@ tests/test_torch_parallel_sp.py.
 Tolerance is JAX's own test's (tests/test_parallel.py): atol 2e-5
 (float32, the row-parallel partial sums added in another order).
 """
+import torch_threads  # noqa: F401  (torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

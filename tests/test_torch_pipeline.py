@@ -9,6 +9,8 @@ absolute and relative; the decoded frames, after 3 guided steps whose
 per-tile std normalization and top-k cutoffs amplify last-bit differences
 and a decoder several layers deep, are held to 2e-3 absolute.
 """
+import torch_threads  # noqa: F401  (torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

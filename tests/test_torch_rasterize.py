@@ -9,6 +9,8 @@ runs them. Tolerances are that file's, f32 on both sides with sums in
 another order: forward atol 2e-5, rtol 1e-4 (depth 1e-4); gradients
 atol 1e-6 + 1e-3 max|g|, rtol 2e-3.
 """
+import torch_threads  # noqa: F401  (torch's threads under xdist)
+
 import math
 
 import jax

@@ -13,6 +13,8 @@ GS depths behind the splat come from JAX's tiled composite and the port's
 plain one, the same formulas in another order), and the binary latent
 masks of the debug set exactly.
 """
+import torch_threads  # noqa: F401  (torch's threads under xdist)
+
 import os
 
 import numpy as np

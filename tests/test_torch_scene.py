@@ -18,6 +18,8 @@ pixels, where a Gaussian at the 1/255 alpha cutoff passes it in one
 package only (up to 1e-2 there), then 12 steps 1e-4 relative and 1e-5
 absolute (the bound of tests/test_torch_gs_segments.py).
 """
+import torch_threads  # noqa: F401  (torch's threads under xdist)
+
 import dataclasses
 import os
 import types

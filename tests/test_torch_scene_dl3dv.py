@@ -11,6 +11,8 @@ decisions; DUSt3R's inputs (the resized frames, c2w, K) 1e-4 absolute;
 the cloud 1e-3 (30 alignment steps of float32 Adam) with identical counts
 and colours.
 """
+import torch_threads  # noqa: F401  (torch's threads under xdist)
+
 import os
 
 import jax

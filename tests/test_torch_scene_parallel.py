@@ -21,6 +21,8 @@ The completion unit itself is held to JAX's on the same noise in
 tests/test_torch_pipeline.py, and the warp-only densify above to JAX's
 pair-parallel run.
 """
+import torch_threads  # noqa: F401  (torch's threads under xdist)
+
 import os
 
 import jax

@@ -12,6 +12,8 @@ profiler, and with no profiler recording a span records nothing. The
 direction-parallel denoise and the sequence-parallel forward run under the
 profiler with the same outputs.
 """
+import torch_threads  # noqa: F401  (torch's threads under xdist)
+
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile

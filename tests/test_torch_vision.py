@@ -14,6 +14,8 @@ and the network atol 1e-4, rtol 1e-4; alignment depths and scales rtol
 identical; PLY files exact (a file either package writes reads back in
 the other); the bridge round trip exact.
 """
+import torch_threads  # noqa: F401  (torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -11,6 +11,8 @@ float32 rounding of the transforms); 2e-6 for the resizes against
 jax.image.resize; conditioning frames and masks 1e-5; lambda schedules and
 selected poses exact.
 """
+import torch_threads  # noqa: F401  (torch's threads under xdist)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
