@@ -168,7 +168,13 @@ Phases, one result line each; any failure raises and the exit code is not 0:
               also on lists the path does not give it (K 24 in 42 chunks,
               px 1536, pixel features that turn the skip off), each held
               the same way; then the kernel route's parameter gradients
-              against autograd through the plain composite.
+              against autograd through the plain composite. The
+              projection kernels (csrc/project.cu) at the gs cell's
+              131,072 slots and 504x378, SH degree 3: the forward's outputs
+              and the backward's gradients against the plain versions
+              (PROJECT_TOL), two calls of each bit for bit, and each timed
+              against its bound (bytes), the plain versions and the route
+              they replace (the plain forward under autograd).
   7. gs_small one GS train step on the card through the kernels against the
               same step on the CPU through the plain versions.
   8. gs       the GS trainer at full size: 504x378, 65,536 Gaussians in
@@ -178,8 +184,9 @@ Phases, one result line each; any failure raises and the exit code is not 0:
               scene, on the trainer's default path (segments replayed from
               a captured CUDA graph). Launches counted over the run must
               equal the steps (backward) and the steps plus renders
-              (forward). The per-step path from the same state and picks
-              must agree with it bit for bit, over one 50-step segment
+              (forward), the projection's as the composite's. The
+              per-step path from the same state and picks must agree with
+              it bit for bit, over one 50-step segment
               (and with itself, run twice) and over the 300 iterations;
               render_views_batch (graph replays) must equal a loop of
               render_view bit for bit on 20 cameras. Prints the captures,
@@ -222,11 +229,12 @@ Phases, one result line each; any failure raises and the exit code is not 0:
               heads, 9216 tokens), 4 microbatches of 3, against the
               sequential tower (PAR_TOL). The DP GS step: the gs cell's
               65,536 Gaussians at 504x378, 4 views over 2 replicas against
-              the one-replica step (DP_*), both composite kernels launched
-              once a view. Every new GEGLU (with its shard width), flash
-              and norm shape is then held against its plain version, as in
-              the optins phase. Times of each path in turns with its
-              one-card counterpart, peak memory per card.
+              the one-replica step (DP_*), both composite and both
+              projection kernels launched once a view. Every new GEGLU
+              (with its shard width), flash and norm shape is then held
+              against its plain version, as in the optins phase. Times of
+              each path in turns with its one-card counterpart, peak
+              memory per card.
 The JSON kernel table takes its launches from the scene phase (the two
 backward kernels', which only the guided option runs, from the guided
 phase), and its launches_by_phase from the unit, guided, gs, scene, dtu,
@@ -302,8 +310,9 @@ from scripts.kernel_timing import (ATTN_SHAPES, FFN_SHAPES,
                                    GRAD_ATTN_SHAPES, GS_CAP, GS_H, GS_W,
                                    LN_SHAPES,
                                    SmiSampler, cuda_ms, gs_points,
-                                   gs_replays, gs_scene, gs_tile_lists,
-                                   random_lpips_params,
+                                   graph_ms, gs_replays, gs_scene,
+                                   gs_tile_lists,
+                                   project_scene, random_lpips_params,
                                    window_iters)
 from scripts.vision_weights import random_dust3r_params, random_gmflow_params
 
@@ -408,6 +417,11 @@ OPS_LIVE, OPS_FWD_HIT, OPS_BWD_HIT = 15, 15, 45
 # throughput table, compute capability 9.0) x 132 SMs x 1.98 GHz.
 SFU_LIVE, SFU_FWD_HIT, SFU_BWD_HIT = 1, 2, 3
 PEAK_SFU_OPS = 16 * 132 * 1.98e9
+# Projection kernels vs plain versions, float32 on both sides with the
+# same formulas (FMAs and another order of sums on the kernels' side): per
+# slot, |got - want| <= tol (|want| + max |want| of the slot's row + 1e-6
+# max |want| of the field), tests/test_torch_project.py's criterion.
+PROJECT_TOL = {"fwd": 1e-4, "bwd": 1e-3}
 # Composite kernel vs plain version, float32 on both sides, the same
 # formulas in another summation order (and exp/log1p from another library):
 # elementwise |got - want| <= atol + rtol |want| (allclose), as
@@ -538,7 +552,8 @@ UNIT_KERNELS = ("geglu_ffn", "flash_attention", "flash_attention_bwd_dkv",
 # the kernels of a scene run's path (the flash backward runs only with
 # guidance_through_unet)
 PATH_KERNELS = ("geglu_ffn", "flash_attention", "gn_stats", "gn_apply",
-                "layer_norm", "composite_fwd", "composite_bwd")
+                "layer_norm", "composite_fwd", "composite_bwd", "project_fwd",
+                "project_bwd")
 
 
 def say(phase, **kv):
@@ -553,6 +568,8 @@ LAUNCH_KEYS = {"geglu_ffn": "launches.geglu_ffn",
                "flash_attention_bwd_dq": "launches.flash_bwd.dq",
                "composite_fwd": "launches.composite_fwd",
                "composite_bwd": "launches.composite_bwd",
+               "project_fwd": "launches.project_fwd",
+               "project_bwd": "launches.project_bwd",
                "gn_stats": "launches.gn_stats",
                "gn_apply": "launches.gn_apply",
                "layer_norm": "launches.layer_norm"}
@@ -568,15 +585,33 @@ def zero_counts():
         counters[key] = 0
 
 
-def composite_launches() -> dict:
-    """The composite wrappers' launches, {"fwd": n, "bwd": n}."""
-    return {"fwd": counters["launches.composite_fwd"],
-            "bwd": counters["launches.composite_bwd"]}
+GS_KERNELS = ("composite_fwd", "composite_bwd", "project_fwd", "project_bwd")
 
 
-def zero_composite():
-    counters["launches.composite_fwd"] = 0
-    counters["launches.composite_bwd"] = 0
+def gs_launches() -> dict:
+    """The GS kernels' launches by name (``GS_KERNELS``)."""
+    return {k: counters[LAUNCH_KEYS[k]] for k in GS_KERNELS}
+
+
+def gs_want(fwd: int, bwd: int) -> dict:
+    """``gs_launches`` of fwd renders of which bwd took a gradient: each
+    render projects and composites once."""
+    return {"composite_fwd": fwd, "composite_bwd": bwd, "project_fwd": fwd,
+            "project_bwd": bwd}
+
+
+def gs_path_ok(launches: dict, steps: int) -> bool:
+    """A scene run's GS kernels: one backward of each a train step, more
+    forwards (the renders), the projection's launches the composite's."""
+    return (launches["composite_bwd"] == steps
+            and launches["composite_fwd"] > steps
+            and launches["project_fwd"] == launches["composite_fwd"]
+            and launches["project_bwd"] == steps)
+
+
+def zero_gs_launches():
+    for k in GS_KERNELS:
+        counters[LAUNCH_KEYS[k]] = 0
 
 
 def norm_modules(module):
@@ -930,7 +965,7 @@ def run_unit(dev):
     calls = census.totals()
     want = {"geglu_ffn": 48 * forwards, "flash_attention": 15 * forwards,
             "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
-            "composite_fwd": 0, "composite_bwd": 0,
+            **gs_want(0, 0),
             "gn_stats": calls["group_norm"], "gn_apply": calls["group_norm"],
             "layer_norm": calls["layer_norm"]}
     if launches != want:
@@ -1266,8 +1301,7 @@ def run_guided(pipe, unit):
     per = {"geglu_ffn": 3 * 48, "flash_attention": 3 * 15,
            "flash_attention_bwd_dkv": 15, "flash_attention_bwd_dq": 15,
            "gn_stats": 3 * n_gn - gn_out, "gn_apply": 3 * n_gn - gn_out,
-           "layer_norm": 3 * n_ln - ln_out, "composite_fwd": 0,
-           "composite_bwd": 0}
+           "layer_norm": 3 * n_ln - ln_out, **gs_want(0, 0)}
     want = {k: 2 * STEPS * v for k, v in per.items()}
     diff = (out["guided"] - out["default"]).abs().max().item()
     lo, hi = frames.min().item(), frames.max().item()
@@ -1581,6 +1615,132 @@ def check_composite(dev):
     return rows
 
 
+def slot_errors(name, got, want, tol):
+    """A projection kernel's output against its plain version: the largest
+    |got - want| over the per-slot bound of ``PROJECT_TOL`` (must be
+    <= 1), the largest |got - want| and the rel-RMS error; raises beyond
+    the bound."""
+    got, want = got.detach().double(), want.detach().double()
+    n = want.shape[0]
+    w = want.reshape(n, -1)
+    bound = tol * (w.abs() + w.abs().amax(1, keepdim=True)
+                   + 1e-6 * w.abs().max())
+    err = (got.reshape(n, -1) - w).abs()
+    worst = float((err / bound.clamp_min(1e-300)).max())
+    rel_rms = float((err.pow(2).mean().sqrt()
+                     / w.pow(2).mean().sqrt().clamp_min(1e-30)))
+    if not np.isfinite(worst) or worst > 1.0:
+        raise AssertionError(f"{name}: {worst} of the tolerance, rel_rms "
+                             f"{rel_rms}")
+    return worst, float(err.max()), rel_rms
+
+
+def check_project(dev):
+    """The projection kernels at the gs cell's 131,072 slots, 504x378,
+    SH degree 3 (``project_scene``): every output and gradient against the
+    plain versions on the card, two calls of each bit for bit, one launch a
+    call; each timed against its bound (bytes), the plain version and the
+    route it replaced (the plain forward, and autograd through it). A
+    kernel's ``ms`` is its device time (``graph_ms``: calls replayed from
+    a CUDA graph, as the train step runs it) on four copies of the inputs
+    in turn, 124 MB, so that L2 (50 MB) does not keep them between calls;
+    ``call_ms`` is a call of the wrapper from the host, which issues it
+    slower than the card runs it."""
+    state, cam = project_scene(dev)
+    n = state.capacity
+    zero_gs_launches()
+    sg = RZ.project_fwd_launch(state, cam)
+    with torch.no_grad():
+        ref = RZ.project_gaussians_reference(state, cam)
+    torch.cuda.synchronize()
+    if not torch.equal(sg.valid, ref.valid):
+        raise AssertionError("project_fwd: valid differs")
+    fwd_err = {f: slot_errors(f"project_fwd {f}", getattr(sg, f),
+                              getattr(ref, f), PROJECT_TOL["fwd"])
+               for f in ("center", "conic", "rgb", "depth", "opacity")}
+    radius_off = int((sg.radius != ref.radius).sum())
+    if (float((sg.radius - ref.radius).abs().max()) > 1
+            or radius_off > n // 1000):
+        raise AssertionError(f"project_fwd radius: {radius_off} differ")
+    g = torch.Generator(device=dev).manual_seed(3)
+    cots = [torch.randn(getattr(sg, f).shape, generator=g, device=dev)
+            for f in ("center", "conic", "rgb", "depth", "opacity")]
+    grads = RZ.project_bwd_launch(state, cam, *cots)
+    want = RZ.project_bwd_reference(state, cam, *cots)
+    torch.cuda.synchronize()
+    bwd_err = {f: slot_errors(f"project_bwd {f}", grads[f], want[f],
+                              PROJECT_TOL["bwd"]) for f in GM.PARAM_FIELDS}
+    again = RZ.project_fwd_launch(state, cam)
+    again_g = RZ.project_bwd_launch(state, cam, *cots)
+    torch.cuda.synchronize()
+    if not (all(torch.equal(a, b) for a, b in zip(sg, again))
+            and all(torch.equal(grads[f], again_g[f])
+                    for f in GM.PARAM_FIELDS)):
+        raise AssertionError("project: two calls differ")
+    if gs_launches() != dict(gs_want(0, 0), project_fwd=2, project_bwd=2):
+        raise AssertionError(f"project launches {gs_launches()}")
+    del again, again_g
+
+    params = {f: getattr(state, f).clone().requires_grad_(True)
+              for f in GM.PARAM_FIELDS}
+
+    def autograd_route():
+        out = RZ.project_gaussians_reference(state.replace(**params), cam)
+        return torch.autograd.grad(
+            [getattr(out, f) for f in ("center", "conic", "rgb", "depth",
+                                       "opacity")],
+            list(params.values()), cots)
+
+    # bytes each way at degree 3 (no offset): the forward reads means 12,
+    # quats 16, log-scales 12, logit 4, SH 192, active 1 and writes centre
+    # 8, conic 12, rgb 12, depth, opacity and radius 4 each, valid 1; the
+    # backward reads the same inputs and 36 B of output gradients and
+    # writes the parameters' gradients (236 B)
+    fwd_bytes = n * (237 + 45)
+    bwd_bytes = n * (237 + 36 + 236)
+    copies = [state] + [state.replace(**{f: getattr(state, f).clone()
+                                         for f in GM.PARAM_FIELDS})
+                        for _ in range(3)]
+    turn = [0]
+
+    def in_turn():
+        turn[0] += 1
+        return copies[turn[0] % len(copies)]
+
+    rows = {}
+    for name, fn, plain, nbytes, errs in (
+            ("project_fwd", lambda: RZ.project_fwd_launch(in_turn(), cam),
+             lambda: RZ.project_gaussians_reference(state, cam), fwd_bytes,
+             fwd_err),
+            ("project_bwd",
+             lambda: RZ.project_bwd_launch(in_turn(), cam, *cots),
+             lambda: RZ.project_bwd_reference(state, cam, *cots), bwd_bytes,
+             bwd_err)):
+        bms, by = bound_ms(0.0, nbytes)
+        with torch.no_grad():
+            ms, call_ms = graph_ms(fn), cuda_ms(fn, 50)
+            plain_ms = cuda_ms(plain, 5)
+        rows[name] = dict(
+            slots=n, width=cam.width, height=cam.height, sh_degree=3,
+            bytes=nbytes, worst_of_tol=max(e[0] for e in errs.values()),
+            max_abs_err=max(e[1] for e in errs.values()),
+            rel_rms_err=max(e[2] for e in errs.values()),
+            errors=errs, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+            library_ms=None,
+            bound_ms=bms, bound_by=by, gb_per_s=nbytes / ms / 1e6)
+        say("kernels", name=name, **{k: v for k, v in rows[name].items()
+                                     if k != "errors"})
+    rows["project_fwd"]["radius_off_by_one"] = radius_off
+    # the route the kernels replace: the plain forward and autograd's
+    # backward through it (the forward recorded for autograd), from the host
+    rows["autograd_route_ms"] = cuda_ms(autograd_route, 5)
+    say("kernels", what="projection by autograd through the plain forward",
+        ms=rows["autograd_route_ms"])
+    zero_gs_launches()
+    del copies
+    return rows
+
+
 def small_gs_state(dev, n=500, cap=512):
     """A small anisotropic scene (every gradient well away from 0, so one
     Adam step has no sign to lose) in front of a 128x64 camera."""
@@ -1613,14 +1773,14 @@ def check_gs_small(dev):
     st, cam, target = small_gs_state("cpu")
     cfg = TrainConfig(tile_cap=256, chunk=128, densify_from_iter=10 ** 9)
     views = make_viewset([cam], target[None])
-    zero_composite()
+    zero_gs_launches()
     out = {}
     for d in ("cpu", dev):
         tr = GSTrainer(views, cfg, st, model_path=os.path.join(
             BUILD_OUT, "gs_small"), device=d)
         cam_d, img_d = tr.train_views.view(0)
         out[str(d)] = tr._train_step(tr.state, cam_d, img_d)
-    launches = composite_launches()
+    launches = gs_launches()
     (ts_c, m_c), (ts_d, m_d) = out["cpu"], out[str(dev)]
     res = {"loss": check_close("gs_small loss", m_d["loss"].cpu(),
                                m_c["loss"], 0.0, 1e-5)}
@@ -1632,7 +1792,7 @@ def check_gs_small(dev):
         res[f] = check_grads(f"gs_small stats {f}",
                              getattr(ts_d.stats, f).cpu(),
                              getattr(ts_c.stats, f))
-    if launches != {"fwd": 1, "bwd": 1}:
+    if launches != gs_want(1, 1):
         raise AssertionError(f"gs_small launches {launches}")
     say("gs_small", loss_card=float(m_d["loss"]), loss_cpu=float(m_c["loss"]),
         launches=launches,
@@ -1723,19 +1883,19 @@ def run_gs(dev, iters=GS_ITERS):
     torch.cuda.reset_peak_memory_stats()
     active0, cap0 = tr.gaussians.num_active, tr.gaussians.capacity
     builds0 = dict(tr.graph_builds)
-    zero_composite()
+    zero_gs_launches()
     loss0 = view_loss()
     t0 = time.perf_counter()
     last = tr.training(log_every=50)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     loss1 = view_loss()
-    launches = composite_launches()
+    launches = gs_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     active1, cap1 = tr.gaussians.num_active, tr.gaussians.capacity
     captures = {k: tr.graph_builds[k] - builds0[k] for k in builds0}
 
-    want = {"fwd": iters + 2 * len(cams), "bwd": iters}
+    want = gs_want(iters + 2 * len(cams), iters)
     if launches != want:
         raise AssertionError(f"gs launches {launches}, expected {want}")
     if not active1 > active0:
@@ -1892,10 +2052,10 @@ def run_scene(pipe, unit_launches):
     want = {k: n_units * unit_launches[k] for k in UNIT_KERNELS}
     steps = GS_ITERS * (1 + SCENE_CYCLES)
     if any(launches[k] != v for k, v in want.items()) or \
-            launches["composite_bwd"] != steps or \
-            launches["composite_fwd"] <= steps:
+            not gs_path_ok(launches, steps):
         raise AssertionError(f"scene launches {launches}: expected {want}, "
-                             f"composite_bwd {steps}, composite_fwd more")
+                             f"composite_bwd {steps}, composite_fwd more, the "
+                             "projection alike")
     rgb = tr.render_view(tr.train_views.cameras.at(1))["render"]
     if not bool(torch.isfinite(rgb).all()):
         raise AssertionError("scene: final render not finite")
@@ -2085,13 +2245,12 @@ def run_dtu(pipe, unit, unit_census):
             or norm_calls != {"group_norm": n_gn * forwards,
                               "layer_norm": n_ln * forwards}
             or any(launches[k] != v for k, v in want.items())
-            or launches["composite_bwd"] != steps
-            or launches["composite_fwd"] <= steps):
+            or not gs_path_ok(launches, steps)):
         raise AssertionError(
             f"dtu launches {launches}: per forward {per_forward} (post unit "
             f"{unit_per_forward}), UNet norm calls {norm_calls} (expected "
             f"{n_gn}, {n_ln} x {forwards}); expected {want}, composite_bwd "
-            f"{steps}, composite_fwd more")
+            f"{steps}, composite_fwd more, the projection alike")
     unet_shapes = {(k[0],) + k[2:] for k in unit_census if k[1] == "unet"}
     new_shapes = {k: n for k, n in census.calls.items()
                   if (k[0],) + k[2:] not in unet_shapes}
@@ -2510,10 +2669,10 @@ def run_dl3dv(pipe, unit, weights):
     want = {k: n_units * unit["launches"][k] for k in UNIT_KERNELS}
     steps = GS_ITERS * (1 + DL3DV_CYCLES)
     if any(launches[k] != v for k, v in want.items()) or \
-            launches["composite_bwd"] != steps or \
-            launches["composite_fwd"] <= steps:
+            not gs_path_ok(launches, steps):
         raise AssertionError(f"dl3dv launches {launches}: expected {want}, "
-                             f"composite_bwd {steps}, composite_fwd more")
+                             f"composite_bwd {steps}, composite_fwd more, the "
+                             "projection alike")
     # densify_pcd in both cycles: the gate, the pairs, the points, the ply
     pcd = {}
     for c in range(DL3DV_CYCLES):
@@ -2656,7 +2815,7 @@ def run_lpips(dev):
     runs = {}
     for name, per_step in (("graph", False), ("eager", True)):
         from_start(tr, s0, per_step)
-        zero_composite()
+        zero_gs_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss = tr._run_loop(0, LPIPS_STEPS, densify=False,
@@ -2664,12 +2823,12 @@ def run_lpips(dev):
         torch.cuda.synchronize()
         runs[name] = dict(state=tr.state, loss=loss,
                           seconds=time.perf_counter() - t0,
-                          launches=composite_launches())
+                          launches=gs_launches())
     tr.__dict__.pop("_merged_views", None)
     seg_on = tr._segments
     errs = state_errors(runs["graph"]["state"], runs["eager"]["state"])
     bad = {k: v for k, v in errs.items() if v != 0}
-    want = {"fwd": LPIPS_STEPS, "bwd": LPIPS_STEPS}
+    want = gs_want(LPIPS_STEPS, LPIPS_STEPS)
     if (bad or runs["graph"]["loss"] != runs["eager"]["loss"]
             or seg_on.key[-1] is not True
             or any(r["launches"] != want for r in runs.values())):
@@ -2781,7 +2940,7 @@ def run_optins(pipe, unit, args, known_shapes, known_norms):
         want = {"geglu_ffn": per["geglu_ffn"] * n,
                 "flash_attention": per["flash_attention"] * n,
                 "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
-                "composite_fwd": 0, "composite_bwd": 0,
+                **gs_want(0, 0),
                 "gn_stats": n_gn * n, "gn_apply": n_gn * n,
                 "layer_norm": n_ln * n}
         if launches[name] != want:
@@ -2951,13 +3110,13 @@ def run_slice(pipe, unit):
     steps = 2 * GS_ITERS
     if (not binary or not files_ok
             or any(launches[k] != v for k, v in want.items())
-            or launches["composite_bwd"] != steps
-            or launches["composite_fwd"] <= steps
+            or not gs_path_ok(launches, steps)
             or not all(launches[k] for k in PATH_KERNELS)):
         raise AssertionError(
             f"slice: binary masks {binary}, debug sets {pairs} complete "
             f"{files_ok}; launches {launches}, expected {want}, "
-            f"composite_bwd {steps}, composite_fwd more")
+            f"composite_bwd {steps}, composite_fwd more, the "
+                             "projection alike")
     res = dict(flags=" ".join(SLICE_FLAGS), total_s=total_s,
                phases_s={k: v["total_s"] for k, v in
                          runner.timer.summary().items()},
@@ -2997,7 +3156,7 @@ def run_mono(dev):
     for name, per_step in (("graph", False), ("eager", True)):
         from_start(tr, s0, per_step)
         calls.clear()
-        zero_composite()
+        zero_gs_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss = tr._run_loop(0, MONO_ITERS, densify=False,
@@ -3005,13 +3164,13 @@ def run_mono(dev):
         torch.cuda.synchronize()
         runs[name] = dict(state=tr.state, loss=loss,
                           seconds=time.perf_counter() - t0,
-                          launches=composite_launches(),
+                          launches=gs_launches(),
                           pseudo_steps=len(calls))
     tr.__dict__.pop("_merged_views", None)
     n_pseudo = MONO_ITERS // MONO_INTERVAL
     errs = state_errors(runs["graph"]["state"], runs["eager"]["state"])
     bad = {k: v for k, v in errs.items() if v != 0}
-    want = {"fwd": MONO_ITERS + 2 * n_pseudo, "bwd": MONO_ITERS + n_pseudo}
+    want = gs_want(MONO_ITERS + 2 * n_pseudo, MONO_ITERS + n_pseudo)
     if (bad or runs["graph"]["loss"] != runs["eager"]["loss"]
             or any(r["launches"] != want or r["pseudo_steps"] != n_pseudo
                    for r in runs.values())
@@ -3238,8 +3397,7 @@ def run_parallel(dev, unit, scene_total_s, known_shapes, known_norms):
     steps = GS_ITERS * (1 + SCENE_CYCLES)
     want = {k: slots * unit["launches"][k] for k in UNIT_KERNELS}
     if (any(launches[k] != v for k, v in want.items())
-            or launches["composite_bwd"] != steps
-            or launches["composite_fwd"] <= steps):
+            or not gs_path_ok(launches, steps)):
         raise AssertionError(f"parallel pairs: launches {launches}, "
                              f"expected {want}")
     caches = sorted(os.listdir(runner.save_dir))
@@ -3398,7 +3556,7 @@ def run_parallel(dev, unit, scene_total_s, known_shapes, known_norms):
         value=lambda out: (out[0] if isinstance(out[0], TrainState)
                            else out[0][0]).gaussians.means)
     check_launches("dp_gs", rec["launches"], want_launches(
-        composite_fwd=len(cams), composite_bwd=len(cams)))
+        **gs_want(len(cams), len(cams))))
     lr = position_lr(cfg, extent, 0)
     loss_rel = abs(float(dp[1]) - float(one[1])) / abs(float(one[1]))
     d = (dp[0][0].gaussians.means - one[0].gaussians.means).abs()
@@ -3790,6 +3948,7 @@ def main():
     del pipe                 # the GS phases measure their own peak memory
     torch.cuda.empty_cache()
     comp = check_composite(dev)
+    proj = check_project(dev)
     gs_small = check_gs_small(dev)
     gs = run_gs(dev)
     lpips = run_lpips(dev)
@@ -3807,15 +3966,13 @@ def main():
                 par_launches[k] = par_launches.get(k, 0) + v
     by_phase = {"unit": unit["launches"],
                 "guided": guided["unit"]["launches"],
-                "gs": {f"composite_{k}": v for k, v in gs["launches"].items()},
+                "gs": gs["launches"],
                 "scene": scene["launches"], "dtu": dtu["launches"],
                 "dl3dv": dl3dv["launches"],
-                "lpips": {f"composite_{k}": v
-                          for k, v in lpips["launches"].items()},
+                "lpips": lpips["launches"],
                 "optins": optins["launches_all"],
                 "slice": slice_run["launches"],
-                "mono": {f"composite_{k}": v
-                         for k, v in mono["launches"].items()},
+                "mono": mono["launches"],
                 "parallel": par_launches}
 
     kernels = [
@@ -3844,6 +4001,17 @@ def main():
     for k in kernels[-2:]:
         k["skip_removed_fraction"] = comp[k["name"]]["skip"][
             "removed_fraction"]
+    for name in ("project_fwd", "project_bwd"):
+        r = proj[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "syn3r_tpu_torch/csrc/project.cu",
+            "replaces": "none (XLA: syn3r_tpu/ops/rasterize.py:55)",
+            "launches": scene["launches"][name],
+            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms")},
+            "autograd_route_ms": proj["autograd_route_ms"],
+            "per": "one call at 131,072 slots, 504x378, SH degree 3"})
     # GEGLU and flash: the largest error at the dtu and optins phases'
     # shapes too
     for k in kernels[:2]:
@@ -3868,7 +4036,8 @@ def main():
                    "frame_attention": frame_rows,
                    "small_unet": small, "unit": unit, "guided": guided,
                    "norms": norm_rows,
-                   "composite": comp, "gs_small": gs_small, "gs": gs,
+                   "composite": comp, "project": proj,
+                   "gs_small": gs_small, "gs": gs,
                    "scene": scene, "dtu": dtu, "dtu_norms": dtu_norm_rows,
                    "dtu_kernels": dtu_kernel_rows,
                    "vision": vision, "dl3dv": dl3dv,

@@ -53,6 +53,8 @@ GN_SHAPES = [
     (3, 14400, 1280, 10, 10), (3, 3600, 1280, 14, 14)]
 # GS main path: bench.py's GS configuration, the CLI's --tile_cap 1024
 GS_W, GS_H, GS_N, GS_CAP = 504, 378, 65_536, 1024
+# the projection kernels' slots: the capacity of the llff_gs_refine cell
+PROJECT_N = 131_072
 # shortest timing window, so that it holds several nvidia-smi samples
 WINDOW_MS = 250.0
 
@@ -183,6 +185,36 @@ def gs_scene(dev, n=GS_N, width=GS_W, height=GS_H):
                           look_at_w2c([0.0, 0.0, 0.0], [0.0, 0.0, 2.5]),
                           device=dev)
     return state, cam, rng
+
+
+def project_scene(dev, n=PROJECT_N, width=GS_W, height=GS_H, rest=45,
+                  seed=0):
+    """The projection kernels' inputs: n Gaussians (numpy seed ``seed``)
+    in ``gs_points``' slab before a width x height camera (504x378 by
+    default, looking at the slab from the origin): anisotropic, rotated,
+    SH rows of ``rest`` floats, an eighth inactive, 1% behind the camera.
+    Returns (state, camera)."""
+    from syn3r_tpu_torch.models import gaussians as GM
+    from syn3r_tpu_torch.utils.camera import camera_from_fov, look_at_w2c
+    rng = np.random.default_rng(seed)
+    means = np.concatenate([rng.uniform(-1.5, 1.5, (n, 2)),
+                            rng.uniform(1.5, 4.0, (n, 1))], 1)
+    means[: n // 100, 2] = rng.uniform(-1.0, 0.1, n // 100)
+
+    def f32(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+
+    state = GM.GaussianState(
+        means=f32(means), quats=f32(rng.normal(0, 1, (n, 4))),
+        log_scales=f32(rng.uniform(-5.0, -3.0, (n, 3))),
+        opacity_logits=f32(rng.normal(0, 1.5, (n, 1))),
+        sh_dc=f32(rng.normal(0, 0.6, (n, 1, 3))),
+        sh_rest=f32(rng.normal(0, 0.2, (n, rest))),
+        active=torch.from_numpy(rng.random(n) > 0.125).to(dev))
+    cam = camera_from_fov(0.9, 0.7, width, height,
+                          look_at_w2c([0.0, 0.0, 0.0], [0.0, 0.0, 2.5]),
+                          device=dev)
+    return state, cam
 
 
 def gs_tile_lists(dev):

@@ -70,6 +70,16 @@ SIGNATURES = {
     # vectors a lane, grid; stream
     "layer_norm": {"syn3r_layer_norm":
                    [_P] * 4 + [_LL, _I, _F, _I, _I, _I, _I, _I, _P]},
+    "project": {
+        # means, quats, log_scales, opacity_logits, sh_dc, sh_rest, active,
+        # offset (or null), w2c, K, center, conic, rgb, depth, opacity,
+        # radius, valid; N, sh_rest row, degree; 0.65 W, 0.65 H, near;
+        # stream
+        "syn3r_project_fwd": [_P] * 17 + [_I, _I, _I, _F, _F, _F, _P],
+        # the six parameters, active, w2c, K; the gradients of center,
+        # conic, rgb, depth, opacity (each or null); those of the six
+        # parameters; N, sh_rest row, degree; 0.65 W, 0.65 H, near; stream
+        "syn3r_project_bwd": [_P] * 20 + [_I, _I, _I, _F, _F, _F, _P]},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

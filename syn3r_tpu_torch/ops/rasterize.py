@@ -1,14 +1,20 @@
 """Differentiable Gaussian-splatting rasterizer.
 
 Counterpart of ``syn3r_tpu/ops/rasterize.py``. ``project_gaussians`` is the
-EWA projection; ``rasterize`` composites every Gaussian against every pixel
-(the test oracle); ``rasterize_tiled`` is the production path: each 32x64
-tile composites only the depth-sorted Gaussians whose 3-sigma screen box
-meets it, at most ``cap`` of them (overflow drops the rearmost), in
-tile-local pixel coordinates. Its composite is ``"kernel"``
-(``ops/composite.composite_tiles``: the CUDA kernels on the card, their
-plain versions on the CPU) or ``"plain"`` (the same chunk loop in torch,
-differentiated by autograd: the JAX package's ``"xla"`` route).
+EWA projection with the SH colour, an autograd Function: on CUDA tensors
+the hand-written kernels of ``csrc/project.cu`` (one forward and one
+backward launch, counted in ``launches.project_fwd`` and
+``launches.project_bwd``; a CUDA tensor never falls back), on CPU tensors
+the plain forward ``project_gaussians_reference`` and the plain mirror of
+the backward kernel, ``project_bwd_reference``. ``rasterize`` composites
+every Gaussian against every pixel (the test oracle); ``rasterize_tiled``
+is the production path: each 32x64 tile composites only the depth-sorted
+Gaussians whose 3-sigma screen box meets it, at most ``cap`` of them
+(overflow drops the rearmost), in tile-local pixel coordinates. Its
+composite is ``"kernel"`` (``ops/composite.composite_tiles``: the CUDA
+kernels on the card, their plain versions on the CPU) or ``"plain"`` (the
+same chunk loop in torch, differentiated by autograd: the JAX package's
+``"xla"`` route).
 
 The power of a Gaussian at pixel (x, y) is the bilinear form
 [x^2, xy, y^2, x, y, 1] . G with G packed from the conic and centre.
@@ -21,9 +27,16 @@ from typing import NamedTuple
 
 import torch
 
-from ..models.gaussians import GaussianState, covariance_3d, eval_sh
+from ..kernels import build
+from ..models.gaussians import (PARAM_FIELDS, SH_C0, SH_C1, SH_C2, SH_C3,
+                                GaussianState, covariance_3d, eval_sh,
+                                quat_to_rotmat)
 from ..utils.camera import Camera
+from ..utils.profiling import counters
 from .composite import composite_fwd_reference, composite_tiles
+
+# the projection kernels' sh_rest rows: at most SH degree 3
+MAX_SH_REST = 45
 
 
 class ScreenGaussians(NamedTuple):
@@ -43,14 +56,13 @@ class RenderOutput(NamedTuple):
     alpha: torch.Tensor    # (H, W)
 
 
-def project_gaussians(state: GaussianState, camera: Camera,
-                      sh_degree: int = 3, near: float = 0.2,
-                      center_offset: torch.Tensor | None = None
-                      ) -> ScreenGaussians:
-    """EWA projection with a 0.3 px dilation, the Jacobian clamped to 1.3x
-    the frustum and a 3-sigma radius. ``center_offset`` (N, 2), normally
-    zeros, lets a trainer take d(loss)/d(screen centre) for the densify
-    statistics."""
+def project_gaussians_reference(state: GaussianState, camera: Camera,
+                                sh_degree: int = 3, near: float = 0.2,
+                                center_offset: torch.Tensor | None = None
+                                ) -> ScreenGaussians:
+    """Plain torch ``project_gaussians``, differentiable by autograd: the
+    forward of ``_Project`` on CPU tensors, and what the kernel is held
+    to."""
     R = camera.w2c[:3, :3]
     tvec = camera.w2c[:3, 3]
     fx, fy = camera.K[0, 0], camera.K[1, 1]
@@ -97,6 +109,338 @@ def project_gaussians(state: GaussianState, camera: Camera,
                           0.0)
     return ScreenGaussians(center=center, conic=conic, rgb=rgb, depth=tz,
                            opacity=opacity, radius=radius, valid=valid)
+
+
+def _sh_basis(dn: torch.Tensor, degree: int) -> torch.Tensor:
+    """The real SH basis (N, (degree + 1)^2) along unit dirs dn (N, 3), with
+    ``eval_sh``'s constants: eval_sh = sum_k basis_k sh_k."""
+    x, y, z = dn.unbind(-1)
+    b = [torch.full_like(x, SH_C0)]
+    if degree >= 1:
+        b += [-(SH_C1 * y), SH_C1 * z, -(SH_C1 * x)]
+    if degree >= 2:
+        xx, yy, zz = x * x, y * y, z * z
+        b += [SH_C2[0] * (x * y), SH_C2[1] * (y * z),
+              SH_C2[2] * (2.0 * zz - xx - yy), SH_C2[3] * (x * z),
+              SH_C2[4] * (xx - yy)]
+    if degree >= 3:
+        b += [SH_C3[0] * y * (3 * xx - yy), SH_C3[1] * (x * y) * z,
+              SH_C3[2] * y * (4 * zz - xx - yy),
+              SH_C3[3] * z * (2 * zz - 3 * xx - 3 * yy),
+              SH_C3[4] * x * (4 * zz - xx - yy), SH_C3[5] * z * (xx - yy),
+              SH_C3[6] * x * (xx - 3 * yy)]
+    return torch.stack(b, -1)
+
+
+def _sh_basis_grad(dn: torch.Tensor, degree: int) -> torch.Tensor:
+    """d basis_k / d dn, (N, (degree + 1)^2, 3)."""
+    x, y, z = dn.unbind(-1)
+    o = torch.zeros_like(x)
+    g = [(o, o, o)]
+    if degree >= 1:
+        c = SH_C1
+        g += [(o, o - c, o), (o, o, o + c), (o - c, o, o)]
+    if degree >= 2:
+        c = SH_C2
+        g += [(c[0] * y, c[0] * x, o), (o, c[1] * z, c[1] * y),
+              (-2 * c[2] * x, -2 * c[2] * y, 4 * c[2] * z),
+              (c[3] * z, o, c[3] * x), (2 * c[4] * x, -2 * c[4] * y, o)]
+    if degree >= 3:
+        c = SH_C3
+        xx, yy, zz = x * x, y * y, z * z
+        g += [(6 * c[0] * x * y, c[0] * (3 * xx - 3 * yy), o),
+              (c[1] * y * z, c[1] * x * z, c[1] * x * y),
+              (-2 * c[2] * x * y, c[2] * (4 * zz - xx - 3 * yy),
+               8 * c[2] * y * z),
+              (-6 * c[3] * x * z, -6 * c[3] * y * z,
+               c[3] * (6 * zz - 3 * xx - 3 * yy)),
+              (c[4] * (4 * zz - 3 * xx - yy), -2 * c[4] * x * y,
+               8 * c[4] * x * z),
+              (2 * c[5] * x * z, -2 * c[5] * y * z, c[5] * (xx - yy)),
+              (c[6] * (3 * xx - 3 * yy), -6 * c[6] * x * y, o)]
+    return torch.stack([torch.stack(row, -1) for row in g], 1)
+
+
+def project_bwd_reference(state: GaussianState, camera: Camera, g_center,
+                          g_conic, g_rgb, g_depth, g_opacity,
+                          sh_degree: int = 3, near: float = 0.2) -> dict:
+    """Plain torch mirror of the backward kernel: the gradients of every
+    parameter field (``PARAM_FIELDS``, in their layouts) from those of the
+    projection's centre (N, 2), conic (N, 3), rgb (N, 3), depth (N,) and
+    opacity (N,), each None for zero. It recomputes the forward from the
+    parameters and applies autograd's rules through
+    ``project_gaussians_reference`` by hand: the clamps pass the gradient
+    on their inclusive bounds, the ``where`` of tz_safe, det_safe and valid
+    none to the side not taken, radius none. (The centre offset's gradient
+    is ``g_center``.)"""
+    m, q = state.means, state.quats
+    n = m.shape[0]
+
+    def given(g, *shape):
+        return m.new_zeros((n,) + shape) if g is None else g
+
+    g_center, g_conic, g_rgb = (given(g_center, 2), given(g_conic, 3),
+                                given(g_rgb, 3))
+    g_depth, g_opacity = given(g_depth), given(g_opacity)
+    R = camera.w2c[:3, :3]
+    fx, fy = camera.K[0, 0], camera.K[1, 1]
+    t = m @ R.T + camera.w2c[:3, 3]
+    tz = t[:, 2]
+    kept = ~(tz.abs() < 1e-6)
+    tzs = torch.where(kept, tz, 1e-6)
+    lim_x = 1.3 * 0.5 * camera.width / fx
+    lim_y = 1.3 * 0.5 * camera.height / fy
+    rx, ry = t[:, 0] / tzs, t[:, 1] / tzs
+    rx_in = (rx >= -lim_x) & (rx <= lim_x)
+    ry_in = (ry >= -lim_y) & (ry <= lim_y)
+    crx = torch.clamp(rx, -lim_x, lim_x)
+    cry = torch.clamp(ry, -lim_y, lim_y)
+    tz2 = tzs * tzs
+    j02 = -fx * (crx * tzs) / tz2
+    j12 = -fy * (cry * tzs) / tz2
+    T = torch.stack([(fx / tzs)[:, None] * R[0] + j02[:, None] * R[2],
+                     (fy / tzs)[:, None] * R[1] + j12[:, None] * R[2]], 1)
+    qr = torch.rsqrt((q * q).sum(-1, keepdim=True) + 1e-12)
+    rq = quat_to_rotmat(q)
+    s2 = torch.exp(2.0 * state.log_scales)
+    sig = torch.einsum("nij,nj,nkj->nik", rq, s2, rq)
+    M = T @ sig                                                # (N, 2, 3)
+    a = (M[:, 0] * T[:, 0]).sum(-1) + 0.3
+    b = (M[:, 0] * T[:, 1]).sum(-1)
+    c = (M[:, 1] * T[:, 1]).sum(-1) + 0.3
+    det = a * c - b * b
+    pos = det > 0
+    ds = torch.where(pos, det, 1.0)
+
+    # opacity = sigmoid(logit) where valid
+    valid = state.active & (tz > near) & pos
+    sg = torch.sigmoid(state.opacity_logits[:, 0])
+    d_ol = torch.where(valid, g_opacity * (1.0 - sg) * sg, 0.0)[:, None]
+
+    # colour: rgb = max(SH(dn) + 0.5, 0), dn = d / |d|
+    d = m - camera.position
+    r = torch.rsqrt((d * d).sum(-1, keepdim=True) + 1e-12)
+    dn = d * r
+    kc = (sh_degree + 1) ** 2
+    sh = state.sh[:, :kc]
+    ge = torch.where(eval_sh(state.sh, dn, sh_degree) + 0.5 >= 0, g_rgb, 0.0)
+    basis = _sh_basis(dn, sh_degree)
+    d_sh = ge[:, None, :] * basis[..., None]                   # (N, kc, 3)
+    wk = (ge[:, None, :] * sh).sum(-1)                         # (N, kc)
+    gdn = (wk[..., None] * _sh_basis_grad(dn, sh_degree)).sum(1)
+    dm = r * gdn - r ** 3 * (gdn * d).sum(-1, keepdim=True) * d
+
+    # conic = (c, -b, a) / det_safe
+    gk0, gk1, gk2 = g_conic.unbind(-1)
+    ddet = torch.where(pos, -(gk0 * (c / ds) + gk1 * (-b / ds)
+                              + gk2 * (a / ds)) / ds, 0.0)
+    da = gk2 / ds + c * ddet
+    db = -gk1 / ds - 2.0 * b * ddet
+    dc = gk0 / ds + a * ddet
+    # (a, b, c) = (M0 . T0, M0 . T1, M1 . T1), M = T Sigma
+    dM = torch.stack([da[:, None] * T[:, 0] + db[:, None] * T[:, 1],
+                      dc[:, None] * T[:, 1]], 1)
+    dT = torch.stack([da[:, None] * M[:, 0],
+                      db[:, None] * M[:, 0] + dc[:, None] * M[:, 1]], 1)
+    dT = dT + dM @ sig.transpose(1, 2)
+    dsig = T.transpose(1, 2) @ dM
+    # Sigma = Rq diag(s2) Rq^T
+    GR = (dsig + dsig.transpose(1, 2)) @ rq
+    drq = (GR * s2[:, None, :]).reshape(n, 9)
+    d_ls = 2.0 * s2 * (0.5 * (rq * GR).sum(1))
+    w, x, y, z = (q * qr).unbind(-1)
+    e = drq.unbind(-1)
+    dqn = 2.0 * torch.stack([
+        -z * e[1] + y * e[2] + z * e[3] - x * e[5] - y * e[6] + x * e[7],
+        y * e[1] + z * e[2] + y * e[3] - 2 * x * e[4] - w * e[5] + z * e[6]
+        + w * e[7] - 2 * x * e[8],
+        -2 * y * e[0] + x * e[1] + w * e[2] + x * e[3] + z * e[5] - w * e[6]
+        + z * e[7] - 2 * y * e[8],
+        -2 * z * e[0] - w * e[1] + x * e[2] + w * e[3] - 2 * z * e[4]
+        + y * e[5] + x * e[6] + y * e[7]], -1)
+    d_q = qr * dqn - qr ** 3 * (dqn * q).sum(-1, keepdim=True) * q
+
+    # T = J R; J's entries fx / tz, (-fx txz) / tz^2, fy / tz, (-fy tyz) / tz^2
+    dj00, dj02 = (dT[:, 0] * R[0]).sum(-1), (dT[:, 0] * R[2]).sum(-1)
+    dj11, dj12 = (dT[:, 1] * R[1]).sum(-1), (dT[:, 1] * R[2]).sum(-1)
+    dtxz, dtyz = -fx * (dj02 / tz2), -fy * (dj12 / tz2)
+    dtzs = (-(dj00 * fx + dj11 * fy) / tz2
+            - 2.0 * tzs * (dj02 * j02 + dj12 * j12) / tz2
+            + dtxz * crx + dtyz * cry)
+    # txz = clamp(tx / tz_safe) tz_safe
+    drx = torch.where(rx_in, dtxz * tzs, 0.0)
+    dry = torch.where(ry_in, dtyz * tzs, 0.0)
+    gu, gv = g_center.unbind(-1)
+    dt0 = drx / tzs + fx * (gu / tzs)
+    dt1 = dry / tzs + fy * (gv / tzs)
+    dtzs = dtzs - (drx * t[:, 0] + dry * t[:, 1]) / tz2 \
+        - (gu * (fx * t[:, 0]) + gv * (fy * t[:, 1])) / tz2
+    dt = torch.stack([dt0, dt1, torch.where(kept, dtzs, 0.0) + g_depth], -1)
+
+    d_rest = torch.zeros_like(state.sh_rest)
+    d_rest[:, :3 * (kc - 1)] = d_sh[:, 1:].reshape(n, -1)
+    return {"means": dm + dt @ R, "quats": d_q, "log_scales": d_ls,
+            "opacity_logits": d_ol, "sh_dc": d_sh[:, :1].contiguous(),
+            "sh_rest": d_rest}
+
+
+def _project_check(state: GaussianState, camera: Camera, sh_degree: int,
+                   extra=()):
+    """Raises on what the kernels do not take: CUDA tensors on one card,
+    float32 (active bool), contiguous, the state's layout, an SH degree of
+    0 to 3 within sh_rest's rows of at most 45."""
+    n = state.means.shape[0]
+    rest = state.sh_rest.shape[1] if state.sh_rest.dim() == 2 else -1
+    dev = state.means.device
+    if not 0 <= sh_degree <= 3 or rest % 3 or not \
+            3 * ((sh_degree + 1) ** 2 - 1) <= rest <= MAX_SH_REST:
+        raise ValueError(f"projection kernel: SH degree {sh_degree} with "
+                         f"sh_rest rows of {rest} (at most {MAX_SH_REST})")
+    shapes = {"means": (3,), "quats": (4,), "log_scales": (3,),
+              "opacity_logits": (1,), "sh_dc": (1, 3), "sh_rest": (rest,)}
+    items = [(f, getattr(state, f), (n,) + s) for f, s in shapes.items()]
+    items += [("active", state.active, (n,)), ("w2c", camera.w2c, (4, 4)),
+              ("K", camera.K, (3, 3)), *extra]
+    for name, x, shape in items:
+        if x.device.type != "cuda" or x.device != dev:
+            raise ValueError(f"projection kernel: {name} on {x.device}, "
+                             f"means on {dev}")
+        want = torch.bool if name == "active" else torch.float32
+        if x.dtype != want:
+            raise TypeError(f"projection kernel: {name} is {x.dtype}, "
+                            f"expected {want}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"projection kernel: {name} has shape "
+                             f"{tuple(x.shape)}, expected {shape}")
+        if not x.is_contiguous():
+            raise ValueError(f"projection kernel: {name} is not contiguous")
+    if state.quats.data_ptr() % 16:
+        raise ValueError("projection kernel: quats not 16-byte aligned")
+
+
+def _camera_args(camera: Camera, near: float):
+    return (1.3 * 0.5 * camera.width, 1.3 * 0.5 * camera.height, near)
+
+
+def project_fwd_launch(state: GaussianState, camera: Camera,
+                       sh_degree: int = 3, near: float = 0.2,
+                       center_offset: torch.Tensor | None = None
+                       ) -> ScreenGaussians:
+    """Launches the forward kernel on CUDA tensors (on the state's card,
+    its current stream): ``project_gaussians_reference``'s outputs."""
+    n = state.means.shape[0]
+    extra = [] if center_offset is None else [
+        ("center_offset", center_offset, (n, 2))]
+    _project_check(state, camera, sh_degree, extra)
+    dev = state.means.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    sg = ScreenGaussians(
+        center=torch.empty((n, 2), **f32), conic=torch.empty((n, 3), **f32),
+        rgb=torch.empty((n, 3), **f32), depth=torch.empty((n,), **f32),
+        opacity=torch.empty((n,), **f32), radius=torch.empty((n,), **f32),
+        valid=torch.empty((n,), dtype=torch.bool, device=dev))
+    if n == 0:
+        return sg
+    with torch.cuda.device(dev):
+        err = build.entry("project", "syn3r_project_fwd")(
+            *(getattr(state, f).data_ptr() for f in PARAM_FIELDS),
+            state.active.data_ptr(),
+            None if center_offset is None else center_offset.data_ptr(),
+            camera.w2c.data_ptr(), camera.K.data_ptr(),
+            *(x.data_ptr() for x in sg), n, state.sh_rest.shape[1],
+            sh_degree, *_camera_args(camera, near),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"project_fwd kernel launch failed: cudaError "
+                           f"{err}")
+    counters["launches.project_fwd"] += 1
+    return sg
+
+
+def project_bwd_launch(state: GaussianState, camera: Camera, g_center,
+                       g_conic, g_rgb, g_depth, g_opacity,
+                       sh_degree: int = 3, near: float = 0.2) -> dict:
+    """Launches the backward kernel on CUDA tensors: the gradients of every
+    parameter field, as ``project_bwd_reference`` gives them (an output
+    gradient may be None)."""
+    n = state.means.shape[0]
+    grads = [("g_center", g_center, (n, 2)), ("g_conic", g_conic, (n, 3)),
+             ("g_rgb", g_rgb, (n, 3)), ("g_depth", g_depth, (n,)),
+             ("g_opacity", g_opacity, (n,))]
+    grads = [(name, g.contiguous(), shape) for name, g, shape in grads
+             if g is not None]
+    _project_check(state, camera, sh_degree, grads)
+    out = {f: torch.empty_like(getattr(state, f)) for f in PARAM_FIELDS}
+    if n == 0:
+        return out
+    given = {name: g for name, g, _ in grads}
+    dev = state.means.device
+    with torch.cuda.device(dev):
+        err = build.entry("project", "syn3r_project_bwd")(
+            *(getattr(state, f).data_ptr() for f in PARAM_FIELDS),
+            state.active.data_ptr(), camera.w2c.data_ptr(),
+            camera.K.data_ptr(),
+            *(given[k].data_ptr() if k in given else None
+              for k in ("g_center", "g_conic", "g_rgb", "g_depth",
+                        "g_opacity")),
+            *(out[f].data_ptr() for f in PARAM_FIELDS), n,
+            state.sh_rest.shape[1], sh_degree, *_camera_args(camera, near),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"project_bwd kernel launch failed: cudaError "
+                           f"{err}")
+    counters["launches.project_bwd"] += 1
+    return out
+
+
+class _Project(torch.autograd.Function):
+    """``project_gaussians``: the kernels on CUDA tensors, the plain forward
+    and the plain mirror of the backward on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, camera, sh_degree, near, active, center_offset,
+                *params):
+        ctx.set_materialize_grads(False)
+        state = GaussianState(**dict(zip(PARAM_FIELDS, params)),
+                              active=active)
+        if state.means.device.type == "cpu":
+            sg = project_gaussians_reference(state, camera, sh_degree, near,
+                                             center_offset)
+        else:
+            sg = project_fwd_launch(state, camera, sh_degree, near,
+                                    center_offset)
+        ctx.save_for_backward(active, *params)
+        ctx.camera, ctx.sh_degree, ctx.near = camera, sh_degree, near
+        ctx.has_offset = center_offset is not None
+        ctx.mark_non_differentiable(sg.radius, sg.valid)
+        return tuple(sg)
+
+    @staticmethod
+    def backward(ctx, g_center, g_conic, g_rgb, g_depth, g_opacity, *_):
+        active, *params = ctx.saved_tensors
+        state = GaussianState(**dict(zip(PARAM_FIELDS, params)),
+                              active=active)
+        bwd = (project_bwd_reference if state.means.device.type == "cpu"
+               else project_bwd_launch)
+        grads = bwd(state, ctx.camera, g_center, g_conic, g_rgb, g_depth,
+                    g_opacity, ctx.sh_degree, ctx.near)
+        return (None, None, None, None,
+                g_center if ctx.has_offset else None,
+                *(grads[f] for f in PARAM_FIELDS))
+
+
+def project_gaussians(state: GaussianState, camera: Camera,
+                      sh_degree: int = 3, near: float = 0.2,
+                      center_offset: torch.Tensor | None = None
+                      ) -> ScreenGaussians:
+    """EWA projection with a 0.3 px dilation, the Jacobian clamped to 1.3x
+    the frustum and a 3-sigma radius; SH colour of ``sh_degree``.
+    ``center_offset`` (N, 2), normally zeros, lets a trainer take
+    d(loss)/d(screen centre) for the densify statistics. Differentiable in
+    the parameter fields and the offset."""
+    return ScreenGaussians(*_Project.apply(
+        camera, sh_degree, near, state.active, center_offset,
+        *(getattr(state, f) for f in PARAM_FIELDS)))
 
 
 def _packed_features(conic, center):
