@@ -15,6 +15,12 @@ package's converted ``.npz`` goes through
 computes in float32, as the JAX module declares; its convolutions are
 cuDNN's, in full float32 once ``device.resolve_device`` has turned TF32
 off.
+
+Spans (``utils.profiling.span``): ``lpips.forward`` around a distance's
+forward (the gradient path's and the no-grad path's), ``lpips.backward``
+around the gradient path's backward; the counter ``lpips.calls`` counts
+the calls that take a gradient (a captured train step's share is added on
+each replay, ``gs/step_graph.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ import contextlib
 
 import torch
 from torch import nn
+
+from ..utils.profiling import counters, span
 
 _VGG_CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
             512, 512, 512, "M", 512, 512, 512]
@@ -134,8 +142,10 @@ class LPIPS(nn.Module):
         deterministic, and a CUDA-graph replay of a train step must agree
         with the same step run eagerly bit for bit."""
         if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+            counters["lpips.calls"] += 1
             return _Deterministic.apply(self, a, b)
-        return self.distance(a, b)
+        with span("lpips.forward"):
+            return self.distance(a, b)
 
     def distance(self, a, b):
         """LPIPS(a, b) with cuDNN's default algorithms."""
@@ -178,7 +188,8 @@ class _Deterministic(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, module, a, b):
-        with torch.enable_grad(), deterministic_convs():
+        with torch.enable_grad(), deterministic_convs(), \
+                span("lpips.forward"):
             xs = [t.detach().requires_grad_(t.requires_grad) for t in (a, b)]
             value = module.distance(*xs)
         ctx.graph = xs, value
@@ -187,7 +198,7 @@ class _Deterministic(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         xs, value = ctx.graph
-        with deterministic_convs():
+        with deterministic_convs(), span("lpips.backward"):
             got = iter(torch.autograd.grad(
                 value, [x for x in xs if x.requires_grad], grad))
         return (None,) + tuple(next(got) if x.requires_grad else None

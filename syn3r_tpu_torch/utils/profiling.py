@@ -13,14 +13,16 @@ counters:
   user annotation, so it adds no event to the device's timeline. With no
   profiler recording it is one shared null context. The names are dotted,
   layer first: ``denoise.*`` in ``diffusion/pipeline.py``, ``unet.*`` in
-  ``models/svd_unet.py``. A span may enclose a ``yield`` of a ``steps``
-  generator (``models.layers.run_local``): on one device the generators
+  ``models/svd_unet.py``, ``lpips.*`` in ``models/lpips.py``. A span may
+  enclose a ``yield`` of a ``steps`` generator
+  (``models.layers.run_local``): on one device the generators
   nest and so do their spans; under ``parallel/sequence_parallel.py`` the
   shards' generators run in lock-step, so their spans overlap and a kernel
   of a call across the shards is linked to the last shard's.
 - ``counters``: one process-wide ``collections.Counter`` of dotted names,
-  ``launches.<kernel>`` for each hand-written kernel's launches and
-  ``norm.copies`` for the norms' input copies. ``gs/step_graph.py`` adds
+  ``launches.<kernel>`` for each hand-written kernel's launches,
+  ``norm.copies`` for the norms' input copies and ``lpips.calls`` for the
+  LPIPS distances that take a gradient. ``gs/step_graph.py`` adds
   a captured step's share to it on each replay.
 - ``PhaseTimer`` sums the wall time per named pipeline phase (init_gs,
   densify, refine); a phase with ``sync=True`` waits for the card

@@ -18,8 +18,14 @@ with sums in another order:
   2e-3);
 - the port's segmented run against its per-step path, both with LPIPS:
   bit for bit, as without it (tests/test_torch_gs_segments.py).
+
+The term's spans and counter (``lpips.forward``, ``lpips.backward``,
+``lpips.calls``) under a CPU profiler; their card counterpart is
+``tests/test_torch_lpips_card.py``.
 """
 import torch_threads  # noqa: F401  (torch's threads under xdist)
+
+import collections
 
 import jax
 import jax.numpy as jnp
@@ -42,6 +48,7 @@ from syn3r_tpu_torch.models.convert import lpips_state_from_flax
 from syn3r_tpu_torch.models.lpips import (LPIPS, load_lpips_fn, lpips_module,
                                           vgg_conv_keys)
 from syn3r_tpu_torch.utils.camera import camera_from_numpy
+from syn3r_tpu_torch.utils.profiling import counters
 
 VALUE = dict(rtol=1e-5, atol=1e-9)
 VAL = dict(rtol=1e-5, atol=1e-6)
@@ -211,3 +218,57 @@ def test_segmented_run_with_lpips_is_the_per_step_path(trainers):
     ttr.state = s0
     ttr._run_loop(0, 2, densify=False)
     assert ttr._segments.key[-1] is False
+
+
+# -- the term's spans and counter ---------------------------------------------
+
+def _traced(fn):
+    """(the ``lpips.*`` spans opened, by name; ``lpips.calls`` added) while
+    ``fn`` runs under a CPU profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    before = counters["lpips.calls"]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    spans = collections.Counter(e.name for e in prof.events()
+                                if e.name.startswith("lpips."))
+    return dict(spans), counters["lpips.calls"] - before
+
+
+@pytest.mark.parametrize("use_lpips, spans, calls", [
+    (True, {"lpips.forward": 1, "lpips.backward": 1}, 1),
+    (False, {}, 0)])
+def test_train_step_spans_and_counter(trainers, use_lpips, spans, calls):
+    """An eager train step with the term opens each span once and counts
+    one call; a step without it opens neither and counts nothing."""
+    _, ttr = trainers
+    cam, img = ttr.train_views.view(0)
+    got = _traced(lambda: ttr._train_step(ttr.state, cam, img,
+                                          use_lpips=use_lpips))
+    assert got == (spans, calls)
+
+
+def test_no_grad_distance_opens_the_forward_span_only():
+    """The eval metric's path: ``lpips.forward`` and no call counted."""
+    model = lpips_module(random_lpips_params(2), "cpu")
+    a, b = (torch.from_numpy(x) for x in _images((32, 40, 3), 4))
+    with torch.no_grad():
+        got = _traced(lambda: model(a, b))
+    assert got == ({"lpips.forward": 1}, 0)
+
+
+def test_segment_counts_a_call_a_step(trainers):
+    """A segment of k steps with the term adds k to ``lpips.calls``, twice
+    over for two runs of the one holder (on the card, replays of one
+    capture: ``gs/step_graph.py`` adds the captured step's share)."""
+    _, ttr = trainers
+    s0 = ttr.state
+    ttr.use_lpips_loss = True
+    try:
+        for _ in range(2):
+            ttr.state = s0
+            before = counters["lpips.calls"]
+            ttr._run_loop(0, 4, densify=False)
+            assert counters["lpips.calls"] - before == 4
+    finally:
+        ttr.use_lpips_loss = False
+        ttr.state = s0
